@@ -1,0 +1,293 @@
+"""User-facing decoder classes: ``BpOsdDecoder`` / ``bposd_decoder``.
+
+Port of ``bp_osd_tpu/decoder/bposd.py``: drop-in replacements for the native
+classes the reference imports from ``ldpc`` (v2 name ``BpOsdDecoder``, v1
+spelling ``bposd_decoder``).  Constructor surface, attribute protocol
+(``bp_decoding``, ``osd0_decoding``, ``osdw_decoding``, ``converge``,
+``log_prob_ratios``, ``update_channel_probs``) and decode semantics follow the
+JAX package; ``decode()`` is ``decode_batch`` with a batch of one.
+
+A decoder lives on one ``device`` (default: the card when
+``torch.cuda.is_available()``, else the CPU).  ``backend`` in
+``{"auto", "cuda", "torch"}`` resolves by that device: on the card every
+decode goes through the CUDA kernels, on the CPU through their plain torch
+versions, and ``"cuda"`` without a card raises.
+
+Syndromes must hold 0/1 entries: a float syndrome such as 0.9 raises
+``ValueError`` instead of being truncated to 0 as the JAX package's
+``astype(uint8)`` does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..ops import BACKENDS, resolve_backend
+from .bp import BPResult, as_syndromes, bp_decode, llr_from_channel, normalize_bp_method
+from .osd import build_osd_consts, normalize_osd_method
+from .pipeline import decode_pipeline
+from .tanner import TannerGraph, canonical_device
+
+__all__ = ["BpDecoder", "BpOsdDecoder", "bp_decoder", "bposd_decoder"]
+
+_CHUNK_CARD = 16384  # decode_batch dispatch size on the card
+_CHUNK_CPU = 4096  # and on the CPU
+
+
+def _as_channel_probs(n, error_rate, channel_probs, error_channel):
+    """Resolve the per-qubit error channel from ctor args.
+
+    v1 ``channel_probs=[None]`` means "unset, use scalar error_rate"; v2
+    spells it ``error_channel``.
+    """
+    for vec in (channel_probs, error_channel):
+        if vec is None:
+            continue
+        arr = np.asarray(vec).ravel()
+        if arr.dtype == object and all(v is None for v in arr):
+            continue  # v1 sentinel [None] = unset
+        arr = arr.astype(np.float64)
+        if arr.size == n:
+            return arr
+        raise ValueError(
+            f"channel probability vector has length {arr.size}, expected {n}"
+        )
+    if error_rate is None:
+        raise ValueError("provide either error_rate or channel_probs/error_channel")
+    return np.full(n, float(error_rate))
+
+
+def _one_row(vector):
+    if torch.is_tensor(vector):
+        return vector.reshape(1, -1)
+    return np.asarray(vector).reshape(1, -1)
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to bp_osd_tpu_torch yet; use bp_osd_tpu, and "
+        "see ROADMAP.md for the order of the port"
+    )
+
+
+class BpDecoder:
+    """Belief-propagation syndrome decoder (no post-processing)."""
+
+    def __init__(
+        self,
+        parity_check_matrix,
+        error_rate: float | None = None,
+        max_iter: int = 0,
+        bp_method: str = "minimum_sum",
+        ms_scaling_factor: float = 1.0,
+        channel_probs=None,
+        error_channel=None,
+        input_vector_type: str = "syndrome",
+        schedule: str = "parallel",
+        proto=None,
+        lift: int | None = None,
+        backend: str = "auto",
+        device=None,
+        **unused,
+    ):
+        if proto is not None or lift is not None:
+            raise _not_ported("protograph-lifted decoding (proto/lift)")
+        if schedule in ("serial", "layered"):
+            raise _not_ported(f"schedule={schedule!r}")
+        if schedule != "parallel":
+            raise ValueError(
+                f"schedule must be parallel/serial/layered, got {schedule!r}")
+        if input_vector_type not in ("syndrome", "received_vector"):
+            raise NotImplementedError(
+                f"input_vector_type={input_vector_type!r} is not supported; "
+                "choose 'syndrome' or 'received_vector'"
+            )
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if device is None:
+            on_card = backend == "cuda" or (
+                backend == "auto" and torch.cuda.is_available())
+            device = "cuda" if on_card else "cpu"
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "a decoder on 'cuda' needs a CUDA card; "
+                "torch.cuda.is_available() is false")
+        self.device = canonical_device(device)
+        self.backend = resolve_backend(backend, self.device)
+
+        H = (parity_check_matrix.toarray() if sp.issparse(parity_check_matrix)
+             else np.asarray(parity_check_matrix))
+        self.schedule = "parallel"
+        self.graph = TannerGraph(H, self.device)
+        self.input_vector_type = input_vector_type
+        self._H_f32 = (torch.as_tensor(self.graph.H, dtype=torch.float32, device=self.device)
+                       if input_vector_type == "received_vector" else None)
+        self.m, self.n = self.graph.m, self.graph.n
+        self.bp_method = normalize_bp_method(bp_method)
+        self.max_iter = int(max_iter) if max_iter else self.graph.n
+        self.ms_scaling_factor = float(ms_scaling_factor)
+        self.channel_probs = _as_channel_probs(
+            self.n, error_rate, channel_probs, error_channel
+        )
+        self.error_rate = error_rate
+
+        # per-decode outputs (single-syndrome attribute protocol)
+        self.bp_decoding = np.zeros(self.n, dtype=np.uint8)
+        self.log_prob_ratios = np.zeros(self.n, dtype=np.float32)
+        self.converge = 0
+        self.iter = 0
+
+    def update_channel_probs(self, probs) -> None:
+        """Swap the prior channel for later decodes."""
+        probs = np.asarray(probs, dtype=np.float64).ravel()
+        if probs.size != self.n:
+            raise ValueError(f"expected {self.n} probabilities, got {probs.size}")
+        self.channel_probs = probs
+
+    def _llr0(self, channel_probs=None) -> torch.Tensor:
+        probs = self.channel_probs if channel_probs is None else channel_probs
+        return llr_from_channel(probs).to(self.device)
+
+    def _resolve_input(self, vectors):
+        """Map decode() input to ``(syndromes [B, m] uint8, received [B, n]
+        uint8 or None)`` on the decoder's device; in received-vector mode
+        decodings are ``received XOR e_hat``."""
+        if torch.is_tensor(vectors) and vectors.device != self.device:
+            raise ValueError(
+                f"input is on {vectors.device}, the decoder on {self.device}")
+        if self.input_vector_type == "syndrome":
+            return as_syndromes(vectors, self.m, self.device), None
+        rec = as_syndromes(vectors, self.n, self.device, what="received vectors")
+        # f32 counts are exact far beyond any row weight
+        synd = torch.remainder(rec.to(torch.float32) @ self._H_f32.T, 2)
+        return synd.to(torch.uint8), rec
+
+    @staticmethod
+    def _out(x: torch.Tensor, outputs: str):
+        return x.cpu().numpy() if outputs == "host" else x
+
+    def decode_batch(self, syndromes, channel_probs=None, outputs: str = "host"):
+        if outputs not in ("host", "device"):
+            raise ValueError(f"outputs must be host/device, got {outputs!r}")
+        synd, received = self._resolve_input(syndromes)
+        res: BPResult = bp_decode(
+            self.graph, synd, self._llr0(channel_probs), bp_method=self.bp_method,
+            max_iter=self.max_iter, ms_scaling_factor=self.ms_scaling_factor,
+            backend=self.backend,
+        )
+        hard = res.hard if received is None else res.hard ^ received
+        self.bp_decoding_batch = self._out(hard, outputs)
+        self.log_prob_ratios_batch = self._out(res.llr, outputs)
+        self.converge_batch = self._out(res.converged, outputs)
+        self.iter_batch = self._out(res.iterations, outputs)
+        return self.bp_decoding_batch
+
+    def decode(self, syndrome) -> np.ndarray:
+        out = self.decode_batch(_one_row(syndrome))
+        self.bp_decoding = out[0]
+        self.log_prob_ratios = self.log_prob_ratios_batch[0]
+        self.converge = int(self.converge_batch[0])
+        self.iter = int(self.iter_batch[0])
+        return self.bp_decoding
+
+
+class BpOsdDecoder(BpDecoder):
+    """BP decoding with OSD post-processing (the reference's workhorse).
+
+    ``decode`` returns the OSD-w decoding and populates ``bp_decoding``,
+    ``osd0_decoding``, ``osdw_decoding``, ``converge`` — when BP converges,
+    OSD is bypassed and all three decodings coincide.  Decoding runs the
+    staged pipeline (:func:`~bp_osd_tpu_torch.decoder.pipeline.decode_pipeline`).
+    """
+
+    def __init__(
+        self,
+        parity_check_matrix,
+        error_rate: float | None = None,
+        max_iter: int = 0,
+        bp_method: str = "minimum_sum",
+        ms_scaling_factor: float = 1.0,
+        channel_probs=None,
+        error_channel=None,
+        osd_method: str = "osd_0",
+        osd_order: int = 0,
+        backend: str = "auto",
+        input_vector_type: str = "syndrome",
+        proto=None,
+        lift: int | None = None,
+        device=None,
+        **unused,
+    ):
+        super().__init__(
+            parity_check_matrix,
+            error_rate=error_rate,
+            max_iter=max_iter,
+            bp_method=bp_method,
+            ms_scaling_factor=ms_scaling_factor,
+            channel_probs=channel_probs,
+            error_channel=error_channel,
+            input_vector_type=input_vector_type,
+            proto=proto,
+            lift=lift,
+            backend=backend,
+            device=device,
+            **unused,
+        )
+        self.osd_method = normalize_osd_method(osd_method)
+        self.osd_order = int(osd_order)
+        self._osd_consts = build_osd_consts(self.graph, self.osd_method,
+                                            self.osd_order)
+        self.osd0_decoding = np.zeros(self.n, dtype=np.uint8)
+        self.osdw_decoding = np.zeros(self.n, dtype=np.uint8)
+
+    def decode_batch(self, syndromes, channel_probs=None,
+                     chunk_size: int | None = None, outputs: str = "host"):
+        """Decode a syndrome batch; returns the osdw decodings ``[B, n]``.
+
+        ``chunk_size=None`` dispatches 16384 rows at a time on the card and
+        4096 on the CPU.  ``outputs="device"`` leaves every ``*_batch``
+        attribute as a tensor on the decoder's device instead of numpy.
+        """
+        if outputs not in ("host", "device"):
+            raise ValueError(f"outputs must be host/device, got {outputs!r}")
+        if chunk_size is None:
+            chunk_size = _CHUNK_CARD if self.device.type == "cuda" else _CHUNK_CPU
+        synd, received = self._resolve_input(syndromes)
+        llr0 = self._llr0(channel_probs)
+        outs = []
+        for lo in range(0, synd.shape[0], chunk_size):
+            outs.append(decode_pipeline(
+                self.graph, synd[lo : lo + chunk_size], llr0,
+                bp_method=self.bp_method, max_iter=self.max_iter,
+                ms_scaling_factor=self.ms_scaling_factor,
+                osd_method=self.osd_method, osd_order=self.osd_order,
+                consts=self._osd_consts, backend=self.backend,
+            ))
+        cat = [torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*outs)]
+        osdw, osd0, hard, conv, iters, llr = cat
+        if received is not None:
+            hard, osd0, osdw = hard ^ received, osd0 ^ received, osdw ^ received
+        self.bp_decoding_batch = self._out(hard, outputs)
+        self.log_prob_ratios_batch = self._out(llr, outputs)
+        self.converge_batch = self._out(conv, outputs)
+        self.iter_batch = self._out(iters, outputs)
+        self.osd0_decoding_batch = self._out(osd0, outputs)
+        self.osdw_decoding_batch = self._out(osdw, outputs)
+        return self.osdw_decoding_batch
+
+    def decode(self, syndrome) -> np.ndarray:
+        out = self.decode_batch(_one_row(syndrome))
+        self.bp_decoding = self.bp_decoding_batch[0]
+        self.log_prob_ratios = self.log_prob_ratios_batch[0]
+        self.converge = int(self.converge_batch[0])
+        self.iter = int(self.iter_batch[0])
+        self.osd0_decoding = self.osd0_decoding_batch[0]
+        self.osdw_decoding = self.osdw_decoding_batch[0]
+        return self.osdw_decoding
+
+
+# v1 spellings (reference ``__init__.py:1`` re-export and README usage)
+bposd_decoder = BpOsdDecoder
+bp_decoder = BpDecoder

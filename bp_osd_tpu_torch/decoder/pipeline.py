@@ -1,0 +1,117 @@
+"""Batched BP+OSD decode pipeline with staged long-iteration BP.
+
+Port of ``bp_osd_tpu/decoder/pipeline.py``.  BP runs to ``max_iter`` in
+stages ``(s_1, s_2, ...) -> max_iter``: stage 1 decodes the whole batch and
+emits its message state; each later stage resumes only the failures of the
+stage before it, at iteration ``s_prev + 1``, from that state.  BP is
+deterministic and the adaptive min-sum factor depends only on the global
+iteration, so the staged result equals one straight ``max_iter`` run bit for
+bit.  OSD then runs on the rows BP left unconverged, and the results are
+merged back in original batch order.
+
+The JAX package pads each stage to a static prefix tier (``_prefix_cond``)
+because XLA needs static shapes; here each stage takes exactly its failures.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .bp import as_f32, as_syndromes, bp_decode, normalize_bp_method
+from .osd import OsdConsts, osd_decode
+from .tanner import TannerGraph
+
+__all__ = ["BpOsdBatch", "auto_stage_schedule", "decode_pipeline"]
+
+
+def _partition_order(conv: torch.Tensor):
+    """Failure-clustered order and the failure count: non-converged rows
+    first, each group in original index order (= a stable argsort of
+    ``conv``)."""
+    B = conv.shape[0]
+    c = conv.to(torch.int64)
+    nfail = B - int(c.sum())
+    pos = torch.where(conv, nfail + torch.cumsum(c, 0) - 1, torch.cumsum(1 - c, 0) - 1)
+    order = torch.empty_like(pos)
+    order[pos] = torch.arange(B, device=conv.device)
+    return order, nfail
+
+
+class BpOsdBatch(NamedTuple):
+    osdw: torch.Tensor  # [B, n] uint8 final decoding (BP if converged)
+    osd0: torch.Tensor  # [B, n] uint8 OSD-0 decoding (BP if converged)
+    bp_hard: torch.Tensor  # [B, n] uint8 BP hard decision at freeze point
+    converged: torch.Tensor  # [B] bool BP convergence
+    iterations: torch.Tensor  # [B] int32
+    llr: torch.Tensor  # [B, n] float32 BP soft output (posterior LLRs)
+
+
+def auto_stage_schedule(max_iter: int) -> tuple[int, ...]:
+    """Stage caps ``max_iter/16`` and ``max_iter/4``, floored to multiples of
+    8 (``(24, 96)`` at ``max_iter = 400``); caps ``>= max_iter`` are dropped."""
+    mi = int(max_iter)
+    caps = sorted({max(8, mi // 16 // 8 * 8), max(16, mi // 4 // 8 * 8)})
+    return tuple(c for c in caps if c < mi) or (mi,)
+
+
+def decode_pipeline(
+    graph: TannerGraph,
+    syndromes,
+    llr0,
+    *,
+    bp_method: str = "minimum_sum",
+    max_iter: int = 0,
+    ms_scaling_factor: float = 0.625,
+    osd_method: str = "osd_cs",
+    osd_order: int = 0,
+    consts: OsdConsts | None = None,
+    backend: str = "auto",
+) -> BpOsdBatch:
+    """Full batched BP+OSD decode, BP staged by :func:`auto_stage_schedule`."""
+    method = normalize_bp_method(bp_method)
+    if max_iter == 0:
+        max_iter = graph.n
+    max_iter = int(max_iter)
+    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    graph = graph.to(device)
+    synd = as_syndromes(syndromes, graph.m, device)
+    B, n = synd.shape[0], graph.n
+    llr0 = as_f32(llr0, device).expand(B, n)
+    caps = [c for c in auto_stage_schedule(max_iter) if c < max_iter] + [max_iter]
+    bp_kw = dict(bp_method=method, ms_scaling_factor=ms_scaling_factor,
+                 backend=backend)
+
+    emit = caps[0] < max_iter
+    out = bp_decode(graph, synd, llr0, max_iter=caps[0], emit_state=emit, **bp_kw)
+    bp, v2c = out if emit else (out, None)
+    hard, llr = bp.hard, bp.llr
+    conv, iters = bp.converged, bp.iterations
+    for s_prev, s_next in zip(caps, caps[1:]):
+        order, nfail = _partition_order(conv)
+        if nfail == 0:
+            break
+        sel = order[:nfail]
+        emit = s_next < max_iter
+        out = bp_decode(graph, synd[sel], llr0[sel], max_iter=s_next,
+                        v2c_init=v2c[sel], it0=s_prev, emit_state=emit, **bp_kw)
+        res, v2c_sel = out if emit else (out, None)
+        hard[sel] = res.hard
+        llr[sel] = res.llr
+        conv[sel] = res.converged
+        iters[sel] = res.iterations
+        if emit:
+            v2c[sel] = v2c_sel
+
+    osdw = hard.clone()
+    osd0 = hard.clone()
+    order, nfail = _partition_order(conv)
+    if nfail:
+        sel = order[:nfail]
+        o = osd_decode(graph, synd[sel], llr[sel], osd_method=osd_method,
+                       osd_order=osd_order, consts=consts, backend=backend)
+        osdw[sel] = o.osdw
+        osd0[sel] = o.osd0
+    return BpOsdBatch(osdw=osdw, osd0=osd0, bp_hard=hard, converged=conv,
+                      iterations=iters, llr=llr)

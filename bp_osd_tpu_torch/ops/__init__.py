@@ -1,0 +1,39 @@
+"""Hand-written CUDA kernels for the decode hot path, and backend selection.
+
+Each kernel lives in ``bp_osd_tpu_torch/csrc/`` and is built by
+:mod:`bp_osd_tpu_torch.ops._build` on first use.  Its wrapper
+(:mod:`.cuda_bp`, :mod:`.cuda_osd`) launches it for CUDA tensors and uses the
+plain torch version, in the matching ``decoder`` module, for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["BACKENDS", "resolve_backend"]
+
+BACKENDS = ("auto", "cuda", "torch")
+
+
+def resolve_backend(backend: str, device) -> str:
+    """Map ``backend`` in :data:`BACKENDS` to ``"cuda"`` or ``"torch"``.
+
+    ``"auto"`` follows ``device``: CUDA tensors always go to the kernels.
+    ``"cuda"`` on CPU tensors and ``"torch"`` on CUDA tensors raise; nothing
+    falls back to another device or path.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    on_card = torch.device(device).type == "cuda"
+    if backend == "cuda" and not on_card:
+        raise RuntimeError(
+            "backend='cuda' needs the inputs on a CUDA device "
+            f"(got {device}; torch.cuda.is_available()="
+            f"{torch.cuda.is_available()})"
+        )
+    if backend == "torch" and on_card:
+        raise ValueError(
+            "CUDA tensors always go to the kernels: backend='torch' takes CPU "
+            "tensors (call the plain *_plain function to run it on the card)"
+        )
+    return "cuda" if on_card else "torch"

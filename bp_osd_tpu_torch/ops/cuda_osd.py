@@ -1,0 +1,76 @@
+"""Wrapper of kernel K2, ``csrc/osd_cs.cu``: osd0 / osd_cs, one block per sample.
+
+Replaces ``bp_osd_tpu/ops/pallas_osd.py:osd_cs_pallas`` and its pre-pass
+``_permuted_packed_h`` (the kernel builds the permuted matrix itself from
+``perm`` and ``H_packed``).  CUDA tensors go to the kernel; CPU tensors to the
+plain torch version, :func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain`.
+``osd_cs.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..decoder.osd import osd_decode_plain
+from ..decoder.tanner import TannerGraph
+from . import _build
+from .cuda_bp import _SMEM_LIMIT, _check
+
+__all__ = ["osd_cs"]
+
+
+def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
+           osd_order: int, pairs=None, skip: torch.Tensor | None = None):
+    """osd_cs on reliability order ``perm [B, n]`` int32; ``osd_order == 0``
+    is osd0.  ``pairs`` is ``build_osd_consts(...).pairs`` (``[C2, 2]``,
+    None below two T columns).  Returns ``(osd0, osdw)`` uint8 ``[B, n]`` in
+    original coordinates, zero on skipped rows."""
+    if perm.device.type == "cpu":
+        return osd_decode_plain(graph, perm, synd, method="osd_cs",
+                                osd_order=osd_order, pairs=pairs, skip=skip)
+    if perm.device.type != "cuda":
+        raise ValueError(f"osd_cs takes CPU or CUDA tensors, got {perm.device}")
+    dev = perm.device
+    graph = graph.to(dev)
+    B, m, n, r = perm.shape[0], graph.m, graph.n, graph.rank
+    W, Wm = graph.num_words, -(-m // 32)
+    lam = max(0, min(int(osd_order), n - r))
+    _check(perm, "perm", torch.int32, (B, n), dev)
+    _check(synd, "synd", torch.uint8, (B, m), dev)
+    if skip is not None:
+        skip = skip.to(torch.uint8)
+        _check(skip, "skip", torch.uint8, (B,), dev)
+    n_pairs = lam * (lam - 1) // 2
+    if n_pairs:
+        pairs = np.asarray(pairs, np.int32)
+        if pairs.shape != (n_pairs, 2):
+            raise ValueError(f"pairs: expected ({n_pairs}, 2), got {pairs.shape}")
+        pairs_t = torch.from_numpy(pairs.reshape(-1)).to(dev)
+    else:
+        pairs_t = None
+
+    lib = _build.load()
+    smem = lib.osd_cs_smem_bytes(m, n, W, Wm, lam)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"graph needs {smem} bytes of shared memory per block, "
+                         f"more than the {_SMEM_LIMIT} a block may use")
+    e0 = torch.empty(B, n, dtype=torch.uint8, device=dev)
+    ew = torch.empty(B, n, dtype=torch.uint8, device=dev)
+    if B:
+        h_packed = graph.H_packed.contiguous()
+        err = lib.osd_cs_launch(
+            h_packed.data_ptr(), perm.data_ptr(), synd.data_ptr(),
+            skip.data_ptr() if skip is not None else None,
+            pairs_t.data_ptr() if pairs_t is not None else None,
+            e0.data_ptr(), ew.data_ptr(),
+            B, m, n, W, Wm, r, lam, n_pairs, int(lam > 0),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"osd_cs launch failed: CUDA error {err}")
+        osd_cs.launches += 1
+    return e0, ew
+
+
+osd_cs.launches = 0

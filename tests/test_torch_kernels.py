@@ -1,0 +1,125 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+Marked ``gpu``: each test skips without a CUDA card, since a CUDA kernel has
+no CPU mode.  Run on a machine with a card, where jax is not needed:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bp_osd_tpu_torch.codes import hgp, mkmn_16_4_6, mkmn_20_5_8, rep_code
+from bp_osd_tpu_torch.decoder.bp import bp_decode, bp_decode_plain, llr_from_channel
+from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode_plain
+from bp_osd_tpu_torch.decoder.tanner import TannerGraph
+from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
+from bp_osd_tpu_torch.ops.cuda_osd import osd_cs
+
+pytestmark = pytest.mark.gpu
+
+CODES = {
+    "surface": lambda: hgp(rep_code(3), rep_code(3)).hx.toarray(),
+    "flagship": lambda: hgp(mkmn_16_4_6()).hx.toarray(),
+    "625": lambda: hgp(mkmn_20_5_8()).hx.toarray(),
+    "weight1": lambda: np.eye(6, dtype=np.uint8),
+}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _batch(H, B, p, seed, dev):
+    rng = np.random.default_rng(seed)
+    err = (rng.random((B, H.shape[1])) < p).astype(np.uint8)
+    synd = torch.as_tensor(err @ H.T % 2, dtype=torch.uint8, device=dev)
+    llr0 = llr_from_channel(np.full(H.shape[1], p)).to(dev).expand(B, H.shape[1])
+    return synd, llr0
+
+
+def _equal(a, b):
+    for x, y in zip(a, b):
+        if x is None or y is None:
+            assert x is None and y is None
+        else:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("code", ["surface", "flagship", "625", "weight1"])
+@pytest.mark.parametrize("msf", [0.0, 0.625])
+def test_bp_flood_min_sum_bit_identical(dev, code, msf):
+    H = np.asarray(CODES[code](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, llr0 = _batch(H, 96, 0.06, 1, dev)
+    kw = dict(method="minimum_sum", max_iter=60, ms_scaling_factor=msf, emit_state=True)
+    skip = torch.zeros(96, dtype=torch.bool, device=dev)
+    skip[::7] = True
+    for extra in ({}, {"skip": skip}):
+        _equal(bp_flood(g, synd, llr0, **kw, **extra),
+               bp_decode_plain(g, synd, llr0, **kw, **extra))
+
+
+def test_bp_flood_resume_bit_identical(dev):
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, llr0 = _batch(H, 128, 0.05, 2, dev)
+    kw = dict(method="minimum_sum", ms_scaling_factor=0.0)
+    first = bp_flood(g, synd, llr0, max_iter=24, emit_state=True, **kw)
+    _equal(bp_flood(g, synd, llr0, max_iter=96, v2c_init=first[4], it0=24, **kw),
+           bp_decode_plain(g, synd, llr0, max_iter=96, v2c_init=first[4], it0=24, **kw))
+
+
+def test_bp_flood_product_sum(dev):
+    """tanhf/atanhf in the kernel and torch's CUDA tanh/atanh may round
+    differently by an ulp: llr within 1e-4, decisions identical."""
+    H = np.asarray(CODES["surface"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, llr0 = _batch(H, 64, 0.08, 3, dev)
+    kw = dict(method="product_sum", max_iter=20, ms_scaling_factor=1.0)
+    k = bp_flood(g, synd, llr0, **kw)
+    p = bp_decode_plain(g, synd, llr0, **kw)
+    for i in (0, 2, 3):
+        assert torch.equal(k[i], p[i])
+    assert torch.allclose(k[1], p[1], atol=1e-4)
+
+
+@pytest.mark.parametrize("code,order", [("surface", 4), ("flagship", 0),
+                                        ("flagship", 7), ("flagship", 42),
+                                        ("625", 42)])
+def test_osd_cs_bit_identical(dev, code, order):
+    H = np.asarray(CODES[code](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, llr0 = _batch(H, 80, 0.06, 4, dev)
+    res = bp_decode(g, synd, llr0, bp_method="ms", max_iter=30, ms_scaling_factor=0.0)
+    perm = torch.argsort(res.llr, dim=1, stable=True).to(torch.int32)
+    pairs = build_osd_consts(g, "osd_cs", order).pairs
+    skip = res.converged.clone()
+    skip[::2] = False
+    for sk in (None, skip):
+        k = osd_cs(g, perm, synd, osd_order=order, pairs=pairs, skip=sk)
+        p = osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=order,
+                             pairs=pairs, skip=sk)
+        _equal(k, p)
+        Hf = torch.as_tensor(H, dtype=torch.float32, device=dev)
+        live = torch.ones_like(res.converged) if sk is None else ~sk
+        got = torch.remainder(k[1][live].float() @ Hf.T, 2).to(torch.uint8)
+        assert torch.equal(got, synd[live])
+
+
+def test_wrappers_count_launches_and_check_inputs(dev):
+    H = np.asarray(CODES["surface"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, llr0 = _batch(H, 8, 0.05, 5, dev)
+    before = bp_flood.launches
+    bp_decode(g, synd, llr0, max_iter=5, backend="cuda")
+    assert bp_flood.launches == before + 1
+    with pytest.raises(ValueError):
+        bp_flood(g, synd.to(torch.int32), llr0, method="minimum_sum", max_iter=5,
+                 ms_scaling_factor=0.0)
+    with pytest.raises(ValueError):
+        bp_decode(g, synd, llr0, backend="torch")
