@@ -15,6 +15,7 @@ from .code_util import (
 )
 from .css import css_code
 from .hgp import hgp, hgp_single
+from .lifted_product import circulant, lifted_hgp, protograph_to_binary
 from .stab import gf2_to_gf4, stab_code
 
 __all__ = [
@@ -32,4 +33,7 @@ __all__ = [
     "gf2_to_gf4",
     "hgp",
     "hgp_single",
+    "lifted_hgp",
+    "circulant",
+    "protograph_to_binary",
 ]

@@ -7,6 +7,12 @@ spelling ``bposd_decoder``).  Constructor surface, attribute protocol
 ``log_prob_ratios``, ``update_channel_probs``) and decode semantics follow the
 JAX package; ``decode()`` is ``decode_batch`` with a batch of one.
 
+``proto=``/``lift=`` name the protograph whose lift is H (e.g.
+``lifted_hgp(...).hx_proto``): BP then runs the shift-routed lifted BP of
+:mod:`~bp_osd_tpu_torch.decoder.lifted_bp`, straight to ``max_iter``, the
+only BP that holds an n ~ 10^4 code; on the card OSD goes to kernel K5 when
+K2's shared memory cannot hold the matrix.
+
 A decoder lives on one ``device`` (default: the card when
 ``torch.cuda.is_available()``, else the CPU).  ``backend`` in
 ``{"auto", "cuda", "torch"}`` resolves by that device: on the card every
@@ -26,6 +32,7 @@ import torch
 
 from ..ops import BACKENDS, resolve_backend
 from .bp import BPResult, as_syndromes, bp_decode, llr_from_channel, normalize_bp_method
+from .lifted_bp import LiftedGraph, bp_decode_lifted
 from .osd import build_osd_consts, normalize_osd_method
 from .pipeline import decode_pipeline
 from .tanner import TannerGraph, canonical_device
@@ -92,8 +99,13 @@ class BpDecoder:
         device=None,
         **unused,
     ):
-        if proto is not None or lift is not None:
-            raise _not_ported("protograph-lifted decoding (proto/lift)")
+        H = (parity_check_matrix.toarray() if sp.issparse(parity_check_matrix)
+             else np.asarray(parity_check_matrix))
+        if proto is not None:
+            if lift is None:
+                raise ValueError("proto requires lift")
+            if schedule != "parallel":
+                raise ValueError("lifted decoding supports only the parallel schedule")
         if schedule in ("serial", "layered"):
             raise _not_ported(f"schedule={schedule!r}")
         if schedule != "parallel":
@@ -116,9 +128,13 @@ class BpDecoder:
                 "torch.cuda.is_available() is false")
         self.device = canonical_device(device)
         self.backend = resolve_backend(backend, self.device)
-
-        H = (parity_check_matrix.toarray() if sp.issparse(parity_check_matrix)
-             else np.asarray(parity_check_matrix))
+        self._lifted = None
+        if proto is not None:
+            lg = LiftedGraph(proto, int(lift), self.device)
+            if (lg.m, lg.n) != H.shape:
+                raise ValueError(f"protograph lift is {lg.m}x{lg.n} but H is "
+                                 f"{H.shape[0]}x{H.shape[1]}")
+            self._lifted = lg
         self.schedule = "parallel"
         self.graph = TannerGraph(H, self.device)
         self.input_vector_type = input_vector_type
@@ -172,11 +188,14 @@ class BpDecoder:
         if outputs not in ("host", "device"):
             raise ValueError(f"outputs must be host/device, got {outputs!r}")
         synd, received = self._resolve_input(syndromes)
-        res: BPResult = bp_decode(
-            self.graph, synd, self._llr0(channel_probs), bp_method=self.bp_method,
-            max_iter=self.max_iter, ms_scaling_factor=self.ms_scaling_factor,
-            backend=self.backend,
-        )
+        kw = dict(bp_method=self.bp_method, max_iter=self.max_iter,
+                  ms_scaling_factor=self.ms_scaling_factor)
+        if self._lifted is not None:
+            res: BPResult = bp_decode_lifted(self._lifted, synd,
+                                             self._llr0(channel_probs), **kw)
+        else:
+            res = bp_decode(self.graph, synd, self._llr0(channel_probs),
+                            backend=self.backend, **kw)
         hard = res.hard if received is None else res.hard ^ received
         self.bp_decoding_batch = self._out(hard, outputs)
         self.log_prob_ratios_batch = self._out(res.llr, outputs)
@@ -199,7 +218,8 @@ class BpOsdDecoder(BpDecoder):
     ``decode`` returns the OSD-w decoding and populates ``bp_decoding``,
     ``osd0_decoding``, ``osdw_decoding``, ``converge`` — when BP converges,
     OSD is bypassed and all three decodings coincide.  Decoding runs the
-    staged pipeline (:func:`~bp_osd_tpu_torch.decoder.pipeline.decode_pipeline`).
+    staged pipeline (:func:`~bp_osd_tpu_torch.decoder.pipeline.decode_pipeline`),
+    or with ``proto``/``lift`` straight lifted BP and OSD on its failures.
     """
 
     def __init__(
@@ -263,7 +283,7 @@ class BpOsdDecoder(BpDecoder):
                 bp_method=self.bp_method, max_iter=self.max_iter,
                 ms_scaling_factor=self.ms_scaling_factor,
                 osd_method=self.osd_method, osd_order=self.osd_order,
-                consts=self._osd_consts, backend=self.backend,
+                consts=self._osd_consts, backend=self.backend, lifted=self._lifted,
             ))
         cat = [torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*outs)]
         osdw, osd0, hard, conv, iters, llr = cat

@@ -1,0 +1,217 @@
+"""Shift-routed BP for protograph-lifted (block-circulant) codes.
+
+Port of ``bp_osd_tpu/decoder/lifted_bp.py``.  A lifted-product matrix
+(``codes/lifted_product.py``) is described by a small protograph of cyclic
+shift exponents over ``F2[x]/(x^L - 1)``:
+
+    H[(I, l), (J, l')] = 1  iff  l' = (l + e) mod L for some e in proto[I][J]
+
+so every message route is a static cyclic shift of a length-L block.  The
+JAX package applies one ``jnp.roll`` per (block row, slot) and keeps the
+batch on the TPU's lanes (``[.., L, B]``).  Here the rolls are stacked once,
+at construction, into two routing tables (``chk_var``: edge -> variable, and
+``var_edge``: variable -> its edges), each column of which is
+``torch.roll(arange(L), shift)`` offset into its block, so one
+``index_select`` performs all of a step's rolls: three launches per
+iteration instead of three per (block row, slot), of which the
+[[10000,420]] code has 84.  The message layout is batch-major ``[B, m, wr]``
+(checks in the natural ``(I, l)`` order, slots in protograph edge order), so
+rows leave the working set with one row gather as they converge, and the
+check update is the dense path's own code.  Plain torch on the card too: the
+JAX package computes this in XLA, outside any Pallas kernel.
+
+Semantics kept exactly from the JAX package:
+
+- a variable adds its incoming messages block row ``I`` outer, slot ``s``
+  inner, starting from zeros, then ``total = llr0 + sum`` and
+  ``v2c = total[var of edge] - c2v``;
+- min-sum: first-minimum tie rule, 1e30 cap, sign product before
+  ``alpha * excl_min``, adaptive ``alpha = 1 - 2^-it``; product-sum clip at
+  1 - 1e-7;
+- freeze at first convergence, ``max_iter = 0`` means ``n``, and the loop
+  ends once every row has converged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .bp import (
+    BPResult,
+    _alpha,
+    _check_update_min_sum,
+    _check_update_product_sum,
+    as_f32,
+    as_syndromes,
+    normalize_bp_method,
+)
+from .tanner import canonical_device
+
+__all__ = ["LiftedGraph", "bp_decode_lifted"]
+
+# message floats of one [rows, m * wr] tensor per call: ~256 MB, about a
+# dozen such tensors live at once (1997 rows of the [[10000,420]] code)
+_MSG_BUDGET = 1 << 26
+
+
+class LiftedGraph:
+    """Routing tables of a protograph lift on ``device``.
+
+    ``proto`` is a nested list of exponent tuples as stored by
+    ``codes.lifted_product.lifted_hgp`` in ``.hx_proto`` / ``.hz_proto``.
+    ``edges[I]`` lists ``(J, e mod L)`` per slot of block row ``I``;
+    ``chk_mask [wr, mp, 1, 1]`` (numpy) is the JAX package's slot mask.
+    """
+
+    _TENSORS = ("chk_var", "edge_mask", "var_edge")
+
+    def __init__(self, proto, lift: int, device="cpu"):
+        self.proto = [[tuple(int(e) for e in ent) for ent in row] for row in proto]
+        self.L = L = int(lift)
+        self.mp = len(proto)
+        self.np_ = len(proto[0]) if self.mp else 0
+        self.m, self.n = self.mp * L, self.np_ * L
+        self.edges = [[(J, e % L) for J, exps in enumerate(row) for e in exps]
+                      for row in self.proto]
+        self.wr = max((len(e) for e in self.edges), default=1)
+        mask = np.zeros((self.wr, self.mp, 1, 1), np.bool_)
+        for I, row in enumerate(self.edges):
+            mask[: len(row), I] = True
+        self.chk_mask = mask
+        self.device = canonical_device(device)
+
+        m, n, wr = self.m, self.n, self.wr
+        ar = torch.arange(L)
+        chk_var = torch.full((self.mp, L, wr), n, dtype=torch.int64)
+        into = [[] for _ in range(self.np_)]  # per var block: edge-id columns
+        for I, row in enumerate(self.edges):
+            for s, (J, e) in enumerate(row):
+                chk_var[I, :, s] = J * L + torch.roll(ar, -e)  # (l + e) mod L
+                into[J].append((I * L + torch.roll(ar, e)) * wr + s)  # (l' - e) mod L
+        depth = max((len(c) for c in into), default=1)
+        var_edge = torch.full((self.np_, L, depth), m * wr, dtype=torch.int64)
+        for J, cols in enumerate(into):
+            for d, col in enumerate(cols):
+                var_edge[J, :, d] = col
+        edge_mask = torch.from_numpy(mask[:, :, 0, 0].T.copy())  # [mp, wr]
+        self.chk_var = chk_var.reshape(m * wr).to(self.device)
+        self.edge_mask = (edge_mask[:, None, :].expand(self.mp, L, wr)
+                          .reshape(m, wr).to(self.device))
+        self.var_edge = var_edge.reshape(n * depth).to(self.device)
+        self.depth = depth
+
+    def to(self, device) -> "LiftedGraph":
+        """The same graph with its tables on ``device``."""
+        device = canonical_device(device)
+        if device == self.device:
+            return self
+        g = object.__new__(LiftedGraph)
+        g.__dict__.update(self.__dict__)
+        g.device = device
+        for f in self._TENSORS:
+            setattr(g, f, getattr(self, f).to(device))
+        return g
+
+    @classmethod
+    def from_reference(cls, fields: dict, device="cpu") -> "LiftedGraph":
+        """Build the graph from a JAX ``LiftedGraph``'s fields.
+
+        ``fields`` holds ``proto`` (the protograph the JAX graph was built
+        from), ``L``, ``edges``, ``wr`` and ``chk_mask``; every one but
+        ``proto`` must equal what this class computes, else ``ValueError``.
+        """
+        g = cls(fields["proto"], int(fields["L"]), device)
+        ref_edges = [[(int(J), int(e)) for J, e in row] for row in fields["edges"]]
+        if ref_edges != g.edges:
+            raise ValueError("reference field 'edges' differs from the port's")
+        if int(fields["wr"]) != g.wr:
+            raise ValueError(f"reference wr={fields['wr']} differs from the port's {g.wr}")
+        if not np.array_equal(np.asarray(fields["chk_mask"]), g.chk_mask):
+            raise ValueError("reference field 'chk_mask' differs from the port's")
+        return g
+
+    def __repr__(self) -> str:
+        return (f"LiftedGraph(mp={self.mp}, np={self.np_}, L={self.L}, m={self.m}, "
+                f"n={self.n}, wr={self.wr}, device={self.device})")
+
+
+def bp_decode_lifted(
+    graph: LiftedGraph,
+    syndromes,
+    llr0,
+    *,
+    bp_method: str = "minimum_sum",
+    max_iter: int = 0,
+    ms_scaling_factor: float = 0.625,
+) -> BPResult:
+    """Batched flooding BP on a lifted graph; same contract as
+    :func:`~bp_osd_tpu_torch.decoder.bp.bp_decode` (``[B, m]`` syndromes with
+    checks ordered ``(I, l)``, ``[B, n]`` outputs with variables ``(J, l)``).
+
+    Tensor inputs decide the device.  Rows are decoded in calls of at most
+    ``2^26 / (m * wr)`` rows, so the message tensors stay bounded.
+    """
+    method = normalize_bp_method(bp_method)
+    if max_iter == 0:
+        max_iter = graph.n
+    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    graph = graph.to(device)
+    synd = as_syndromes(syndromes, graph.m, device)
+    B, n = synd.shape[0], graph.n
+    llr0 = as_f32(llr0, device).expand(B, n)
+    rows = max(1, _MSG_BUDGET // (graph.m * graph.wr))
+    parts = [_bp_rows(graph, synd[lo : lo + rows], llr0[lo : lo + rows], method,
+                      int(max_iter), float(ms_scaling_factor))
+             for lo in range(0, max(B, 1), rows)]
+    hard, llr, conv, iters = (torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*parts))
+    return BPResult(hard=hard, llr=llr, converged=conv, iterations=iters)
+
+
+def _bp_rows(graph: LiftedGraph, synd, llr0, method: str, max_iter: int, msf: float):
+    dev = synd.device
+    B, n, m, wr = synd.shape[0], graph.n, graph.m, graph.wr
+    E = m * wr
+    mask = graph.edge_mask
+    zcol = torch.zeros(B, 1, dtype=torch.float32, device=dev)
+
+    def to_edges(x, zc):  # [Ba, n] -> [Ba, m, wr], pad slots read the zero column
+        return torch.cat([x, zc], 1).index_select(1, graph.chk_var).view(-1, m, wr)
+
+    v2c = torch.where(mask, to_edges(llr0, zcol), 0.0)
+    hard = torch.zeros(B, n, dtype=torch.uint8, device=dev)
+    llr = llr0.clone()
+    conv = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    active = torch.arange(B, device=dev)
+    syn = synd.to(torch.int32)
+    l0 = llr0
+    for it in range(1, max_iter + 1):
+        Ba = active.numel()
+        if Ba == 0:
+            break
+        if method == "minimum_sum":
+            c2v = _check_update_min_sum(v2c, mask, syn, _alpha(msf, it))
+        else:
+            c2v = _check_update_product_sum(v2c, mask, syn)
+        zc = zcol[:Ba]
+        inc = torch.cat([c2v.reshape(Ba, E), zc], 1).index_select(1, graph.var_edge)
+        inc = inc.view(Ba, n, graph.depth)
+        acc = torch.zeros(Ba, n, dtype=torch.float32, device=dev)
+        for d in range(graph.depth):  # (I, s) order; a pad adds +0.0 to a sum that is never -0.0
+            acc = acc + inc[..., d]
+        total = l0 + acc
+        v2c = torch.where(mask, to_edges(total, zc) - c2v, 0.0)
+        h = (total <= 0).to(torch.uint8)
+        parity = to_edges(h, zc.to(torch.uint8)).sum(-1, dtype=torch.int32) & 1
+        ok = (parity == syn).all(-1)
+        done = ok if it < max_iter else torch.ones_like(ok)
+        if bool(done.any()):
+            idx = active[done]
+            hard[idx] = h[done]
+            llr[idx] = total[done]
+            conv[idx] = ok[done]
+            iters[idx] = it
+            keep = ~done
+            active, v2c, syn, l0 = active[keep], v2c[keep], syn[keep], l0[keep]
+    return hard, llr, conv, iters

@@ -23,9 +23,10 @@ Weights here count every row, the JAX package counts pivot rows: after full
 elimination the other rows of every column are zero, so the two differ by
 the same constant for every candidate and pick the same winner.
 
-:func:`osd_decode_plain` is the plain torch version of kernel K2
-(``csrc/osd_cs.cu``); ``osd_decode`` takes ``backend`` in
-``{"auto", "cuda", "torch"}``.  Skipped rows come back as zeros.
+:func:`osd_decode_plain` is the plain torch version of kernels K2
+(``csrc/osd_cs.cu``) and K5 (``csrc/osd_large.cu``); ``osd_decode`` takes
+``backend`` in ``{"auto", "cuda", "torch"}``.  Skipped rows come back as
+zeros.
 """
 
 from __future__ import annotations
@@ -144,14 +145,6 @@ def _pack_rows_bits(bits: torch.Tensor) -> torch.Tensor:
     return _wrap_i32((b << shifts).sum(-1))
 
 
-def _columns_packed(graph: TannerGraph) -> torch.Tensor:
-    """``[n, ceil(m/32)]`` int32: column c of H packed along rows."""
-    shifts = torch.arange(32, device=graph.device, dtype=torch.int32)
-    bits = (graph.H_packed[:, :, None] >> shifts) & 1  # [m, W, 32]
-    dense = bits.reshape(graph.m, -1)[:, : graph.n]
-    return _pack_rows_bits(dense.T)
-
-
 def _bit_at(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Bit ``pos`` of packed ``words [B, Wm]`` for ``pos [B, K] >= 0``."""
     w = words.gather(1, pos >> 5)
@@ -237,8 +230,9 @@ def _search_e(s, tcols, lam: int):
 def osd_decode_plain(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor,
                      *, method: str, osd_order: int, pairs=None, skip=None):
     """Plain torch OSD on reliability order ``perm [B, n]``; the reference for
-    kernel K2 (``csrc/osd_cs.cu``).  Returns ``(osd0, osdw)`` uint8 ``[B, n]``
-    in original coordinates, zero on skipped rows."""
+    kernels K2 (``csrc/osd_cs.cu``) and K5 (``csrc/osd_large.cu``).  Returns
+    ``(osd0, osdw)`` uint8 ``[B, n]`` in original coordinates, zero on
+    skipped rows."""
     B, n, r = perm.shape[0], graph.n, graph.rank
     dev = perm.device
     e0 = torch.zeros(B, n, dtype=torch.uint8, device=dev)
@@ -248,7 +242,7 @@ def osd_decode_plain(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor,
     if rows.numel() == 0:
         return e0, ew
     perm_a = perm[rows].long()
-    cols = torch.cat([_columns_packed(graph)[perm_a],
+    cols = torch.cat([graph.H_cols[perm_a],
                       _pack_rows_bits(synd[rows])[:, None, :]], 1)
     prow = _eliminate(cols, r)
     s = cols[:, n, :]
@@ -303,8 +297,10 @@ def osd_decode(
     """Run OSD on a batch given BP soft outputs ``llr [B, n]``.
 
     ``skip [B]`` marks rows that need no OSD (BP converged); they come back
-    as zeros.  On the card, osd0 and osd_cs run in kernel K2; osd_e needs
-    kernel K3, which is not ported yet, and raises ``NotImplementedError``.
+    as zeros.  On the card, osd0 and osd_cs run in kernel K2 when its
+    shared memory holds the matrix (``ops.cuda_osd.k2_fits``) and in kernel
+    K5 otherwise; osd_e needs kernel K3, which is not ported yet, and raises
+    ``NotImplementedError``.
     """
     method = normalize_osd_method(osd_method)
     if method == "osd_e" and osd_order > _MAX_OSD_E_ORDER:
@@ -333,9 +329,11 @@ def osd_decode(
                 "(bp_osd_tpu/ops/pallas_osd.py, mode 'e'), not ported yet; "
                 "see ROADMAP.md"
             )
-        from ..ops.cuda_osd import osd_cs
+        from ..ops.cuda_osd import k2_fits, osd_cs
+        from ..ops.cuda_osd_large import osd_large
 
-        e0, ew = osd_cs(graph, perm, synd, osd_order=order,
+        kernel = osd_cs if k2_fits(graph, order) else osd_large
+        e0, ew = kernel(graph, perm, synd, osd_order=order,
                         pairs=consts.pairs, skip=skip)
     else:
         e0, ew = osd_decode_plain(graph, perm, synd, method=method,

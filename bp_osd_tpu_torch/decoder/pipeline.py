@@ -11,6 +11,10 @@ merged back in original batch order.
 
 The JAX package pads each stage to a static prefix tier (``_prefix_cond``)
 because XLA needs static shapes; here each stage takes exactly its failures.
+
+With a :class:`~bp_osd_tpu_torch.decoder.lifted_bp.LiftedGraph`, BP is the
+shift-routed lifted BP run straight to ``max_iter`` with no stages, as the
+JAX package's decoder runs lifted codes; the OSD tail is the same.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from .bp import as_f32, as_syndromes, bp_decode, normalize_bp_method
+from .lifted_bp import LiftedGraph, bp_decode_lifted
 from .osd import OsdConsts, osd_decode
 from .tanner import TannerGraph
 
@@ -68,8 +73,11 @@ def decode_pipeline(
     osd_order: int = 0,
     consts: OsdConsts | None = None,
     backend: str = "auto",
+    lifted: LiftedGraph | None = None,
 ) -> BpOsdBatch:
-    """Full batched BP+OSD decode, BP staged by :func:`auto_stage_schedule`."""
+    """Full batched BP+OSD decode, BP staged by :func:`auto_stage_schedule`,
+    or straight lifted BP when ``lifted`` (the protograph lift of
+    ``graph.H``) is given."""
     method = normalize_bp_method(bp_method)
     if max_iter == 0:
         max_iter = graph.n
@@ -79,6 +87,30 @@ def decode_pipeline(
     synd = as_syndromes(syndromes, graph.m, device)
     B, n = synd.shape[0], graph.n
     llr0 = as_f32(llr0, device).expand(B, n)
+    if lifted is None:
+        hard, llr, conv, iters = _staged_bp(graph, synd, llr0, method, max_iter,
+                                            ms_scaling_factor, backend)
+    else:
+        hard, llr, conv, iters = bp_decode_lifted(
+            lifted, synd, llr0, bp_method=method, max_iter=max_iter,
+            ms_scaling_factor=ms_scaling_factor)
+
+    osdw = hard.clone()
+    osd0 = hard.clone()
+    order, nfail = _partition_order(conv)
+    if nfail:
+        sel = order[:nfail]
+        o = osd_decode(graph, synd[sel], llr[sel], osd_method=osd_method,
+                       osd_order=osd_order, consts=consts, backend=backend)
+        osdw[sel] = o.osdw
+        osd0[sel] = o.osd0
+    return BpOsdBatch(osdw=osdw, osd0=osd0, bp_hard=hard, converged=conv,
+                      iterations=iters, llr=llr)
+
+
+def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend):
+    """BP in the stages of :func:`auto_stage_schedule`, each resuming the
+    failures of the one before; returns ``(hard, llr, converged, iterations)``."""
     caps = [c for c in auto_stage_schedule(max_iter) if c < max_iter] + [max_iter]
     bp_kw = dict(bp_method=method, ms_scaling_factor=ms_scaling_factor,
                  backend=backend)
@@ -103,15 +135,4 @@ def decode_pipeline(
         iters[sel] = res.iterations
         if emit:
             v2c[sel] = v2c_sel
-
-    osdw = hard.clone()
-    osd0 = hard.clone()
-    order, nfail = _partition_order(conv)
-    if nfail:
-        sel = order[:nfail]
-        o = osd_decode(graph, synd[sel], llr[sel], osd_method=osd_method,
-                       osd_order=osd_order, consts=consts, backend=backend)
-        osdw[sel] = o.osdw
-        osd0[sel] = o.osd0
-    return BpOsdBatch(osdw=osdw, osd0=osd0, bp_hard=hard, converged=conv,
-                      iterations=iters, llr=llr)
+    return hard, llr, conv, iters

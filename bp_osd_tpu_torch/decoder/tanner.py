@@ -9,6 +9,9 @@ fixed-shape, padded index tensors on one device:
   ascending order, padded with the sentinel ``m * wr``.
 - ``H_packed [m, ceil(n/32)]`` int32: row-packed PCM, uint32 words (bit ``v``
   of word ``w`` is column ``32w + v``) stored as int32.
+- ``H_cols [n, ceil(m/32)]`` int32: column-packed PCM (bit ``i`` of word ``w``
+  of row ``c`` is ``H[32w + i, c]``), the column layout of the OSD matrix; not
+  a field of the JAX graph.
 
 The JAX graph's pytree protocol and its one-hot ``edge_var_onehot`` operator
 (a TPU device that routes gathers through the matrix unit) have no
@@ -40,6 +43,7 @@ class TannerGraph:
 
     _FIELDS = ("chk_var", "chk_mask", "var_edge", "var_mask", "H_packed")
     _INTS = ("m", "n", "wr", "wc", "num_words", "rank")
+    _DERIVED = ("H_cols",)
 
     def __init__(self, H, device="cpu"):
         Hd = gf2.to_dense(H)
@@ -75,6 +79,9 @@ class TannerGraph:
         self.num_words = -(-n // 32)
         by = np.ascontiguousarray(packed64).view(np.uint32)
         h_packed = np.ascontiguousarray(by[:, : self.num_words]).view(np.int32)
+        cols = np.packbits(Hd.T, axis=1, bitorder="little")  # [n, ceil(m/8)] bytes
+        cols = np.pad(cols, ((0, 0), (0, 4 * -(-m // 32) - cols.shape[1])))
+        h_cols = np.ascontiguousarray(cols).view("<u4").view(np.int32)
 
         # GF(2) rank is column-permutation invariant: every per-sample OSD
         # elimination finds exactly `rank` pivots, whatever the order
@@ -86,6 +93,7 @@ class TannerGraph:
         self.var_edge = torch.from_numpy(var_edge).to(dev)
         self.var_mask = self.var_edge != m * self.wr
         self.H_packed = torch.from_numpy(h_packed).to(dev)
+        self.H_cols = torch.from_numpy(h_cols).to(dev)
 
     def to(self, device) -> "TannerGraph":
         """The same graph with its tensors on ``device``."""
@@ -95,7 +103,7 @@ class TannerGraph:
         g = object.__new__(TannerGraph)
         g.__dict__.update(self.__dict__)
         g.device = device
-        for f in self._FIELDS:
+        for f in self._FIELDS + self._DERIVED:
             setattr(g, f, getattr(self, f).to(device))
         return g
 

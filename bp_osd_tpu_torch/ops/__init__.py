@@ -2,8 +2,9 @@
 
 Each kernel lives in ``bp_osd_tpu_torch/csrc/`` and is built by
 :mod:`bp_osd_tpu_torch.ops._build` on first use.  Its wrapper
-(:mod:`.cuda_bp`, :mod:`.cuda_osd`) launches it for CUDA tensors and uses the
-plain torch version, in the matching ``decoder`` module, for CPU tensors.
+(:mod:`.cuda_bp`, :mod:`.cuda_osd`, :mod:`.cuda_osd_large`) launches it for
+CUDA tensors and uses the plain torch version, in the matching ``decoder``
+module, for CPU tensors.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Build the CUDA kernels in ``bp_osd_tpu_torch/csrc`` and load them.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a`` (all
+in parallel) and linked into one shared library with a plain C interface,
+loaded with ``ctypes``.  The build
 runs on first use, from the package's own sources only, into
 ``bp_osd_tpu_torch/_build/``, and is cached there by a hash of the sources
 and flags.  ``nvcc`` is found through ``CUDA_HOME`` or ``PATH``.  A failed or
@@ -29,7 +30,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # as the plain torch versions' separate multiplies and adds do
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -60,26 +61,51 @@ def _sources() -> list[str]:
 def build() -> tuple[str, str]:
     """Compile the kernels if no build of these sources exists yet.
 
-    Returns ``(path of the shared library, compiler output)``; the output is
-    empty when the cached library was reused.
+    Each source is compiled by its own ``nvcc``, all started together, and
+    the objects are linked into one shared library.  Returns ``(path of the
+    shared library, compiler output)``; the output is empty when the cached
+    library was reused.
     """
     nvcc = find_nvcc()
+    sources = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sources:
         with open(src, "rb") as f:
             digest.update(f.read())
     so_path = os.path.join(BUILD_DIR, f"libbp_osd_kernels_{digest.hexdigest()[:16]}.so")
     if os.path.exists(so_path):
         return so_path, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    work = os.path.join(BUILD_DIR, f"objs.{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    jobs = []
+    for src in sources:
+        obj = os.path.join(work, os.path.basename(src) + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    log = []
+    try:
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            log.append(out + err)
+    finally:
+        for _, _, proc in jobs:  # a failed build stops the other compilers
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp,
+           *(obj for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, so_path)
-    return so_path, proc.stdout + proc.stderr
+    shutil.rmtree(work, ignore_errors=True)
+    return so_path, "".join(log)
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,4 +124,9 @@ def load() -> ctypes.CDLL:
     lib.osd_cs_launch.restype = I
     lib.osd_cs_smem_bytes.argtypes = [I, I, I, I, I]
     lib.osd_cs_smem_bytes.restype = SZ
+    lib.osd_large_launch.argtypes = [P, P, P, P, P, P, P, P,
+                                     I, I, I, I, I, I, I, I, I, P]
+    lib.osd_large_launch.restype = I
+    lib.osd_large_smem_bytes.argtypes = [I, I, I]
+    lib.osd_large_smem_bytes.restype = SZ
     return lib

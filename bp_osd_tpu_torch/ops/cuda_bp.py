@@ -73,7 +73,9 @@ def bp_flood(
     smem = lib.bp_flood_smem_bytes(m, n, wr, wc)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"graph needs {smem} bytes of shared memory per block, "
-                         f"more than the {_SMEM_LIMIT} a block may use")
+                         f"more than the {_SMEM_LIMIT} a block may use; for a "
+                         "lifted-product code pass proto=/lift= to the decoder "
+                         "(shift-routed lifted BP)")
     hard = torch.empty(B, n, dtype=torch.uint8, device=dev)
     llr = torch.empty(B, n, dtype=torch.float32, device=dev)
     conv = torch.empty(B, dtype=torch.uint8, device=dev)

@@ -17,7 +17,22 @@ from ..decoder.tanner import TannerGraph
 from . import _build
 from .cuda_bp import _SMEM_LIMIT, _check
 
-__all__ = ["osd_cs"]
+__all__ = ["k2_fits", "osd_cs", "osd_cs_smem_bytes"]
+
+
+def osd_cs_smem_bytes(m: int, n: int, lam: int) -> int:
+    """Shared memory of one K2 block, as ``csrc/osd_cs.cu:osd_cs_smem_bytes``
+    computes it (``chip_smoke.py`` holds the two equal on the card)."""
+    W, Wm = -(-n // 32), -(-m // 32)
+    return 8 * 8 + 4 * ((n + 1) * Wm + m * W + 2 * n + max(lam, 1) + 3 * Wm + 4)
+
+
+def k2_fits(graph: TannerGraph, osd_order: int) -> bool:
+    """Whether K2 holds this graph's matrix in a block's shared memory at
+    ``osd_order``; the card decodes the rest with K5 (``osd_large.cu``), as
+    the JAX package routes by ``fused_osd_fits``."""
+    lam = max(0, min(int(osd_order), graph.n - graph.rank))
+    return osd_cs_smem_bytes(graph.m, graph.n, lam) <= _SMEM_LIMIT
 
 
 def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,

@@ -18,7 +18,21 @@ Phases, one line each (any failed check exits non-zero):
 5. the main path, ``BpOsdDecoder(...).decode_batch``: the corpus's osdw and
    weights bit for bit, then 16384 fresh syndromes (every osdw satisfies its
    syndrome) timed end to end; both kernels' launch counts must be > 0;
-6. the README golden decode (surface code, errors on qubits 5 and 12).
+6. the README golden decode (surface code, errors on qubits 5 and 12);
+7. K5 (``osd_large.cu``) against its plain version: (a) K5, K2 and the plain
+   version bit-identical on the 512 corpus rows at order 42; (b) on the
+   [[10000,420]] lifted product (lift 400) K5 and the plain version
+   bit-identical on 8 rows that failed BP, every output satisfying its
+   syndrome and osdw no heavier than osd0; (c) the aux corpus
+   ``lifted_streamed`` (lift 60, where K2 does not fit) reproduced through
+   ``BpOsdDecoder(..., proto, lift=60)`` with K5 launched; the Python mirror
+   of K2's shared-memory size equals the library's;
+8. the lifted path at full width: ``BpOsdDecoder(hx, proto=hx_proto,
+   lift=400)`` (p = 0.005, min-sum 0.625, max_iter 100, osd_cs order 15) on
+   512 fresh syndromes, timed (median of 3 calls), then one batch at
+   p = 0.028 where about a quarter of the rows fail BP; every osdw satisfies
+   its syndrome, K5 is launched and K2 is not; the p = 0.028 batch is split
+   into lifted BP, argsort, K5 and host glue.
 
 It prints the card's name and power limit and a JSON line of per-kernel
 results before the last line, ``{"ok": true, "device": {...}}``.  The JAX
@@ -39,8 +53,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(ROOT, "tests", "data", "flagship_corpus.npz")
+AUX = os.path.join(ROOT, "tests", "data", "aux_corpora.npz")
 SEED = 20261016
 FRESH = 16384
+# the (3,4)-regular lifted product of bench_large.py: [[10000,420]] at lift 400
+PROTO = [[(0,), (0,), (0,), (0,)], [(0,), (1,), (2,), (3,)], [(0,), (2,), (4,), (6,)]]
+LIFT, LIFT_P, LIFT_HEAVY_P, LIFT_B, LIFT_ORDER = 400, 0.005, 0.028, 512, 15
 
 
 def check(ok, what: str) -> None:
@@ -85,13 +103,15 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
     from bp_osd_tpu_torch import BpOsdDecoder, bposd_decoder
-    from bp_osd_tpu_torch.codes import hgp, mkmn_16_4_6, rep_code
+    from bp_osd_tpu_torch.codes import hgp, lifted_hgp, mkmn_16_4_6, rep_code
     from bp_osd_tpu_torch.decoder.bp import bp_decode_plain, llr_from_channel
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
     from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode_plain
     from bp_osd_tpu_torch.decoder.tanner import TannerGraph
     from bp_osd_tpu_torch.ops import _build
     from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
-    from bp_osd_tpu_torch.ops.cuda_osd import osd_cs
+    from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_smem_bytes
+    from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
 
     dev = torch.device("cuda")
     card = card_line()
@@ -103,7 +123,8 @@ def main() -> None:
     t0 = time.perf_counter()
     so_path, log = _build.build()
     _build.load()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(so_path, ROOT)}; "
           + " | ".join(ptxas))
 
@@ -217,6 +238,133 @@ def main() -> None:
     check(np.array_equal(got, want), f"README golden decode gave {got}")
     print(f"phase 6 README golden decode on {bpd.device}: osdw flips qubit 8")
 
+    # ---- phase 7: K5 vs plain ----
+    lib = _build.load()
+    for mm, nn, lam in ((graph.m, graph.n, osd_order), (480, 1000, LIFT_ORDER),
+                        (720, 1500, LIFT_ORDER), (4800, 10000, LIFT_ORDER), (720, 1500, 0)):
+        lib_bytes = lib.osd_cs_smem_bytes(mm, nn, -(-nn // 32), -(-mm // 32), lam)
+        check(osd_cs_smem_bytes(mm, nn, lam) == lib_bytes,
+              f"K2 shared-memory mirror differs from the library at m={mm} n={nn} lam={lam}")
+    a0, aw = osd_large(graph, perm, synd, osd_order=osd_order, pairs=consts.pairs)
+    check(same(a0, q0) and same(aw, qw) and same(a0, e0) and same(aw, ew),
+          "K5 differs from K2 / the plain version on the corpus rows")
+    t0 = time.perf_counter()
+    qcode = lifted_hgp(PROTO, lift=LIFT)
+    Hl = np.asarray(qcode.hx.toarray(), np.uint8)
+    ml, nl = Hl.shape
+    dec_l = BpOsdDecoder(qcode.hx, error_rate=LIFT_P, max_iter=100, bp_method="ms",
+                         ms_scaling_factor=0.625, osd_method="osd_cs", osd_order=LIFT_ORDER,
+                         proto=qcode.hx_proto, lift=LIFT)
+    gl, lgl = dec_l.graph, LiftedGraph(qcode.hx_proto, LIFT, dev)
+    check(not k2_fits(gl, LIFT_ORDER) and not k2_fits(gl, 0), "K2 claims to fit lift 400")
+    Hl_f = torch.as_tensor(Hl, dtype=torch.float32, device=dev)
+    build_s = time.perf_counter() - t0
+
+    def lifted_batch(p, seed, rows):
+        rng = np.random.default_rng(seed)
+        err = torch.as_tensor((rng.random((rows, nl)) < p).astype(np.float32), device=dev)
+        return torch.remainder(err @ Hl_f.T, 2).to(torch.uint8)
+
+    heavy = lifted_batch(LIFT_HEAVY_P, SEED + 1, 64)
+    l0_heavy = llr_from_channel(np.full(nl, LIFT_HEAVY_P)).to(dev)
+    bp_h = bp_decode_lifted(lgl, heavy, l0_heavy, bp_method="ms", max_iter=100,
+                            ms_scaling_factor=0.625)
+    fail8 = torch.nonzero(~bp_h.converged).flatten()[:8]
+    check(fail8.numel() == 8, f"only {fail8.numel()} of 64 rows failed BP at p={LIFT_HEAVY_P}")
+    s8 = heavy[fail8]
+    p8 = torch.argsort(bp_h.llr[fail8], dim=1, stable=True).to(torch.int32)
+    pairs_l = build_osd_consts(gl, "osd_cs", LIFT_ORDER).pairs
+    k5 = osd_large(gl, p8, s8, osd_order=LIFT_ORDER, pairs=pairs_l)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    k5_plain = osd_decode_plain(gl, p8, s8, method="osd_cs", osd_order=LIFT_ORDER, pairs=pairs_l)
+    end.record()
+    torch.cuda.synchronize()
+    k5_plain_ms = start.elapsed_time(end)
+    check(same(k5[0], k5_plain[0]) and same(k5[1], k5_plain[1]),
+          "K5 osd0/osdw differ from the plain version at lift 400")
+    check(satisfies(k5[0], Hl_f, s8) and satisfies(k5[1], Hl_f, s8),
+          "K5 output violates syndromes at lift 400")
+    check(bool((k5[1].sum(1) <= k5[0].sum(1)).all()), "K5 osdw heavier than osd0")
+    k5_err = float((k5[1].int() - k5_plain[1].int()).abs().max())
+    k5_ms = cuda_ms(lambda: osd_large(gl, p8, s8, osd_order=LIFT_ORDER, pairs=pairs_l), 3)
+
+    aux = np.load(AUX)
+    _, ma, na = (int(x) for x in aux["lifted_streamed_shape"])
+    qa = lifted_hgp(PROTO, lift=60)
+    dec_a = BpOsdDecoder(qa.hx, error_rate=0.05, max_iter=12, bp_method="minimum_sum",
+                         ms_scaling_factor=0.625, osd_method="osd_cs", osd_order=15,
+                         proto=qa.hx_proto, lift=60)
+    synd_a = torch.as_tensor(np.unpackbits(aux["lifted_streamed_synd"], axis=1)[:, :ma],
+                             device=dev)
+    before_k5, before_k2 = osd_large.launches, osd_cs.launches
+    osdw_a = dec_a.decode_batch(synd_a)
+    check(osd_large.launches > before_k5 and osd_cs.launches == before_k2,
+          "the lift-60 aux corpus did not go through K5 alone")
+    check(np.array_equal(np.packbits(osdw_a, axis=1), aux["lifted_streamed_osdw"]),
+          "lifted_streamed osdw != aux corpus")
+    check(np.array_equal(dec_a.converge_batch, aux["lifted_streamed_conv"])
+          and np.array_equal(dec_a.iter_batch, aux["lifted_streamed_iters"]),
+          "lifted_streamed converged/iterations != aux corpus")
+    print(f"phase 7 K5 vs plain: corpus rows K5 == K2 == plain at order {osd_order}; "
+          f"lift {LIFT} (m={ml}, n={nl}, rank {gl.rank}; code + decoder built in "
+          f"{build_s:.1f} s): 8 BP-failing rows bit-identical, all satisfied, osdw weights "
+          f"{k5[1].sum(1).tolist()} <= osd0 {k5[0].sum(1).tolist()}; K5 {k5_ms:.3f} ms vs "
+          f"plain {k5_plain_ms:.1f} ms for the 8 rows; aux corpus lifted_streamed "
+          f"reproduced through K5; K2 shared-memory mirror == library {tag}")
+
+    # ---- phase 8: the lifted path at full width ----
+    fresh_l = lifted_batch(LIFT_P, SEED + 2, LIFT_B)
+    heavy_l = lifted_batch(LIFT_HEAVY_P, SEED + 3, LIFT_B)
+    for f in (bp_flood, osd_cs, osd_large):
+        f.launches = 0
+    walls_l = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_l = dec_l.decode_batch(fresh_l, outputs="device")
+        torch.cuda.synchronize()
+        walls_l.append(time.perf_counter() - t0)
+    conv_l = float(dec_l.converge_batch.float().mean())
+    check(satisfies(out_l, Hl_f, fresh_l), "a lifted osdw violates its syndrome")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_h = dec_l.decode_batch(heavy_l, channel_probs=np.full(nl, LIFT_HEAVY_P),
+                               outputs="device")
+    torch.cuda.synchronize()
+    wall_h = time.perf_counter() - t0
+    launches_l = {"bp_flood": bp_flood.launches, "osd_cs": osd_cs.launches,
+                  "osd_large": osd_large.launches}
+    check(launches_l["osd_large"] > 0, f"K5 not launched on the lifted path: {launches_l}")
+    check(launches_l["osd_cs"] == 0 and launches_l["bp_flood"] == 0,
+          f"the lifted path launched K1/K2: {launches_l}")
+    check(satisfies(out_h, Hl_f, heavy_l), "a heavy-batch lifted osdw violates its syndrome")
+    conv_h = dec_l.converge_batch.clone()
+    n_fail_h = int((~conv_h).sum())
+    rate_l = LIFT_B / float(np.median(walls_l))
+
+    # where the time goes on the heavy batch: lifted BP, argsort, K5, host glue
+    l0_l = llr_from_channel(np.full(nl, LIFT_P)).to(dev)
+    lbp_ms = cuda_ms(lambda: bp_decode_lifted(lgl, fresh_l, l0_l, bp_method="ms", max_iter=100,
+                                              ms_scaling_factor=0.625), 3)
+    hbp_ms = cuda_ms(lambda: bp_decode_lifted(lgl, heavy_l, l0_heavy, bp_method="ms",
+                                              max_iter=100, ms_scaling_factor=0.625), 3)
+    llr_fail = dec_l.log_prob_ratios_batch[~conv_h]
+    sort_ms = cuda_ms(lambda: torch.argsort(llr_fail, dim=1, stable=True), 3)
+    p_fail = torch.argsort(llr_fail, dim=1, stable=True).to(torch.int32)
+    s_fail = heavy_l[~conv_h]
+    k5_all_ms = cuda_ms(lambda: osd_large(gl, p_fail, s_fail, osd_order=LIFT_ORDER,
+                                          pairs=pairs_l), 3)
+    glue_ms = wall_h * 1e3 - hbp_ms - sort_ms - k5_all_ms
+    print(f"phase 8 lifted path: [[{nl},{qcode.K}]] lift {LIFT}, B={LIFT_B}, p={LIFT_P}: "
+          f"all satisfied; {rate_l:.1f} syndromes/s (median of walls "
+          f"{[round(w, 4) for w in walls_l]} s); converged fraction {conv_l:.4f}; lifted BP "
+          f"{lbp_ms:.3f} ms per batch; p={LIFT_HEAVY_P}: {n_fail_h}/{LIFT_B} rows failed BP, "
+          f"all satisfied, wall {wall_h * 1e3:.3f} ms = lifted BP {hbp_ms:.3f} + argsort "
+          f"{sort_ms:.3f} + K5 {k5_all_ms:.3f} ({k5_all_ms / max(n_fail_h, 1):.3f} ms per "
+          f"failing row) + host glue {glue_ms:.3f} ms; K5 on 8 rows {k5_ms:.3f} ms vs plain "
+          f"{k5_plain_ms:.1f} ms; launches {launches_l} {tag}")
+
     kernels = [
         {"name": "bp_flood", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/bp_flood.cu",
          "replaces": "bp_osd_tpu/ops/pallas_bp.py:140", "launches": launches["bp_flood"],
@@ -224,6 +372,10 @@ def main() -> None:
         {"name": "osd_cs", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/osd_cs.cu",
          "replaces": "bp_osd_tpu/ops/pallas_osd.py:135", "launches": launches["osd_cs"],
          "max_abs_err": osd_err, "ms": osd_ms, "plain_ms": osd_plain_ms},
+        {"name": "osd_large", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/osd_large.cu",
+         "replaces": "bp_osd_tpu/ops/pallas_osd_large.py:62",
+         "launches": launches_l["osd_large"], "max_abs_err": k5_err, "ms": k5_ms,
+         "plain_ms": k5_plain_ms},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,12 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from bp_osd_tpu_torch.codes import hgp, mkmn_16_4_6, mkmn_20_5_8, rep_code
+from bp_osd_tpu_torch.codes import hgp, lifted_hgp, mkmn_16_4_6, mkmn_20_5_8, rep_code
 from bp_osd_tpu_torch.decoder.bp import bp_decode, bp_decode_plain, llr_from_channel
-from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode_plain
+from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode, osd_decode_plain
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
-from bp_osd_tpu_torch.ops.cuda_osd import osd_cs
+from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs
+from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +26,7 @@ CODES = {
     "625": lambda: hgp(mkmn_20_5_8()).hx.toarray(),
     "weight1": lambda: np.eye(6, dtype=np.uint8),
 }
+PROTO = [[(0,), (0,), (0,), (0,)], [(0,), (1,), (2,), (3,)], [(0,), (2,), (4,), (6,)]]
 
 
 @pytest.fixture
@@ -123,3 +125,72 @@ def test_wrappers_count_launches_and_check_inputs(dev):
                  ms_scaling_factor=0.0)
     with pytest.raises(ValueError):
         bp_decode(g, synd, llr0, backend="torch")
+
+
+def _osd_inputs(H, B, seed, dev, p=0.06):
+    """Syndromes of random errors and the order of random reliabilities."""
+    rng = np.random.default_rng(seed)
+    err = (rng.random((B, H.shape[1])) < p).astype(np.uint8)
+    synd = torch.as_tensor(err @ H.T % 2, dtype=torch.uint8, device=dev)
+    llr = torch.as_tensor(rng.normal(2.0, 1.0, (B, H.shape[1])).astype(np.float32), device=dev)
+    return synd, torch.argsort(llr, dim=1, stable=True).to(torch.int32)
+
+
+@pytest.mark.parametrize("lift", [60, 100])
+@pytest.mark.parametrize("order", [0, 6, 15])
+def test_osd_large_bit_identical(dev, lift, order):
+    H = np.asarray(lifted_hgp(PROTO, lift=lift).hx.toarray(), np.uint8)
+    g = TannerGraph(H, dev)
+    assert not k2_fits(g, order)
+    synd, perm = _osd_inputs(H, 24, lift + order, dev)
+    pairs = build_osd_consts(g, "osd_cs", order).pairs
+    k = osd_large(g, perm, synd, osd_order=order, pairs=pairs)
+    _equal(k, osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=order, pairs=pairs))
+    Hf = torch.as_tensor(H, dtype=torch.float32, device=dev)
+    for e in k:
+        assert torch.equal(torch.remainder(e.float() @ Hf.T, 2).to(torch.uint8), synd)
+    assert bool((k[1].sum(1) <= k[0].sum(1)).all())
+
+
+@pytest.mark.parametrize("order", [0, 7, 42])
+def test_osd_large_equals_k2_on_flagship(dev, order):
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, 64, order, dev)
+    pairs = build_osd_consts(g, "osd_cs", order).pairs
+    _equal(osd_large(g, perm, synd, osd_order=order, pairs=pairs),
+           osd_cs(g, perm, synd, osd_order=order, pairs=pairs))
+
+
+def test_osd_large_row_chunks(dev, monkeypatch):
+    """Rows beyond one scratch buffer go out in several launches."""
+    import bp_osd_tpu_torch.ops.cuda_osd_large as k5
+
+    H = np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, 11, 8, dev)
+    pairs = build_osd_consts(g, "osd_cs", 15).pairs
+    whole = osd_large(g, perm, synd, osd_order=15, pairs=pairs)
+    monkeypatch.setattr(k5, "_SCRATCH_BYTES", 3 * 4 * (g.n + 1) * (-(-g.m // 32)))
+    before = osd_large.launches
+    _equal(osd_large(g, perm, synd, osd_order=15, pairs=pairs), whole)
+    assert osd_large.launches == before + 4  # 11 rows, 3 per launch
+
+
+def test_osd_large_skip_rows_and_launches(dev):
+    H = np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, 12, 3, dev)
+    pairs = build_osd_consts(g, "osd_cs", 15).pairs
+    skip = torch.zeros(12, dtype=torch.bool, device=dev)
+    skip[::3] = True
+    full = osd_large(g, perm, synd, osd_order=15, pairs=pairs)
+    part = osd_large(g, perm, synd, osd_order=15, pairs=pairs, skip=skip)
+    for a, b in zip(part, full):
+        assert not bool(a[skip].any()) and torch.equal(a[~skip], b[~skip])
+    # osd_decode on the card routes a code K2 cannot hold to K5
+    before, before_k2 = osd_large.launches, osd_cs.launches
+    llr = torch.as_tensor(np.random.default_rng(4).normal(2, 1, (12, g.n)).astype(np.float32),
+                          device=dev)
+    osd_decode(g, synd, llr, osd_method="osd_cs", osd_order=15, backend="cuda")
+    assert osd_large.launches == before + 1 and osd_cs.launches == before_k2

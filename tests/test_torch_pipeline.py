@@ -19,8 +19,9 @@ from bp_osd_tpu.decoder.pipeline import auto_stage_schedule as jauto_stage_sched
 from bp_osd_tpu.decoder.pipeline import decode_pipeline as jdecode_pipeline
 
 from bp_osd_tpu_torch import BpOsdDecoder, bposd_decoder
-from bp_osd_tpu_torch.codes import hamming_code, hgp, mkmn_16_4_6, rep_code
+from bp_osd_tpu_torch.codes import hamming_code, hgp, mkmn_16_4_6, protograph_to_binary, rep_code
 from bp_osd_tpu_torch.decoder import BpDecoder, TannerGraph, decode_pipeline
+from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph
 from bp_osd_tpu_torch.decoder.osd import build_osd_consts
 from bp_osd_tpu_torch.decoder.pipeline import _partition_order, auto_stage_schedule
 from bp_osd_tpu_torch.gf2 import nullspace
@@ -184,8 +185,10 @@ def test_device_outputs_and_options_not_ported_yet():
         BpOsdDecoder(H, error_rate=0.05, input_vector_type="banana")
     with pytest.raises(NotImplementedError, match="not ported"):
         BpOsdDecoder(H, error_rate=0.05, schedule="layered")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BpOsdDecoder(H, error_rate=0.05, proto=np.ones((1, 1)), lift=7)
+    proto = [[(0, 1, 3)]]  # one circulant of lift 7: a cyclic [7,4] Hamming code
+    lifted = BpOsdDecoder(protograph_to_binary(proto, 7), error_rate=0.05, proto=proto,
+                          lift=7)
+    assert isinstance(lifted._lifted, LiftedGraph) and lifted._lifted.n == 7
     dec = BpOsdDecoder(H, error_rate=0.05, max_iter=7, bp_method="ps", osd_method="osd0")
     e = np.zeros(7, np.uint8)
     e[3] = 1
