@@ -34,6 +34,16 @@
 //
 // Tables: chk_var [m * wr] (pad = n) and var_edge [n * wc] (pad = m * wr),
 // both int32 and ascending within a row, as TannerGraph lays them out.
+//
+// Placement.  A block keeps the tables and its sample's state (syndrome,
+// v2c, c2v, totals, prior) in shared memory when bp_flood_smem_bytes fits a
+// block (232,448 bytes on Hopper: up to lift 140 of the bench protograph).
+// Above that (the dense [[10000,420]] lifted product needs 662,400 bytes)
+// the same code runs with kGlobal: the tables are read from device memory
+// through the read-only cache and the state lives in this block's slice of
+// a scratch buffer, bp_flood_scratch_words per sample, which stays in L2 for
+// the few hundred samples a launch takes.  The arithmetic is the same, so
+// both placements are bit-identical to the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,14 +54,15 @@ constexpr float kBig = 1e30f;
 constexpr float kTanhClip = 1.0f - 1e-7f;
 constexpr int kThreads = 256;
 
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 bp_flood_kernel(const uint8_t* __restrict__ synd, const float* __restrict__ llr0,
                 long long llr0_stride, const uint8_t* __restrict__ skip,
                 const float* __restrict__ v2c_in, const int32_t* __restrict__ chk_var,
                 const int32_t* __restrict__ var_edge, uint8_t* __restrict__ hard,
                 float* __restrict__ llr, uint8_t* __restrict__ conv,
-                int32_t* __restrict__ iters, float* __restrict__ v2c_out, int m, int n,
-                int wr, int wc, int max_iter, int it0, int product_sum,
+                int32_t* __restrict__ iters, float* __restrict__ v2c_out, int32_t* scratch,
+                int m, int n, int wr, int wc, int max_iter, int it0, int product_sum,
                 float alpha_fixed) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -59,16 +70,27 @@ bp_flood_kernel(const uint8_t* __restrict__ synd, const float* __restrict__ llr0
   const int E = m * wr;
 
   extern __shared__ int32_t smem[];
-  int32_t* s_cv = smem;                  // [E]
-  int32_t* s_ve = s_cv + E;              // [n * wc]
-  int32_t* s_syn = s_ve + n * wc;        // [m]
+  const int32_t* s_cv;  // [E]
+  const int32_t* s_ve;  // [n * wc]
+  int32_t* s_syn;       // [m], then the float state below
+  if constexpr (kGlobal) {
+    s_cv = chk_var;
+    s_ve = var_edge;
+    s_syn = scratch + (size_t)b * (m + 2 * (size_t)E + 2 * (size_t)n);
+  } else {
+    int32_t* cv = smem;
+    int32_t* ve = cv + E;
+    for (int i = tid; i < E; i += nt) cv[i] = chk_var[i];
+    for (int i = tid; i < n * wc; i += nt) ve[i] = var_edge[i];
+    s_cv = cv;
+    s_ve = ve;
+    s_syn = ve + n * wc;
+  }
   float* s_v2c = reinterpret_cast<float*>(s_syn + m);  // [E]
   float* s_c2v = s_v2c + E;              // [E]
   float* s_tot = s_c2v + E;              // [n]
   float* s_l0 = s_tot + n;               // [n]
 
-  for (int i = tid; i < E; i += nt) s_cv[i] = chk_var[i];
-  for (int i = tid; i < n * wc; i += nt) s_ve[i] = var_edge[i];
   for (int c = tid; c < m; c += nt) s_syn[c] = synd[(size_t)b * m + c] & 1;
   for (int v = tid; v < n; v += nt) s_l0[v] = llr0[(size_t)b * llr0_stride + v];
   __syncthreads();
@@ -189,28 +211,37 @@ bp_flood_kernel(const uint8_t* __restrict__ synd, const float* __restrict__ llr0
 
 }  // namespace
 
+// Shared memory of one block in the shared-memory placement.
 extern "C" size_t bp_flood_smem_bytes(int m, int n, int wr, int wc) {
   const size_t E = (size_t)m * wr;
   return 4 * (E + (size_t)n * wc + m + 2 * E + 2 * (size_t)n);
 }
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// Scratch words of one sample in the device-memory placement.
+extern "C" size_t bp_flood_scratch_words(int m, int n, int wr) {
+  return (size_t)m + 2 * (size_t)m * wr + 2 * (size_t)n;
+}
+
+// Launches B blocks on `stream`; with `scratch` (B * bp_flood_scratch_words
+// int32) the state lives there, else in shared memory.  Returns
+// cudaGetLastError() of the launch.
 extern "C" int bp_flood_launch(const void* synd, const void* llr0, long long llr0_stride,
                                const void* skip, const void* v2c_in, const void* chk_var,
                                const void* var_edge, void* hard, void* llr, void* conv,
-                               void* iters, void* v2c_out, int B, int m, int n, int wr,
-                               int wc, int max_iter, int it0, int product_sum,
-                               float alpha_fixed, void* stream) {
-  const size_t smem = bp_flood_smem_bytes(m, n, wr, wc);
+                               void* iters, void* v2c_out, void* scratch, int B, int m,
+                               int n, int wr, int wc, int max_iter, int it0,
+                               int product_sum, float alpha_fixed, void* stream) {
+  const size_t smem = scratch ? 0 : bp_flood_smem_bytes(m, n, wr, wc);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        bp_flood_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        bp_flood_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  bp_flood_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  auto kernel = scratch ? bp_flood_kernel<true> : bp_flood_kernel<false>;
+  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,
       (const float*)v2c_in, (const int32_t*)chk_var, (const int32_t*)var_edge,
-      (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters, (float*)v2c_out, m,
-      n, wr, wc, max_iter, it0, product_sum, alpha_fixed);
+      (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters, (float*)v2c_out,
+      (int32_t*)scratch, m, n, wr, wc, max_iter, it0, product_sum, alpha_fixed);
   return (int)cudaGetLastError();
 }

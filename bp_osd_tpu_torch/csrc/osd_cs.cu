@@ -1,10 +1,11 @@
-// osd_cs.cu -- ordered-statistics decoding with the combination sweep, one
-// thread block per sample.
+// osd_cs.cu -- ordered-statistics decoding with the combination sweep (K2)
+// or the exhaustive search (K3), one thread block per sample.
 //
 // Replaces the TPU kernel bp_osd_tpu/ops/pallas_osd.py:_osd_kernel with
-// mode="cs" (K2), together with its matrix-unit pre-pass
-// _permuted_packed_h.  The plain torch version is
-// bp_osd_tpu_torch/decoder/osd.py:osd_decode_plain; the two agree bit for bit.
+// mode="cs" (K2, entry osd_cs_launch) and mode="e" (K3, entry osd_e_launch),
+// together with its matrix-unit pre-pass _permuted_packed_h.  The plain
+// torch version is bp_osd_tpu_torch/decoder/osd.py:osd_decode_plain; the
+// kernel agrees with it bit for bit in both modes.
 //
 // Per sample, with perm the stable ascending argsort of the BP posterior:
 //   1. build the column-permuted matrix in shared memory, column-major and
@@ -21,6 +22,15 @@
 //      the first lam T columns by popcount of the residual syndrome; the
 //      key (weight << 32 | candidate rank) makes the block-wide minimum the
 //      first minimum in candidate order;
+//   4e. (K3, in place of 4) the walk over all 2^lam patterns on the first
+//      lam <= 16 T columns: the patterns are split into contiguous ranges of
+//      the Gray-code sequence, one per thread; a thread seeds its residual
+//      s ^ XOR(T_j for the bits j of gray(start)) and then XORs one T column
+//      per step (gray(i) and gray(i-1) differ in bit ctz(i)).  The key
+//      (popcount(residual) + popcount(g)) << 32 | g, with g = gray(i) the
+//      pattern, makes the block-wide minimum the first minimum in pattern
+//      counting order, as in the JAX package.  The residual stays in
+//      registers (8 or 32 words, so m <= 1024);
 //   5. osd0 and osdw are scattered to original coordinates through perm.
 // Weights count every row; the non-pivot rows of a reduced column are zero,
 // so this adds the same constant to every candidate as the JAX package's
@@ -29,7 +39,8 @@
 // What bounds it on an H100: the elimination's ~rank sequential steps, each
 // two block barriers around (n + 1) * Wm word XORs in shared memory (401 x 6
 // at the flagship); the candidate sweep is 1 + n + lam(lam-1)/2 popcounts of
-// Wm words (1262 x 6 at order 42).  Device-memory traffic is perm, the
+// Wm words (1262 x 6 at order 42); K3's walk is 2^lam residual XORs and
+// popcounts of Wm words (4096 x 6 at order 12, 16 steps a thread).  Device-memory traffic is perm, the
 // syndrome and the two outputs once per sample, plus the 10 KB row-packed H
 // that every block reads through L2.  The TPU kernel built the permuted
 // matrix with a one-hot matrix product and kept the batch on vector lanes;
@@ -52,6 +63,40 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long x) {
   return x;
 }
 
+// K3's walk over the patterns [lo, hi) of the Gray-code sequence; returns
+// the least key of the range.  kRes >= Wm words of residual in registers.
+template <int kRes>
+__device__ unsigned long long gray_walk(const uint32_t* s, const uint32_t* s_cols,
+                                        const int32_t* s_tcol, int Wm, int lo, int hi) {
+  uint32_t res[kRes];
+#pragma unroll
+  for (int w = 0; w < kRes; ++w) res[w] = w < Wm ? s[w] : 0u;
+  for (unsigned g = lo ^ (lo >> 1); g; g &= g - 1) {
+    const uint32_t* col = s_cols + (size_t)s_tcol[__ffs(g) - 1] * Wm;
+#pragma unroll
+    for (int w = 0; w < kRes; ++w)
+      if (w < Wm) res[w] ^= col[w];
+  }
+  unsigned long long best = ~0ull;
+  for (int i = lo; i < hi; ++i) {
+    if (i > lo) {
+      const uint32_t* col = s_cols + (size_t)s_tcol[__ffs(i) - 1] * Wm;
+#pragma unroll
+      for (int w = 0; w < kRes; ++w)
+        if (w < Wm) res[w] ^= col[w];
+    }
+    const unsigned g = i ^ (i >> 1);
+    int wt = __popc(g);
+#pragma unroll
+    for (int w = 0; w < kRes; ++w)
+      if (w < Wm) wt += __popc(res[w]);
+    const unsigned long long key = ((unsigned long long)wt << 32) | g;
+    best = key < best ? key : best;
+  }
+  return best;
+}
+
+template <bool kExhaustive>
 __global__ void __launch_bounds__(kThreads)
 osd_cs_kernel(const int32_t* __restrict__ h_packed, const int32_t* __restrict__ perm,
               const uint8_t* __restrict__ synd, const uint8_t* __restrict__ skip,
@@ -172,7 +217,23 @@ osd_cs_kernel(const int32_t* __restrict__ h_packed, const int32_t* __restrict__ 
   // ---- 4. candidate sweep: block-wide first minimum of the keys ----
   const uint32_t* s = s_cols + (size_t)n * Wm;
   int bt1 = -1, bt2 = -1;
-  if (sweep) {
+  unsigned pattern = 0u;  // K3: the winner's T bits
+  if constexpr (kExhaustive) {
+    const int C = 1 << lam;
+    const int per = (C + kThreads - 1) / kThreads;
+    const int lo = min(C, tid * per), hi = min(C, lo + per);
+    unsigned long long best = Wm <= 8 ? gray_walk<8>(s, s_cols, s_tcol, Wm, lo, hi)
+                                      : gray_walk<32>(s, s_cols, s_tcol, Wm, lo, hi);
+    best = warp_min(best);
+    if (lane == 0) s_red[warp] = best;
+    __syncthreads();
+    if (warp == 0) {
+      best = warp_min(lane < kWarps ? s_red[lane] : ~0ull);
+      if (lane == 0) s_red[0] = best;
+    }
+    __syncthreads();
+    pattern = (unsigned)(s_red[0] & 0xffffffffull);
+  } else if (sweep) {
     unsigned long long best = ~0ull;
     if (tid == 0) {
       int w0 = 0;
@@ -217,6 +278,8 @@ osd_cs_kernel(const int32_t* __restrict__ h_packed, const int32_t* __restrict__ 
     uint32_t x = s[w];
     if (bt1 >= 0) x ^= s_cols[(size_t)bt1 * Wm + w];
     if (bt2 >= 0) x ^= s_cols[(size_t)bt2 * Wm + w];
+    for (unsigned g = pattern; g; g &= g - 1)
+      x ^= s_cols[(size_t)s_tcol[__ffs(g) - 1] * Wm + w];
     s_best[w] = x;
   }
   __syncthreads();
@@ -231,6 +294,8 @@ osd_cs_kernel(const int32_t* __restrict__ h_packed, const int32_t* __restrict__ 
       vw = (s_best[p >> 5] >> (p & 31)) & 1u;
     } else {
       vw = (t == bt1 || t == bt2);
+      for (unsigned g = pattern; g; g &= g - 1)
+        vw |= t == s_tcol[__ffs(g) - 1];
     }
     e0[(size_t)b * n + orig] = v0;
     ew[(size_t)b * n + orig] = vw;
@@ -245,20 +310,45 @@ extern "C" size_t osd_cs_smem_bytes(int m, int n, int W, int Wm, int lam) {
               (lam > 0 ? lam : 1) + 3 * (size_t)Wm + 4);
 }
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
-extern "C" int osd_cs_launch(const void* h_packed, const void* perm, const void* synd,
-                             const void* skip, const void* pairs, void* e0, void* ew,
-                             int B, int m, int n, int W, int Wm, int rank, int lam,
-                             int n_pairs, int sweep, void* stream) {
+namespace {
+
+template <bool kExhaustive>
+int launch(const void* h_packed, const void* perm, const void* synd, const void* skip,
+           const void* pairs, void* e0, void* ew, int B, int m, int n, int W, int Wm,
+           int rank, int lam, int n_pairs, int sweep, void* stream) {
   const size_t smem = osd_cs_smem_bytes(m, n, W, Wm, lam);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        osd_cs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(osd_cs_kernel<kExhaustive>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  osd_cs_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  osd_cs_kernel<kExhaustive><<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)h_packed, (const int32_t*)perm, (const uint8_t*)synd,
       (const uint8_t*)skip, (const int32_t*)pairs, (uint8_t*)e0, (uint8_t*)ew, m, n, W, Wm,
       rank, lam, n_pairs, sweep);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K2: osd_cs (osd0 with sweep = 0).  Launches on `stream`; returns
+// cudaGetLastError() of the launch.
+extern "C" int osd_cs_launch(const void* h_packed, const void* perm, const void* synd,
+                             const void* skip, const void* pairs, void* e0, void* ew,
+                             int B, int m, int n, int W, int Wm, int rank, int lam,
+                             int n_pairs, int sweep, void* stream) {
+  return launch<false>(h_packed, perm, synd, skip, pairs, e0, ew, B, m, n, W, Wm, rank, lam,
+                       n_pairs, sweep, stream);
+}
+
+// K3: osd_e over the 2^lam patterns of the first 1 <= lam <= 16 T columns;
+// needs Wm <= 32.  Launches on `stream`; returns cudaGetLastError() of the
+// launch, or cudaErrorInvalidValue for a shape it does not take.
+extern "C" int osd_e_launch(const void* h_packed, const void* perm, const void* synd,
+                            const void* skip, void* e0, void* ew, int B, int m, int n, int W,
+                            int Wm, int rank, int lam, void* stream) {
+  if (lam < 1 || lam > 16 || Wm > 32) return (int)cudaErrorInvalidValue;
+  return launch<true>(h_packed, perm, synd, skip, nullptr, e0, ew, B, m, n, W, Wm, rank, lam,
+                      0, 0, stream);
 }

@@ -23,10 +23,13 @@ Weights here count every row, the JAX package counts pivot rows: after full
 elimination the other rows of every column are zero, so the two differ by
 the same constant for every candidate and pick the same winner.
 
-:func:`osd_decode_plain` is the plain torch version of kernels K2
-(``csrc/osd_cs.cu``) and K5 (``csrc/osd_large.cu``); ``osd_decode`` takes
-``backend`` in ``{"auto", "cuda", "torch"}``.  Skipped rows come back as
-zeros.
+:func:`osd_decode_plain` is the plain torch version of kernels K2 and K3
+(``csrc/osd_cs.cu``) and K5 (``csrc/osd_large.cu``); :func:`eliminate_plain`
+that of kernel K4 (``csrc/gf2_elim.cu``), with the JAX package's five
+elimination outputs, and :func:`osd_after_elimination` the torch steps that
+follow K4 (osd0 read-off, T-column extraction, exhaustive search).
+``osd_decode`` takes ``backend`` in ``{"auto", "cuda", "torch"}``; on the
+card :func:`osd_route` picks the kernel.  Skipped rows come back as zeros.
 """
 
 from __future__ import annotations
@@ -43,12 +46,16 @@ from .tanner import TannerGraph
 
 __all__ = [
     "OSD_METHODS",
+    "Elimination",
     "OsdConsts",
     "OsdResult",
     "build_osd_consts",
+    "eliminate_plain",
     "normalize_osd_method",
+    "osd_after_elimination",
     "osd_decode",
     "osd_decode_plain",
+    "osd_route",
 ]
 
 OSD_METHODS = {
@@ -78,6 +85,16 @@ class OsdConsts(NamedTuple):
 class OsdResult(NamedTuple):
     osd0: torch.Tensor  # [B, n] uint8
     osdw: torch.Tensor  # [B, n] uint8
+
+
+class Elimination(NamedTuple):
+    """The outputs of the JAX package's ``_eliminate``, zero on skipped rows."""
+
+    h_work: torch.Tensor  # [B, m, W] int32 (uint32 bits): reduced H, row-packed
+    s_work: torch.Tensor  # [B, m] int32: reduced syndrome
+    pivot_ids: torch.Tensor  # [B, r] int32: original column of pivot i
+    pivot_rows: torch.Tensor  # [B, r] int32: row holding pivot i
+    pivot_mask: torch.Tensor  # [B, n] bool: sorted positions that made a pivot
 
 
 def normalize_osd_method(osd_method) -> str:
@@ -145,6 +162,13 @@ def _pack_rows_bits(bits: torch.Tensor) -> torch.Tensor:
     return _wrap_i32((b << shifts).sum(-1))
 
 
+def _unpack_bits(words: torch.Tensor, m: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_rows_bits`: ``[..., Wm]`` words -> ``[..., m]`` uint8."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int64)
+    bits = (words.to(torch.int64)[..., None] >> shifts) & 1
+    return bits.flatten(-2)[..., :m].to(torch.uint8)
+
+
 def _bit_at(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Bit ``pos`` of packed ``words [B, Wm]`` for ``pos [B, K] >= 0``."""
     w = words.gather(1, pos >> 5)
@@ -187,6 +211,81 @@ def _eliminate(cols: torch.Tensor, r: int):
         prow[:, t] = torch.where(has, w.to(torch.int64) * 32 + bit, -1)
         rr += has.to(torch.int64)
     return prow
+
+
+def eliminate_plain(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor,
+                    skip=None) -> Elimination:
+    """Gauss-Jordan elimination of H in column order ``perm [B, n]``; the plain
+    torch version of kernel K4 (``csrc/gf2_elim.cu``) and the port of the
+    JAX package's ``_eliminate``, whose five outputs it returns (zeros on
+    skipped rows).  Runs the column-major :func:`_eliminate` and transposes
+    the reduced matrix back to row-packed original column order."""
+    B, m, n, r, W = perm.shape[0], graph.m, graph.n, graph.rank, graph.num_words
+    dev = perm.device
+    out = Elimination(
+        torch.zeros(B, m, W, dtype=torch.int32, device=dev),
+        torch.zeros(B, m, dtype=torch.int32, device=dev),
+        torch.zeros(B, r, dtype=torch.int32, device=dev),
+        torch.zeros(B, r, dtype=torch.int32, device=dev),
+        torch.zeros(B, n, dtype=torch.bool, device=dev),
+    )
+    rows = (torch.arange(B, device=dev) if skip is None
+            else torch.nonzero(~skip.to(torch.bool)).flatten())
+    if rows.numel() == 0:
+        return out
+    perm_a = perm[rows].long()
+    cols = torch.cat([graph.H_cols[perm_a],
+                      _pack_rows_bits(synd[rows])[:, None, :]], 1)
+    prow = _eliminate(cols, r)
+    bits = _unpack_bits(cols, m)  # [Ba, n + 1, m]
+    h_bits = torch.zeros_like(bits[:, :n]).scatter_(
+        1, perm_a[:, :, None].expand(-1, -1, m), bits[:, :n])
+    out.h_work[rows] = _pack_rows_bits(h_bits.transpose(1, 2))
+    out.s_work[rows] = bits[:, n].to(torch.int32)
+    is_piv = prow >= 0
+    found = torch.argsort((~is_piv).to(torch.int32), dim=1, stable=True)[:, :r]
+    out.pivot_ids[rows] = perm_a.gather(1, found).to(torch.int32)
+    out.pivot_rows[rows] = prow.gather(1, found).to(torch.int32)
+    out.pivot_mask[rows] = is_piv
+    return out
+
+
+def osd_after_elimination(elim: Elimination, perm: torch.Tensor, *, method: str,
+                          osd_order: int, skip=None):
+    """osd0 and osdw from kernel K4's outputs, as the JAX package continues
+    after its elimination (``bp_osd_tpu/decoder/osd.py:486-507``): osd0
+    reads the reduced syndrome at the pivot rows; osd_e extracts the first
+    ``lam`` T columns' bits at the pivot rows and searches all ``2^lam``
+    patterns (:func:`_search_e`).  osd_cs at order > 0 runs in K2 or K5
+    and is refused here.  Plain torch ops on the tensors' device; returns
+    ``(osd0, osdw)`` uint8 ``[B, n]``, zero on skipped rows."""
+    h_work, s_work, pivot_ids, pivot_rows, pivot_mask = elim
+    B, n = pivot_mask.shape
+    r = pivot_ids.shape[1]
+    lam = min(int(osd_order), n - r)
+    if method == "osd_cs" and lam > 0:
+        raise ValueError("osd_cs at order > 0 runs in K2 or K5, not after K4")
+    pid = pivot_ids.long()
+    prow = pivot_rows.long()
+    s_rows = s_work.gather(1, prow)  # [B, r]
+    e0 = torch.zeros(B, n, dtype=torch.int32, device=perm.device).scatter_(1, pid, s_rows)
+    ew = e0
+    if method == "osd_e" and lam > 0:
+        tpos = torch.argsort(pivot_mask.to(torch.int32), dim=1, stable=True)[:, :lam]
+        t_cols = perm.long().gather(1, tpos)  # [B, lam] original ids
+        W = h_work.shape[2]
+        h_rows = h_work.gather(1, prow[:, :, None].expand(-1, -1, W))  # [B, r, W]
+        words = h_rows.gather(2, (t_cols >> 5)[:, None, :].expand(-1, r, -1))
+        t_bits = (words >> (t_cols & 31)[:, None, :].to(torch.int32)) & 1  # [B, r, lam]
+        pat = _search_e(_pack_rows_bits(s_rows), _pack_rows_bits(t_bits.transpose(1, 2)), lam)
+        chosen = ((pat[:, None] >> torch.arange(lam, device=pat.device)) & 1).to(torch.int32)
+        e_piv = ((s_rows + (t_bits * chosen[:, None, :]).sum(-1)) & 1).to(torch.int32)
+        ew = torch.zeros_like(e0).scatter_(1, pid, e_piv).scatter_(1, t_cols, chosen)
+    e0, ew = e0.to(torch.uint8), ew.to(torch.uint8)
+    if skip is not None:
+        live = ~skip.to(torch.bool)[:, None]
+        e0, ew = e0 * live, ew * live
+    return e0, ew
 
 
 def _search_cs(s, tcols, pairs):
@@ -297,10 +396,11 @@ def osd_decode(
     """Run OSD on a batch given BP soft outputs ``llr [B, n]``.
 
     ``skip [B]`` marks rows that need no OSD (BP converged); they come back
-    as zeros.  On the card, osd0 and osd_cs run in kernel K2 when its
-    shared memory holds the matrix (``ops.cuda_osd.k2_fits``) and in kernel
-    K5 otherwise; osd_e needs kernel K3, which is not ported yet, and raises
-    ``NotImplementedError``.
+    as zeros.  On the card the kernel is :func:`osd_route`'s: osd_cs in K2,
+    or K5 when K2's shared memory cannot hold the matrix; osd_e in K3, or
+    else K4 and the torch search of :func:`osd_after_elimination`; osd0 and
+    order-0 decodes in K4, or K5 on codes K2 cannot hold.  On the CPU every
+    method runs :func:`osd_decode_plain`.
     """
     method = normalize_osd_method(osd_method)
     if method == "osd_e" and osd_order > _MAX_OSD_E_ORDER:
@@ -323,19 +423,39 @@ def osd_decode(
     perm = torch.argsort(llr, dim=1, stable=True).to(torch.int32)
     order = 0 if method == "osd0" else int(osd_order)
     if resolve_backend(backend, device) == "cuda":
-        if method == "osd_e":
-            raise NotImplementedError(
-                "osd_e on the card needs kernel K3 "
-                "(bp_osd_tpu/ops/pallas_osd.py, mode 'e'), not ported yet; "
-                "see ROADMAP.md"
-            )
-        from ..ops.cuda_osd import k2_fits, osd_cs
+        from ..ops.cuda_gf2 import eliminate
+        from ..ops.cuda_osd import osd_cs, osd_e
         from ..ops.cuda_osd_large import osd_large
 
-        kernel = osd_cs if k2_fits(graph, order) else osd_large
-        e0, ew = kernel(graph, perm, synd, osd_order=order,
-                        pairs=consts.pairs, skip=skip)
+        route = osd_route(graph, method, order)
+        if route == "k3":
+            e0, ew = osd_e(graph, perm, synd, osd_order=order, skip=skip)
+        elif route == "k4":
+            e0, ew = osd_after_elimination(eliminate(graph, perm, synd, skip=skip), perm,
+                                           method=method, osd_order=order, skip=skip)
+        else:
+            kernel = osd_cs if route == "k2" else osd_large
+            e0, ew = kernel(graph, perm, synd, osd_order=order,
+                            pairs=consts.pairs, skip=skip)
     else:
         e0, ew = osd_decode_plain(graph, perm, synd, method=method,
                                   osd_order=order, pairs=consts.pairs, skip=skip)
     return OsdResult(osd0=e0, osdw=ew)
+
+
+def osd_route(graph, method: str, osd_order: int) -> str:
+    """The kernel that decodes ``method`` at ``osd_order`` on the card, as the
+    JAX package routes its Pallas backend (``bp_osd_tpu/decoder/osd.py:420-485``)
+    with K2's shared-memory fit in the place of ``fused_osd_fits``:
+    ``"k2"`` osd_cs, ``"k3"`` osd_e (``csrc/osd_cs.cu``), ``"k4"`` the
+    elimination (``csrc/gf2_elim.cu``) then torch, ``"k5"`` the large-code
+    osd_cs (``csrc/osd_large.cu``).  ``graph`` needs ``m n rank``."""
+    from ..ops.cuda_osd import k2_fits, k3_fits
+
+    method = normalize_osd_method(method)
+    lam = 0 if method == "osd0" else max(0, min(int(osd_order), graph.n - graph.rank))
+    if method == "osd_cs" and lam > 0:
+        return "k2" if k2_fits(graph, lam) else "k5"
+    if method == "osd_e" and lam > 0:
+        return "k3" if k3_fits(graph, lam) else "k4"
+    return "k4" if k2_fits(graph, 0) else "k5"

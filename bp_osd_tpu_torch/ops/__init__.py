@@ -1,10 +1,17 @@
 """Hand-written CUDA kernels for the decode hot path, and backend selection.
 
 Each kernel lives in ``bp_osd_tpu_torch/csrc/`` and is built by
-:mod:`bp_osd_tpu_torch.ops._build` on first use.  Its wrapper
-(:mod:`.cuda_bp`, :mod:`.cuda_osd`, :mod:`.cuda_osd_large`) launches it for
+:mod:`bp_osd_tpu_torch.ops._build` on first use.  Its wrapper launches it for
 CUDA tensors and uses the plain torch version, in the matching ``decoder``
-module, for CPU tensors.
+module, for CPU tensors:
+
+- :mod:`.cuda_bp` ``bp_flood``: K1, flooding BP (``csrc/bp_flood.cu``);
+- :mod:`.cuda_osd` ``osd_cs`` and ``osd_e``: K2 and K3, osd0/osd_cs and
+  osd_e (``csrc/osd_cs.cu``);
+- :mod:`.cuda_gf2` ``eliminate``: K4, the GF(2) elimination
+  (``csrc/gf2_elim.cu``);
+- :mod:`.cuda_osd_large` ``osd_large``: K5, osd0/osd_cs for codes above a
+  block's shared memory (``csrc/osd_large.cu``).
 """
 
 from __future__ import annotations

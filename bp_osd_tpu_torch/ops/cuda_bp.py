@@ -2,8 +2,11 @@
 
 Replaces ``bp_osd_tpu/ops/pallas_bp.py:bp_decode_pallas``.  CUDA tensors go
 to the kernel; CPU tensors to the plain torch version,
-:func:`bp_osd_tpu_torch.decoder.bp.bp_decode_plain`.  ``bp_flood.launches``
-counts kernel launches.
+:func:`bp_osd_tpu_torch.decoder.bp.bp_decode_plain`.  A graph whose tables and
+state fit a block's shared memory (:func:`k1_fits`) runs there; a larger one
+keeps each sample's state in a device-memory scratch slice, launched in row
+chunks of at most ``_SCRATCH_BYTES``.  ``bp_flood.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -14,9 +17,10 @@ from ..decoder.bp import bp_decode_plain
 from ..decoder.tanner import TannerGraph
 from . import _build
 
-__all__ = ["bp_flood"]
+__all__ = ["bp_flood", "bp_flood_smem_bytes", "k1_fits"]
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+_SCRATCH_BYTES = 1 << 30  # device-memory placement: scratch per launch
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -25,6 +29,19 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def bp_flood_smem_bytes(m: int, n: int, wr: int, wc: int) -> int:
+    """Shared memory of one K1 block, as ``csrc/bp_flood.cu:bp_flood_smem_bytes``
+    computes it (``chip_smoke.py`` holds the two equal on the card)."""
+    E = m * wr
+    return 4 * (E + n * wc + m + 2 * E + 2 * n)
+
+
+def k1_fits(graph) -> bool:
+    """Whether K1 holds ``graph``'s tables and a sample's state in a block's
+    shared memory; otherwise the state goes to device memory."""
+    return bp_flood_smem_bytes(graph.m, graph.n, graph.wr, graph.wc) <= _SMEM_LIMIT
 
 
 def bp_flood(
@@ -70,34 +87,39 @@ def bp_flood(
         _check(v2c_init, "v2c_init", torch.float32, (B, E), dev)
 
     lib = _build.load()
-    smem = lib.bp_flood_smem_bytes(m, n, wr, wc)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"graph needs {smem} bytes of shared memory per block, "
-                         f"more than the {_SMEM_LIMIT} a block may use; for a "
-                         "lifted-product code pass proto=/lift= to the decoder "
-                         "(shift-routed lifted BP)")
     hard = torch.empty(B, n, dtype=torch.uint8, device=dev)
     llr = torch.empty(B, n, dtype=torch.float32, device=dev)
     conv = torch.empty(B, dtype=torch.uint8, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     v2c = torch.empty(B, E, dtype=torch.float32, device=dev) if emit_state else None
     if B:
+        if k1_fits(graph):
+            rows, scratch = B, None
+        else:
+            per_row = lib.bp_flood_scratch_words(m, n, wr)
+            rows = max(1, min(B, _SCRATCH_BYTES // (4 * per_row)))
+            scratch = torch.empty(rows * per_row, dtype=torch.int32, device=dev)
         chk_var = graph.chk_var.contiguous()
         var_edge = graph.var_edge.contiguous()
         alpha = float(ms_scaling_factor) if method == "minimum_sum" else 1.0
-        err = lib.bp_flood_launch(
-            synd.data_ptr(), llr0.data_ptr(), stride,
-            skip.data_ptr() if skip is not None else None,
-            v2c_init.data_ptr() if v2c_init is not None else None,
-            chk_var.data_ptr(), var_edge.data_ptr(),
-            hard.data_ptr(), llr.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-            v2c.data_ptr() if v2c is not None else None,
-            B, m, n, wr, wc, int(max_iter), int(it0), int(method == "product_sum"),
-            alpha, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"bp_flood launch failed: CUDA error {err}")
-        bp_flood.launches += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def ptr(t, row0):  # the chunk's rows of a [B, ...] tensor, or None
+            return None if t is None else t[row0:].data_ptr()
+
+        for row0 in range(0, B, rows):
+            err = lib.bp_flood_launch(
+                ptr(synd, row0), llr0[row0:].data_ptr() if stride else llr0.data_ptr(),
+                stride, ptr(skip, row0), ptr(v2c_init, row0),
+                chk_var.data_ptr(), var_edge.data_ptr(),
+                ptr(hard, row0), ptr(llr, row0), ptr(conv, row0), ptr(iters, row0),
+                ptr(v2c, row0), None if scratch is None else scratch.data_ptr(),
+                min(rows, B - row0), m, n, wr, wc, int(max_iter), int(it0),
+                int(method == "product_sum"), alpha, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"bp_flood launch failed: CUDA error {err}")
+            bp_flood.launches += 1
     return hard, llr, conv.to(torch.bool), iters, v2c
 
 

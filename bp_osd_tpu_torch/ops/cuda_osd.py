@@ -1,10 +1,12 @@
-"""Wrapper of kernel K2, ``csrc/osd_cs.cu``: osd0 / osd_cs, one block per sample.
+"""Wrappers of kernels K2 and K3, ``csrc/osd_cs.cu``: osd0 / osd_cs
+(:func:`osd_cs`) and osd_e (:func:`osd_e`), one block per sample.
 
-Replaces ``bp_osd_tpu/ops/pallas_osd.py:osd_cs_pallas`` and its pre-pass
-``_permuted_packed_h`` (the kernel builds the permuted matrix itself from
-``perm`` and ``H_packed``).  CUDA tensors go to the kernel; CPU tensors to the
-plain torch version, :func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain`.
-``osd_cs.launches`` counts kernel launches.
+Replace ``bp_osd_tpu/ops/pallas_osd.py:osd_cs_pallas`` and ``osd_e_pallas``
+and their pre-pass ``_permuted_packed_h`` (the kernel builds the permuted
+matrix itself from ``perm`` and ``H_packed``).  CUDA tensors go to the
+kernel; CPU tensors to the plain torch version,
+:func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain`.  ``osd_cs.launches``
+and ``osd_e.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from ..decoder.tanner import TannerGraph
 from . import _build
 from .cuda_bp import _SMEM_LIMIT, _check
 
-__all__ = ["k2_fits", "osd_cs", "osd_cs_smem_bytes"]
+__all__ = ["k2_fits", "k3_fits", "osd_cs", "osd_cs_smem_bytes", "osd_e"]
+
+_K3_MAX_ROWS = 1024  # K3 keeps a residual of ceil(m/32) <= 32 words in registers
 
 
 def osd_cs_smem_bytes(m: int, n: int, lam: int) -> int:
@@ -33,6 +37,21 @@ def k2_fits(graph: TannerGraph, osd_order: int) -> bool:
     the JAX package routes by ``fused_osd_fits``."""
     lam = max(0, min(int(osd_order), graph.n - graph.rank))
     return osd_cs_smem_bytes(graph.m, graph.n, lam) <= _SMEM_LIMIT
+
+
+def k3_fits(graph: TannerGraph, osd_order: int) -> bool:
+    """Whether K3 takes this graph at ``osd_order``: K2's shared memory (the
+    same layout) and at most 1024 rows."""
+    return k2_fits(graph, osd_order) and graph.m <= _K3_MAX_ROWS
+
+
+def _check_inputs(perm, synd, skip, B, m, n, dev):
+    _check(perm, "perm", torch.int32, (B, n), dev)
+    _check(synd, "synd", torch.uint8, (B, m), dev)
+    if skip is not None:
+        skip = skip.to(torch.uint8)
+        _check(skip, "skip", torch.uint8, (B,), dev)
+    return skip
 
 
 def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
@@ -51,11 +70,7 @@ def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     B, m, n, r = perm.shape[0], graph.m, graph.n, graph.rank
     W, Wm = graph.num_words, -(-m // 32)
     lam = max(0, min(int(osd_order), n - r))
-    _check(perm, "perm", torch.int32, (B, n), dev)
-    _check(synd, "synd", torch.uint8, (B, m), dev)
-    if skip is not None:
-        skip = skip.to(torch.uint8)
-        _check(skip, "skip", torch.uint8, (B,), dev)
+    skip = _check_inputs(perm, synd, skip, B, m, n, dev)
     n_pairs = lam * (lam - 1) // 2
     if n_pairs:
         pairs = np.asarray(pairs, np.int32)
@@ -89,3 +104,41 @@ def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
 
 
 osd_cs.launches = 0
+
+
+def osd_e(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
+          osd_order: int, skip: torch.Tensor | None = None):
+    """osd_e on reliability order ``perm [B, n]`` int32: all ``2^lam``
+    patterns on the first ``lam = min(osd_order, n - rank)`` T columns,
+    ``1 <= lam <= 16``, in kernel K3.  Returns ``(osd0, osdw)`` uint8
+    ``[B, n]`` in original coordinates, zero on skipped rows."""
+    if perm.device.type == "cpu":
+        return osd_decode_plain(graph, perm, synd, method="osd_e",
+                                osd_order=osd_order, skip=skip)
+    if perm.device.type != "cuda":
+        raise ValueError(f"osd_e takes CPU or CUDA tensors, got {perm.device}")
+    dev = perm.device
+    graph = graph.to(dev)
+    B, m, n, r = perm.shape[0], graph.m, graph.n, graph.rank
+    W, Wm = graph.num_words, -(-m // 32)
+    lam = max(0, min(int(osd_order), n - r))
+    if not 1 <= lam <= 16 or not k3_fits(graph, lam):
+        raise ValueError(f"K3 takes 1 <= lam <= 16 on a graph that fits it "
+                         f"(k3_fits); got lam={lam} for m={m}, n={n}")
+    skip = _check_inputs(perm, synd, skip, B, m, n, dev)
+    lib = _build.load()
+    e0 = torch.empty(B, n, dtype=torch.uint8, device=dev)
+    ew = torch.empty(B, n, dtype=torch.uint8, device=dev)
+    if B:
+        err = lib.osd_e_launch(
+            graph.H_packed.contiguous().data_ptr(), perm.data_ptr(), synd.data_ptr(),
+            skip.data_ptr() if skip is not None else None, e0.data_ptr(), ew.data_ptr(),
+            B, m, n, W, Wm, r, lam, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"osd_e launch failed: CUDA error {err}")
+        osd_e.launches += 1
+    return e0, ew
+
+
+osd_e.launches = 0

@@ -32,7 +32,25 @@ Phases, one line each (any failed check exits non-zero):
    512 fresh syndromes, timed (median of 3 calls), then one batch at
    p = 0.028 where about a quarter of the rows fail BP; every osdw satisfies
    its syndrome, K5 is launched and K2 is not; the p = 0.028 batch is split
-   into lifted BP, argsort, K5 and host glue.
+   into lifted BP, argsort, K5 and host glue;
+9. K4 (``gf2_elim.cu``): in shared and in device memory, all five outputs
+   equal ``eliminate_plain`` on the 512 corpus rows (skip rows zero); the
+   default decoder ``BpOsdDecoder(hx, error_rate=0.05)`` (osd_0, max_iter
+   400) on the 16384 fresh syndromes, timed: every osd0 satisfies its
+   syndrome, K4 is launched and K2 is not;
+10. K3 (mode "e" of ``osd_cs.cu``): equal to the plain osd_e on the corpus
+   rows at orders 12 and 16; the aux corpus ``flagship_osd_e`` reproduced
+   through ``BpOsdDecoder(..., osd_method="osd_e", osd_order=12,
+   max_iter=100)``; then the 16384 fresh syndromes at osd_e order 12, timed:
+   all satisfied, K3 launched, K2 and K4 not;
+11. the device-memory routes: osd_e order 8 on the lift-60 and lift-100
+   ``proto``/``lift`` decoders goes to K4 and the torch search (lift 60 in
+   shared memory, where K4 also runs forced to device memory; lift 100 above
+   K4's shared memory, in device memory), equal to ``osd_decode_plain`` on
+   the rows BP failed; the dense lift-400 ``BpDecoder`` (no ``proto``) runs
+   K1 with its state in device memory, bit-identical to ``bp_decode_plain``
+   on 64 rows at max_iter 100; the Python mirrors ``k1_fits``/``k4_fits``
+   equal the library's sizes.
 
 It prints the card's name and power limit and a JSON line of per-kernel
 results before the last line, ``{"ok": true, "device": {...}}``.  The JAX
@@ -102,15 +120,17 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
-    from bp_osd_tpu_torch import BpOsdDecoder, bposd_decoder
+    from bp_osd_tpu_torch import BpDecoder, BpOsdDecoder, bposd_decoder
     from bp_osd_tpu_torch.codes import hgp, lifted_hgp, mkmn_16_4_6, rep_code
     from bp_osd_tpu_torch.decoder.bp import bp_decode_plain, llr_from_channel
     from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
-    from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode_plain
+    from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd_decode,
+                                              osd_decode_plain, osd_route)
     from bp_osd_tpu_torch.decoder.tanner import TannerGraph
     from bp_osd_tpu_torch.ops import _build
-    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
-    from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_smem_bytes
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_smem_bytes, k1_fits
+    from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, gf2_elim_smem_bytes, k4_fits
+    from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_smem_bytes, osd_e
     from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
 
     dev = torch.device("cuda")
@@ -365,6 +385,174 @@ def main() -> None:
           f"failing row) + host glue {glue_ms:.3f} ms; K5 on 8 rows {k5_ms:.3f} ms vs plain "
           f"{k5_plain_ms:.1f} ms; launches {launches_l} {tag}")
 
+    counters = (bp_flood, osd_cs, osd_e, eliminate, osd_large)
+
+    def reset_counts():
+        for f in counters:
+            f.launches = 0
+
+    def counts():
+        return {f.__name__: f.launches for f in counters}
+
+    def max_err(xs, ys):
+        return max(float((x.long() - y.long()).abs().max()) if x.numel() else 0.0
+                   for x, y in zip(xs, ys))
+
+    def timed_decode(dec, batch, reps=3):
+        """Median wall of ``reps`` decodes (outputs left on the card) and the
+        last output."""
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec.decode_batch(batch, outputs="device")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return out, walls
+
+    def failing_rows(dec, batch):
+        fail = ~dec.converge_batch
+        return (torch.argsort(dec.log_prob_ratios_batch[fail], dim=1, stable=True)
+                .to(torch.int32), batch[fail])
+
+    # ---- phase 9: K4 vs plain; the default decoder (osd_0) on the card ----
+    el_plain = eliminate_plain(graph, perm, synd)
+    for pl in ("shared", "global"):
+        el = eliminate(graph, perm, synd, placement=pl)
+        for name, a, b in zip(el._fields, el, el_plain):
+            check(same(a, b), f"K4 ({pl} memory) {name} differs from eliminate_plain")
+    k4_err = max_err(el, el_plain)
+    el_skip = eliminate(graph, perm, synd, skip=skip)
+    check(all(same(a[live], b[live]) and not bool(a[skip].any())
+              for a, b in zip(el_skip, el_plain)), "K4 skip rows")
+    dec0 = BpOsdDecoder(H, error_rate=0.05)
+    check((dec0.osd_method, dec0.max_iter, dec0.bp_method) == ("osd0", n, "minimum_sum"),
+          "BpOsdDecoder defaults moved")
+    check(osd_route(graph, dec0.osd_method, dec0.osd_order) == "k4", "osd0 is not routed to K4")
+    reset_counts()
+    out0, walls0 = timed_decode(dec0, fresh)
+    launches0 = counts()
+    check(launches0["eliminate"] > 0 and launches0["bp_flood"] > 0
+          and launches0["osd_cs"] == 0 and launches0["osd_e"] == 0,
+          f"the default decoder's kernels: {launches0}")
+    check(satisfies(dec0.osd0_decoding_batch, H_f, fresh) and satisfies(out0, H_f, fresh),
+          "a default-decoder osd0 violates its syndrome")
+    f_perm0, f_synd0 = failing_rows(dec0, fresh)
+    k4_ms = cuda_ms(lambda: eliminate(graph, f_perm0, f_synd0), 5)
+    k4_plain_ms = cuda_ms(lambda: eliminate_plain(graph, f_perm0, f_synd0), 3)
+    f_llr0 = dec0.log_prob_ratios_batch[~dec0.converge_batch]
+    tail0_ms = cuda_ms(lambda: osd_decode(graph, f_synd0, f_llr0, osd_method="osd0"), 5)
+    print(f"phase 9 K4 vs plain: {B} corpus rows, shared and device memory: the five "
+          f"outputs equal eliminate_plain, skip rows zero; default BpOsdDecoder(hx, "
+          f"error_rate=0.05) on {FRESH} fresh syndromes: all osd0 satisfied; "
+          f"{FRESH / float(np.median(walls0)):.1f} syndromes/s (median of walls "
+          f"{[round(w, 4) for w in walls0]} s); converged fraction "
+          f"{float(dec0.converge_batch.float().mean()):.4f}; launches {launches0}; "
+          f"K4 B={f_perm0.shape[0]}: {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms; the OSD "
+          f"tail (argsort + K4 + osd0 read-off) {tail0_ms:.3f} ms of the "
+          f"{float(np.median(walls0)) * 1e3:.3f} ms wall {tag}")
+
+    # ---- phase 10: K3 vs plain; the osd_e decoder on the card ----
+    for o in (12, 16):
+        a = osd_e(graph, perm, synd, osd_order=o)
+        b = osd_decode_plain(graph, perm, synd, method="osd_e", osd_order=o)
+        check(same(a[0], b[0]) and same(a[1], b[1]), f"K3 differs from the plain osd_e at order {o}")
+        check(satisfies(a[1], H_f, synd), f"a K3 osdw violates its syndrome at order {o}")
+    k3_err = max_err(a, b)
+    _, me, ne = (int(x) for x in aux["flagship_osd_e_shape"])
+    dec_e = BpOsdDecoder(H, error_rate=0.05, max_iter=100, bp_method="minimum_sum",
+                         ms_scaling_factor=0.0, osd_method="osd_e", osd_order=12)
+    synd_e = torch.as_tensor(np.unpackbits(aux["flagship_osd_e_synd"], axis=1)[:, :me],
+                             device=dev)
+    before_k3 = osd_e.launches
+    osdw_e = dec_e.decode_batch(synd_e)
+    check(osd_e.launches > before_k3, "the aux corpus flagship_osd_e did not launch K3")
+    check(np.array_equal(np.packbits(osdw_e, axis=1), aux["flagship_osd_e_osdw"])
+          and np.array_equal(dec_e.converge_batch, aux["flagship_osd_e_conv"])
+          and np.array_equal(dec_e.iter_batch, aux["flagship_osd_e_iters"]),
+          "flagship_osd_e osdw/converged/iterations != aux corpus")
+    reset_counts()
+    out_e, walls_e = timed_decode(dec_e, fresh)
+    launches_e = counts()
+    check(launches_e["osd_e"] > 0 and launches_e["osd_cs"] == 0
+          and launches_e["eliminate"] == 0, f"the osd_e decoder's kernels: {launches_e}")
+    check(satisfies(out_e, H_f, fresh), "a fresh osd_e osdw violates its syndrome")
+    f_perm_e, f_synd_e = failing_rows(dec_e, fresh)
+    k3_ms = cuda_ms(lambda: osd_e(graph, f_perm_e, f_synd_e, osd_order=12), 5)
+    k3_plain_ms = cuda_ms(lambda: osd_decode_plain(graph, f_perm_e, f_synd_e, method="osd_e",
+                                                   osd_order=12), 3)
+    k3_16_ms = cuda_ms(lambda: osd_e(graph, f_perm_e, f_synd_e, osd_order=16), 5)
+    print(f"phase 10 K3 vs plain: {B} corpus rows at osd_e orders 12 and 16 bit-identical; "
+          f"aux corpus flagship_osd_e ({synd_e.shape[0]} rows) reproduced through K3; "
+          f"{FRESH} fresh syndromes at osd_e 12, max_iter 100: all satisfied; "
+          f"{FRESH / float(np.median(walls_e)):.1f} syndromes/s (median of walls "
+          f"{[round(w, 4) for w in walls_e]} s); launches {launches_e}; K3 "
+          f"B={f_perm_e.shape[0]}: {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms; K3 at order 16 "
+          f"on the same rows {k3_16_ms:.3f} ms {tag}")
+
+    # ---- phase 11: the device-memory routes ----
+    report = []
+    for L in (60, 100):
+        qL = lifted_hgp(PROTO, lift=L)
+        HL_f = torch.as_tensor(np.asarray(qL.hx.toarray(), np.float32), device=dev)
+        dec_L = BpOsdDecoder(qL.hx, error_rate=0.05, max_iter=12, bp_method="minimum_sum",
+                             ms_scaling_factor=0.625, osd_method="osd_e", osd_order=8,
+                             proto=qL.hx_proto, lift=L)
+        gL = dec_L.graph
+        check(osd_route(gL, "osd_e", 8) == "k4" and k4_fits(gL) == (L == 60),
+              f"lift {L} osd_e is not routed to K4 as expected")
+        rng = np.random.default_rng(SEED + L)
+        errL = torch.as_tensor((rng.random((32, gL.n)) < 0.05).astype(np.float32), device=dev)
+        sL = torch.remainder(errL @ HL_f.T, 2).to(torch.uint8)
+        reset_counts()
+        outL = dec_L.decode_batch(sL, outputs="device")
+        launchesL = counts()
+        check(launchesL["eliminate"] > 0 and launchesL["osd_e"] == 0
+              and launchesL["osd_large"] == 0, f"lift {L} osd_e kernels: {launchesL}")
+        p_fL, s_fL = failing_rows(dec_L, sL)
+        fail = ~dec_L.converge_batch
+        ref0, refw = osd_decode_plain(gL, p_fL, s_fL, method="osd_e", osd_order=8)
+        check(same(outL[fail], refw) and same(dec_L.osd0_decoding_batch[fail], ref0),
+              f"lift {L} osd_e through K4 differs from osd_decode_plain")
+        check(satisfies(outL, HL_f, sL), f"a lift-{L} osd_e osdw violates its syndrome")
+        if L == 60:
+            forced = eliminate(gL, p_fL, s_fL, placement="global")
+            check(all(same(a, b) for a, b in zip(forced, eliminate(gL, p_fL, s_fL))),
+                  "K4 forced to device memory differs from shared memory at lift 60")
+        ms = cuda_ms(lambda: eliminate(gL, p_fL, s_fL), 3)
+        report.append(f"lift {L} ({gL.m}x{gL.n}, K4 in {'shared' if L == 60 else 'device'} "
+                      f"memory): {int(fail.sum())}/32 rows failed BP, osd0/osdw == plain, "
+                      f"K4 {ms:.3f} ms")
+    dec_d = BpDecoder(qcode.hx, error_rate=LIFT_HEAVY_P, max_iter=100, bp_method="minimum_sum",
+                      ms_scaling_factor=0.625)
+    gd = dec_d.graph
+    check(not k1_fits(gd), "K1 claims to hold the dense lift-400 code in shared memory")
+    s64 = heavy_l[:64]
+    reset_counts()
+    hard_d = dec_d.decode_batch(s64, outputs="device")
+    check(bp_flood.launches > 0, "the dense lift-400 BpDecoder did not launch K1")
+    l0d = llr_from_channel(np.full(nl, LIFT_HEAVY_P)).to(dev).expand(64, nl)
+    d_kw = dict(method="minimum_sum", max_iter=100, ms_scaling_factor=0.625)
+    pd = bp_decode_plain(gd, s64, l0d, **d_kw)
+    check(same(hard_d, pd[0]) and same(dec_d.log_prob_ratios_batch, pd[1])
+          and same(dec_d.converge_batch, pd[2]) and same(dec_d.iter_batch, pd[3]),
+          "K1 in device memory differs from bp_decode_plain at lift 400")
+    k1g_ms = cuda_ms(lambda: bp_flood(gd, s64, l0d, **d_kw), 3)
+    k1g_plain_ms = cuda_ms(lambda: bp_decode_plain(gd, s64, l0d, **d_kw), 1)
+    for mm, nn, wr, wc in ((graph.m, graph.n, graph.wr, graph.wc), (720, 1500, 7, 4),
+                           (1680, 3500, 7, 4), (1692, 3525, 7, 4), (ml, nl, gd.wr, gd.wc)):
+        check(lib.bp_flood_smem_bytes(mm, nn, wr, wc) == bp_flood_smem_bytes(mm, nn, wr, wc),
+              f"K1 shared-memory mirror differs from the library at m={mm} n={nn}")
+        for g_ in (0, 1):
+            check(lib.gf2_elim_smem_bytes(mm, -(-nn // 32), g_)
+                  == gf2_elim_smem_bytes(mm, nn, bool(g_)),
+                  f"K4 shared-memory mirror differs from the library at m={mm} n={nn}")
+    print(f"phase 11 device-memory routes: osd_e order 8: " + "; ".join(report)
+          + f"; dense lift-{LIFT} BpDecoder (no proto): K1 state in device memory, 64 rows x "
+          f"max_iter 100 bit-identical to bp_decode_plain ({int(pd[2].sum())} converged), "
+          f"K1 {k1g_ms:.3f} ms vs plain {k1g_plain_ms:.3f} ms; k1_fits/k4_fits mirrors == "
+          f"library {tag}")
+
     kernels = [
         {"name": "bp_flood", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/bp_flood.cu",
          "replaces": "bp_osd_tpu/ops/pallas_bp.py:140", "launches": launches["bp_flood"],
@@ -372,6 +560,12 @@ def main() -> None:
         {"name": "osd_cs", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/osd_cs.cu",
          "replaces": "bp_osd_tpu/ops/pallas_osd.py:135", "launches": launches["osd_cs"],
          "max_abs_err": osd_err, "ms": osd_ms, "plain_ms": osd_plain_ms},
+        {"name": "osd_e", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/osd_cs.cu",
+         "replaces": "bp_osd_tpu/ops/pallas_osd.py:565", "launches": launches_e["osd_e"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "gf2_elim", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/gf2_elim.cu",
+         "replaces": "bp_osd_tpu/ops/pallas_gf2.py:57", "launches": launches0["eliminate"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
         {"name": "osd_large", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/osd_large.cu",
          "replaces": "bp_osd_tpu/ops/pallas_osd_large.py:62",
          "launches": launches_l["osd_large"], "max_abs_err": k5_err, "ms": k5_ms,

@@ -12,10 +12,12 @@ import torch
 
 from bp_osd_tpu_torch.codes import hgp, lifted_hgp, mkmn_16_4_6, mkmn_20_5_8, rep_code
 from bp_osd_tpu_torch.decoder.bp import bp_decode, bp_decode_plain, llr_from_channel
-from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode, osd_decode_plain
+from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd_decode,
+                                          osd_decode_plain)
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
-from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
-from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs
+from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, k1_fits
+from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, k4_fits
+from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_e
 from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
 
 pytestmark = pytest.mark.gpu
@@ -194,3 +196,78 @@ def test_osd_large_skip_rows_and_launches(dev):
                           device=dev)
     osd_decode(g, synd, llr, osd_method="osd_cs", osd_order=15, backend="cuda")
     assert osd_large.launches == before + 1 and osd_cs.launches == before_k2
+
+
+@pytest.mark.parametrize("code,order", [("surface", 1), ("surface", 16), ("flagship", 1),
+                                        ("flagship", 16), ("625", 12)])
+def test_osd_e_bit_identical(dev, code, order):
+    """K3 against the plain osd_e, with and without skip rows."""
+    H = np.asarray(CODES[code](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, 48, order, dev)
+    skip = torch.zeros(48, dtype=torch.bool, device=dev)
+    skip[::3] = True
+    for sk in (None, skip):
+        _equal(osd_e(g, perm, synd, osd_order=order, skip=sk),
+               osd_decode_plain(g, perm, synd, method="osd_e", osd_order=order, skip=sk))
+
+
+@pytest.mark.parametrize("code", ["surface", "flagship", "lift60", "lift100"])
+def test_eliminate_both_placements(dev, code, monkeypatch):
+    """K4 in shared and device memory against ``eliminate_plain`` in all five
+    outputs, skip rows included, and with the batch split over launches."""
+    import bp_osd_tpu_torch.ops.cuda_gf2 as k4
+
+    H = (np.asarray(lifted_hgp(PROTO, lift=int(code[4:])).hx.toarray(), np.uint8)
+         if code.startswith("lift") else np.asarray(CODES[code](), np.uint8))
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, 20, 7, dev)
+    skip = torch.zeros(20, dtype=torch.bool, device=dev)
+    skip[1::4] = True
+    placements = ("shared", "global") if k4_fits(g) else ("global",)
+    assert k4_fits(g) == (code != "lift100")
+    for sk in (None, skip):
+        want = eliminate_plain(g, perm, synd, skip=sk)
+        for pl in placements:
+            _equal(eliminate(g, perm, synd, skip=sk, placement=pl), want)
+    monkeypatch.setattr(k4, "_LAUNCH_BYTES", 6 * 4 * g.m * g.num_words)
+    before = eliminate.launches
+    _equal(eliminate(g, perm, synd, skip=skip, placement=placements[-1]),
+           eliminate_plain(g, perm, synd, skip=skip))
+    assert eliminate.launches == before + 4  # 20 rows, 6 per launch
+
+
+def test_osd_decode_routes_to_k3_and_k4(dev):
+    """On the flagship, osd0 and order-0 decodes launch K4 and not K2, osd_e
+    launches K3, and both equal the plain OSD."""
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, _ = _osd_inputs(H, 32, 11, dev)
+    llr = torch.as_tensor(np.random.default_rng(2).normal(2, 1, (32, g.n)).astype(np.float32),
+                          device=dev)
+    perm = torch.argsort(llr, dim=1, stable=True).to(torch.int32)
+    for method, order, counter in (("osd0", 0, eliminate), ("osd_cs", 0, eliminate),
+                                   ("osd_e", 10, osd_e)):
+        before, before_k2 = counter.launches, osd_cs.launches
+        out = osd_decode(g, synd, llr, osd_method=method, osd_order=order, backend="cuda")
+        assert counter.launches == before + 1 and osd_cs.launches == before_k2
+        _equal(out, osd_decode_plain(g, perm, synd, method=method, osd_order=order))
+
+
+def test_bp_flood_device_memory_placement(dev, monkeypatch):
+    """The dense [[10000,420]] lifted product (lift 400) is above K1's shared
+    memory: K1 keeps the state in device memory, bit-identical to the plain
+    version, also when the rows go out in several launches."""
+    import bp_osd_tpu_torch.ops.cuda_bp as k1
+
+    H = np.asarray(lifted_hgp(PROTO, lift=400).hx.toarray(), np.uint8)
+    g = TannerGraph(H, dev)
+    assert not k1_fits(g)
+    synd, llr0 = _batch(H, 10, 0.02, 12, dev)
+    kw = dict(method="minimum_sum", max_iter=40, ms_scaling_factor=0.625, emit_state=True)
+    want = bp_decode_plain(g, synd, llr0, **kw)
+    _equal(bp_flood(g, synd, llr0, **kw), want)
+    monkeypatch.setattr(k1, "_SCRATCH_BYTES", 4 * 4 * (g.m + 2 * g.m * g.wr + 2 * g.n))
+    before = bp_flood.launches
+    _equal(bp_flood(g, synd, llr0, **kw), want)
+    assert bp_flood.launches == before + 3  # 10 rows, 4 per launch
