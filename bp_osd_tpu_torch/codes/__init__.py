@@ -17,6 +17,7 @@ from .css import css_code
 from .hgp import hgp, hgp_single
 from .lifted_product import circulant, lifted_hgp, protograph_to_binary
 from .stab import gf2_to_gf4, stab_code
+from .topological import surface_code, toric_code
 
 __all__ = [
     "rep_code",
@@ -36,4 +37,6 @@ __all__ = [
     "lifted_hgp",
     "circulant",
     "protograph_to_binary",
+    "surface_code",
+    "toric_code",
 ]

@@ -3,6 +3,7 @@ hand-written CUDA kernels on the card."""
 
 from .bp import BPResult, bp_decode, llr_from_channel
 from .bposd import BpDecoder, BpOsdDecoder, bp_decoder, bposd_decoder
+from .layered import LayeredTannerGraph, bp_decode_layered
 from .osd import OsdResult, osd_decode
 from .pipeline import BpOsdBatch, decode_pipeline
 from .tanner import TannerGraph
@@ -20,4 +21,6 @@ __all__ = [
     "BpOsdDecoder",
     "bp_decoder",
     "bposd_decoder",
+    "LayeredTannerGraph",
+    "bp_decode_layered",
 ]

@@ -122,7 +122,14 @@ def _alpha(scale: float, it: int) -> float:
 
 
 def _check_update_min_sum(v2c, chk_mask, syn, alpha: float):
-    """Scaled min-sum c2v of ``v2c [B, m, wr]``; zero on pad slots.
+    """Scaled min-sum c2v of ``v2c [B, m, wr]``; zero on pad slots."""
+    scale, excl = _min_sum_factors(v2c, chk_mask, syn, alpha)
+    return scale * excl
+
+
+def _min_sum_factors(v2c, chk_mask, syn, alpha: float):
+    """The two factors of the scaled min-sum c2v of ``v2c [B, m, wr]``: the
+    signed scale (``+-alpha``, 0 on pad slots) and the exclusive minimum.
 
     The exclusive minimum over a check's other slots is a prefix/suffix min
     scan seeded with the 1e30 cap (so a row of weight 1 gets the cap).
@@ -140,9 +147,8 @@ def _check_update_min_sum(v2c, chk_mask, syn, alpha: float):
         bwd.append(torch.minimum(bwd[-1], mags[s + 1]))
     bwd.reverse()
     excl = torch.stack([torch.minimum(f, b) for f, b in zip(fwd, bwd)], -1)
-    val = excl * alpha
     out_neg = (parity[..., None] != 0) ^ neg
-    return torch.where(chk_mask, torch.where(out_neg, -val, val), 0.0)
+    return torch.where(chk_mask, torch.where(out_neg, -alpha, alpha), 0.0), excl
 
 
 def _check_update_product_sum(v2c, chk_mask, syn):

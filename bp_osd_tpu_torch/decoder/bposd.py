@@ -11,7 +11,10 @@ JAX package; ``decode()`` is ``decode_batch`` with a batch of one.
 ``lifted_hgp(...).hx_proto``): BP then runs the shift-routed lifted BP of
 :mod:`~bp_osd_tpu_torch.decoder.lifted_bp`, straight to ``max_iter``, the
 only BP that holds an n ~ 10^4 code; on the card OSD goes to kernel K5 when
-K2's shared memory cannot hold the matrix.
+K2's shared memory cannot hold the matrix.  ``schedule="serial"`` (or
+``"layered"``) runs the layered BP of :mod:`~bp_osd_tpu_torch.decoder.layered`
+(plain torch on both devices) straight to ``max_iter``; OSD then runs on its
+failures on the unpermuted graph, as in the JAX package.
 
 A decoder lives on one ``device`` (default: the card when
 ``torch.cuda.is_available()``, else the CPU).  ``backend`` in
@@ -32,6 +35,7 @@ import torch
 
 from ..ops import BACKENDS, resolve_backend
 from .bp import BPResult, as_syndromes, bp_decode, llr_from_channel, normalize_bp_method
+from .layered import LayeredTannerGraph, bp_decode_layered
 from .lifted_bp import LiftedGraph, bp_decode_lifted
 from .osd import build_osd_consts, normalize_osd_method
 from .pipeline import decode_pipeline
@@ -72,13 +76,6 @@ def _one_row(vector):
     return np.asarray(vector).reshape(1, -1)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to bp_osd_tpu_torch yet; use bp_osd_tpu, and "
-        "see ROADMAP.md for the order of the port"
-    )
-
-
 class BpDecoder:
     """Belief-propagation syndrome decoder (no post-processing)."""
 
@@ -106,9 +103,7 @@ class BpDecoder:
                 raise ValueError("proto requires lift")
             if schedule != "parallel":
                 raise ValueError("lifted decoding supports only the parallel schedule")
-        if schedule in ("serial", "layered"):
-            raise _not_ported(f"schedule={schedule!r}")
-        if schedule != "parallel":
+        if schedule not in ("parallel", "serial", "layered"):
             raise ValueError(
                 f"schedule must be parallel/serial/layered, got {schedule!r}")
         if input_vector_type not in ("syndrome", "received_vector"):
@@ -135,8 +130,11 @@ class BpDecoder:
                 raise ValueError(f"protograph lift is {lg.m}x{lg.n} but H is "
                                  f"{H.shape[0]}x{H.shape[1]}")
             self._lifted = lg
-        self.schedule = "parallel"
+        self.schedule = "parallel" if schedule == "parallel" else "layered"
+        # OSD and the syndromes of received vectors work on the unpermuted graph
         self.graph = TannerGraph(H, self.device)
+        self._layered = (LayeredTannerGraph(H, self.device)
+                         if self.schedule == "layered" else None)
         self.input_vector_type = input_vector_type
         self._H_f32 = (torch.as_tensor(self.graph.H, dtype=torch.float32, device=self.device)
                        if input_vector_type == "received_vector" else None)
@@ -193,6 +191,8 @@ class BpDecoder:
         if self._lifted is not None:
             res: BPResult = bp_decode_lifted(self._lifted, synd,
                                              self._llr0(channel_probs), **kw)
+        elif self._layered is not None:
+            res = bp_decode_layered(self._layered, synd, self._llr0(channel_probs), **kw)
         else:
             res = bp_decode(self.graph, synd, self._llr0(channel_probs),
                             backend=self.backend, **kw)
@@ -263,15 +263,25 @@ class BpOsdDecoder(BpDecoder):
         self.osdw_decoding = np.zeros(self.n, dtype=np.uint8)
 
     def decode_batch(self, syndromes, channel_probs=None,
-                     chunk_size: int | None = None, outputs: str = "host"):
+                     chunk_size: int | None = None, compact_osd: bool = False,
+                     outputs: str = "host"):
         """Decode a syndrome batch; returns the osdw decodings ``[B, n]``.
 
         ``chunk_size=None`` dispatches 16384 rows at a time on the card and
         4096 on the CPU.  ``outputs="device"`` leaves every ``*_batch``
         attribute as a tensor on the decoder's device instead of numpy.
+        ``compact_osd=True`` is the JAX package's two-phase decode (OSD only
+        on the BP failures) with host numpy outputs; every decode here runs
+        OSD on the failures only, so it gives the same results as the
+        default, and with ``outputs="device"`` it raises ``ValueError``.
         """
         if outputs not in ("host", "device"):
             raise ValueError(f"outputs must be host/device, got {outputs!r}")
+        if compact_osd and outputs == "device":
+            raise ValueError(
+                "compact_osd=True assembles host numpy outputs; "
+                "outputs='device' is not supported on that path"
+            )
         if chunk_size is None:
             chunk_size = _CHUNK_CARD if self.device.type == "cuda" else _CHUNK_CPU
         synd, received = self._resolve_input(syndromes)
@@ -284,6 +294,7 @@ class BpOsdDecoder(BpDecoder):
                 ms_scaling_factor=self.ms_scaling_factor,
                 osd_method=self.osd_method, osd_order=self.osd_order,
                 consts=self._osd_consts, backend=self.backend, lifted=self._lifted,
+                layered=self._layered,
             ))
         cat = [torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*outs)]
         osdw, osd0, hard, conv, iters, llr = cat

@@ -14,7 +14,10 @@ because XLA needs static shapes; here each stage takes exactly its failures.
 
 With a :class:`~bp_osd_tpu_torch.decoder.lifted_bp.LiftedGraph`, BP is the
 shift-routed lifted BP run straight to ``max_iter`` with no stages, as the
-JAX package's decoder runs lifted codes; the OSD tail is the same.
+JAX package's decoder runs lifted codes; with a
+:class:`~bp_osd_tpu_torch.decoder.layered.LayeredTannerGraph`, it is layered
+BP, also straight, as the JAX decoder runs ``schedule="layered"``.  The OSD
+tail is the same, on the unpermuted ``graph``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from .bp import as_f32, as_syndromes, bp_decode, normalize_bp_method
+from .layered import LayeredTannerGraph, bp_decode_layered
 from .lifted_bp import LiftedGraph, bp_decode_lifted
 from .osd import OsdConsts, osd_decode
 from .tanner import TannerGraph
@@ -74,10 +78,12 @@ def decode_pipeline(
     consts: OsdConsts | None = None,
     backend: str = "auto",
     lifted: LiftedGraph | None = None,
+    layered: LayeredTannerGraph | None = None,
 ) -> BpOsdBatch:
     """Full batched BP+OSD decode, BP staged by :func:`auto_stage_schedule`,
     or straight lifted BP when ``lifted`` (the protograph lift of
-    ``graph.H``) is given."""
+    ``graph.H``) is given, or straight layered BP when ``layered`` (the
+    layered graph of ``graph.H``) is."""
     method = normalize_bp_method(bp_method)
     if max_iter == 0:
         max_iter = graph.n
@@ -87,13 +93,14 @@ def decode_pipeline(
     synd = as_syndromes(syndromes, graph.m, device)
     B, n = synd.shape[0], graph.n
     llr0 = as_f32(llr0, device).expand(B, n)
-    if lifted is None:
+    bp_kw = dict(bp_method=method, max_iter=max_iter, ms_scaling_factor=ms_scaling_factor)
+    if lifted is not None:
+        hard, llr, conv, iters = bp_decode_lifted(lifted, synd, llr0, **bp_kw)
+    elif layered is not None:
+        hard, llr, conv, iters = bp_decode_layered(layered, synd, llr0, **bp_kw)
+    else:
         hard, llr, conv, iters = _staged_bp(graph, synd, llr0, method, max_iter,
                                             ms_scaling_factor, backend)
-    else:
-        hard, llr, conv, iters = bp_decode_lifted(
-            lifted, synd, llr0, bp_method=method, max_iter=max_iter,
-            ms_scaling_factor=ms_scaling_factor)
 
     osdw = hard.clone()
     osd0 = hard.clone()

@@ -50,12 +50,31 @@ Phases, one line each (any failed check exits non-zero):
    the rows BP failed; the dense lift-400 ``BpDecoder`` (no ``proto``) runs
    K1 with its state in device memory, bit-identical to ``bp_decode_plain``
    on 64 rows at max_iter 100; the Python mirrors ``k1_fits``/``k4_fits``
-   equal the library's sizes.
+   equal the library's sizes;
+12. the Monte-Carlo harness ``bp_osd_tpu_torch.sim.css_decode_sim`` on the
+   flagship code: (a) one batch of 512 uniforms drawn on the card, through
+   the card's harness and the CPU harness (``backend="torch"``), under the
+   harness's defaults (``x->z``, bias [1,1,1], osd_cs 2) and the flagship
+   example's configuration: every per-sample outcome equal; (b) the flagship
+   example (``bp_osd_tpu_torch/examples/qldpc_decode_example.py``) at 100000
+   runs: OSDW LER within 4 combined standard errors of
+   ``examples/qldpc_decode_results.json``, every X side converged, K1 and K2
+   launched, runs/s and one batch split into sampling+logicals, X side and Z
+   side; (c) the [[625,25,8]] and [[900,36,10]] examples at 100000 runs
+   against ``examples/hgp_{625,900}_decode_results.json`` (4 sigma), and one
+   osd_e order-12 run of 16384 that launches K3;
+13. ``BpOsdDecoder(schedule="layered")`` (min-sum, adaptive, osd_cs 42) on
+   the 512 corpus rows: every output equal to the same decoder on the CPU,
+   all satisfied, timed against the flooding decoder;
+14. the lifted-product example (``examples/lifted_product_ler.py``'s
+   experiment through ``BpOsdDecoder(hx, proto=hx_proto, lift=400)``) at
+   p = 0.03, 4096 runs: OSDW LER within 4 sigma of
+   ``examples/lifted_product_decode_results.json``, K5 launched.
 
 It prints the card's name and power limit and a JSON line of per-kernel
 results before the last line, ``{"ok": true, "device": {...}}``.  The JAX
 package is not imported: the JAX reference enters only through the
-committed corpus.
+committed corpora and LER artifacts.
 """
 
 from __future__ import annotations
@@ -77,6 +96,7 @@ FRESH = 16384
 # the (3,4)-regular lifted product of bench_large.py: [[10000,420]] at lift 400
 PROTO = [[(0,), (0,), (0,), (0,)], [(0,), (1,), (2,), (3,)], [(0,), (2,), (4,), (6,)]]
 LIFT, LIFT_P, LIFT_HEAVY_P, LIFT_B, LIFT_ORDER = 400, 0.005, 0.028, 512, 15
+SIM_ROWS, SIM_RUNS, LIFT_RUNS = 512, 100000, 4096  # phases 12-14
 
 
 def check(ok, what: str) -> None:
@@ -114,6 +134,169 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def satisfies(err: torch.Tensor, H_f: torch.Tensor, synd: torch.Tensor) -> bool:
     return same(torch.remainder(err.float() @ H_f.T, 2).to(torch.uint8), synd)
+
+
+def artifact(name: str) -> dict:
+    with open(os.path.join(ROOT, "examples", name)) as f:
+        return json.load(f)
+
+
+def sigmas(ler: float, eb: float, ref_ler: float, ref_eb: float) -> float:
+    """Distance of two binomial estimates in combined standard errors."""
+    return abs(ler - ref_ler) / float(np.hypot(eb, ref_eb))
+
+
+def phase12(dev, qcode, reset_counts, counts, tag, rows=SIM_ROWS, runs=SIM_RUNS,
+            osd_e_runs=FRESH) -> None:
+    """The Monte-Carlo harness: (a) one batch on the card against the CPU
+    harness on the same uniforms; (b) the flagship example at ``runs`` runs
+    against its committed artifact, split into sampling+logicals, X side and
+    Z side; (c) the [[625]] and [[900]] examples against theirs, and one
+    osd_e order-12 run."""
+    from bp_osd_tpu_torch.codes import hgp, mkmn_20_5_8, mkmn_24_6_10
+    from bp_osd_tpu_torch.examples.qldpc_decode_example import OSD_OPTIONS
+    from bp_osd_tpu_torch.sim import css_decode_sim
+
+    quiet = dict(run_sim=0, tqdm_disable=1, check_code=0)
+    configs = {"defaults": dict(error_rate=0.05), "flagship example": OSD_OPTIONS}
+    report = []
+    for name, opts in configs.items():
+        kw = dict(opts, **quiet, seed=SEED, batch_size=rows)
+        card = css_decode_sim(hx=qcode.hx, hz=qcode.hz, **kw)
+        host = css_decode_sim(hx=qcode.hx, hz=qcode.hz, backend="torch", **kw)
+        check(card.backend == "cuda", "the harness is not on the card")
+        rand = torch.rand(rows, card.N, generator=torch.Generator(dev).manual_seed(SEED),
+                          device=dev)
+        reset_counts()
+        got = card._batch_stats(rand)
+        launched = counts()
+        want = host._batch_stats(rand.cpu())
+        for k in want:
+            check(np.array_equal(got[k].cpu().numpy(), want[k].numpy()),
+                  f"harness {name}: {k} on the card != the CPU harness")
+        check(launched["bp_flood"] > 0 and launched["osd_cs"] > 0,
+              f"harness {name}: kernels {launched}")
+        report.append(f"{name} ({card.channel_update}, bias {card.xyz_error_bias}, "
+                      f"osd_cs {card.osd_order}): {int(want['osdw_success'].sum())}/{rows} "
+                      f"osdw successes")
+    print(f"phase 12a harness batch of {rows} on the card == the CPU harness per sample on "
+          "the same uniforms: " + "; ".join(report))
+
+    def run(code, **opts):
+        sim = css_decode_sim(hx=code.hx, hz=code.hz, **dict(OSD_OPTIONS, **quiet, **opts))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = json.loads(sim.run_decode_sim())
+        torch.cuda.synchronize()
+        return sim, out, time.perf_counter() - t0
+
+    def held(out, art, what):
+        z = sigmas(out["osdw_logical_error_rate"], out["osdw_logical_error_rate_eb"],
+                   art["osdw_logical_error_rate"], art["osdw_logical_error_rate_eb"])
+        check(z <= 4.0, f"{what} OSDW LER {out['osdw_logical_error_rate']} is {z:.2f} sigma "
+                        f"from the artifact's {art['osdw_logical_error_rate']}")
+        return (f"OSDW LER {out['osdw_logical_error_rate']:.5f} +- "
+                f"{out['osdw_logical_error_rate_eb']:.5f} ({z:.2f} sigma from the artifact's "
+                f"{art['osdw_logical_error_rate']:.4f}), OSD0 "
+                f"{out['osd0_logical_error_rate']:.5f}, BP {out['bp_logical_error_rate']:.5f}")
+
+    reset_counts()
+    sim, out, wall = run(qcode, target_runs=runs)
+    launches = counts()
+    check(out["run_count"] == runs and out["bp_converge_count_x"] == runs,
+          f"flagship harness counters: {out['run_count']} runs, "
+          f"{out['bp_converge_count_x']} X-side convergences")
+    check(launches["bp_flood"] > 0 and launches["osd_cs"] > 0, f"harness kernels {launches}")
+    flagship = held(out, artifact("qldpc_decode_results.json"), "flagship")
+    # one batch of the run's size, split: draw + errors + syndromes, X side, Z side, logicals
+    B = sim.batch_size
+    g = torch.Generator(dev).manual_seed(SEED + 12)
+    ex, ez, sx, sz = sim._sample(torch.rand(B, sim.N, generator=g, device=dev))
+    ox, oz = sim._decode_side("x", sx), sim._decode_side("z", sz)
+    sample_ms = cuda_ms(lambda: sim._sample(torch.rand(B, sim.N, generator=g, device=dev)), 3)
+    x_ms = cuda_ms(lambda: sim._decode_side("x", sx), 3)
+    z_ms = cuda_ms(lambda: sim._decode_side("z", sz), 3)
+    logic_ms = cuda_ms(lambda: sim._outcomes(ex, ez, ox, oz), 3)
+    print(f"phase 12b flagship example harness, {runs} runs in batches of {B}: {flagship}; "
+          f"{runs / wall:.1f} runs/s ({wall:.3f} s, {wall * 1e3 * B / runs:.3f} ms per batch); "
+          f"one batch: sampling {sample_ms:.3f} + logicals {logic_ms:.3f} ms, X side "
+          f"{x_ms:.3f} ms, Z side {z_ms:.3f} ms ({int(oz.converged.sum())}/{B} converged); "
+          f"launches {launches} {tag}")
+
+    report = []
+    for name, seed_fn in (("625", mkmn_20_5_8), ("900", mkmn_24_6_10)):
+        code = hgp(seed_fn())
+        reset_counts()
+        _, out, wall = run(code, target_runs=runs)
+        check(counts()["osd_cs"] > 0, f"[[{code.N}]] harness did not launch K2")
+        art = artifact(f"hgp_{name}_decode_results.json")
+        report.append(f"[[{code.N},{code.K}]] {held(out, art, name)}, {runs / wall:.1f} runs/s")
+    reset_counts()
+    _, out, wall = run(qcode, target_runs=osd_e_runs, batch_size=0, osd_method="osd_e",
+                       osd_order=12)
+    launched = counts()
+    check(launched["osd_e"] > 0 and launched["osd_cs"] == 0, f"osd_e harness kernels {launched}")
+    print(f"phase 12c " + "; ".join(report) + f"; flagship at osd_e order 12, {osd_e_runs} runs "
+          f"in one batch: OSDW LER {out['osdw_logical_error_rate']:.5f} +- "
+          f"{out['osdw_logical_error_rate_eb']:.5f}, {osd_e_runs / wall:.1f} runs/s, launches "
+          f"{launched} {tag}")
+
+
+def phase13(H, synd, dec_flood, tag) -> None:
+    """Layered BpOsdDecoder on the card against the same decoder on the CPU,
+    timed against the flooding decoder."""
+    from bp_osd_tpu_torch import BpOsdDecoder
+
+    kw = dict(error_rate=0.05, max_iter=0, bp_method="ms", ms_scaling_factor=0,
+              osd_method="osd_cs", osd_order=42, schedule="layered")
+    card = BpOsdDecoder(H, **kw)
+    host = BpOsdDecoder(H, device="cpu", **kw)
+    H_f = torch.as_tensor(H, dtype=torch.float32, device=synd.device)
+    out = card.decode_batch(synd, outputs="device")
+    check(satisfies(out, H_f, synd), "a layered osdw violates its syndrome")
+    host.decode_batch(synd.cpu())
+    for a in ("osdw_decoding_batch", "osd0_decoding_batch", "bp_decoding_batch",
+              "log_prob_ratios_batch", "converge_batch", "iter_batch"):
+        check(np.array_equal(getattr(card, a).cpu().numpy(), getattr(host, a)),
+              f"layered {a} on the card != the CPU")
+    walls = {}
+    for name, dec in (("flooding", dec_flood), ("layered", card), ("layered ", card),
+                      ("flooding ", dec_flood)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.decode_batch(synd, outputs="device")
+        torch.cuda.synchronize()
+        walls.setdefault(name.strip(), []).append(time.perf_counter() - t0)
+    conv = card.converge_batch
+    print(f"phase 13 layered BpOsdDecoder (min-sum, adaptive, max_iter 400, osd_cs 42) on the "
+          f"{synd.shape[0]} corpus rows: card == CPU in every output, all satisfied; converged "
+          f"{int(conv.sum())}, mean iterations of the converged "
+          f"{float(card.iter_batch[conv].float().mean()):.2f} (flooding "
+          f"{float(dec_flood.iter_batch[dec_flood.converge_batch].float().mean()):.2f}); "
+          f"walls layered {[round(w * 1e3, 3) for w in walls['layered']]} ms, flooding "
+          f"{[round(w * 1e3, 3) for w in walls['flooding']]} ms {tag}")
+
+
+def phase14(qcode, reset_counts, counts, tag, runs=LIFT_RUNS) -> None:
+    """The lifted-product LER example at p = 0.03 against its artifact."""
+    from bp_osd_tpu_torch.examples.lifted_product_ler import run_point
+
+    art = artifact("lifted_product_decode_results.json")["points"]["0.03"]
+    reset_counts()
+    t0 = time.perf_counter()
+    point = run_point(qcode, 0.03, runs)
+    wall = time.perf_counter() - t0
+    launched = counts()
+    z = sigmas(point["osdw_logical_error_rate"], point["osdw_error_bar"],
+               art["osdw_logical_error_rate"], art["osdw_error_bar"])
+    check(z <= 4.0, f"lifted OSDW LER {point['osdw_logical_error_rate']} is {z:.2f} sigma from "
+                    f"the artifact's {art['osdw_logical_error_rate']}")
+    check(launched["osd_large"] > 0, f"the lifted example did not launch K5: {launched}")
+    keys = [k for k in art if k != "runtime_s"]
+    print(f"phase 14 lifted-product example, p = 0.03, {point['runs']} runs: {point} "
+          f"({z:.2f} sigma from the artifact's OSDW LER); every field but the runtime equal to "
+          f"the artifact: {all(point[k] == art[k] for k in keys)}; {wall:.3f} s, "
+          f"{point['runs'] / wall:.1f} runs/s; launches {launched} {tag}")
 
 
 def main() -> None:
@@ -552,6 +735,10 @@ def main() -> None:
           f"max_iter 100 bit-identical to bp_decode_plain ({int(pd[2].sum())} converged), "
           f"K1 {k1g_ms:.3f} ms vs plain {k1g_plain_ms:.3f} ms; k1_fits/k4_fits mirrors == "
           f"library {tag}")
+
+    phase12(dev, hgp(mkmn_16_4_6()), reset_counts, counts, tag)
+    phase13(H, synd, dec, tag)
+    phase14(qcode, reset_counts, counts, tag)
 
     kernels = [
         {"name": "bp_flood", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/bp_flood.cu",

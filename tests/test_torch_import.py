@@ -27,6 +27,9 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import bp_osd_tpu_torch, bp_osd_tpu_torch.codes, bp_osd_tpu_torch.decoder\n"
         "import bp_osd_tpu_torch.ops.cuda_bp, bp_osd_tpu_torch.ops.cuda_osd\n"
+        "import bp_osd_tpu_torch.sim, bp_osd_tpu_torch.decoder.layered, bp_osd_tpu_torch.utils\n"
+        "from bp_osd_tpu_torch.examples import (large_hgp_ler, lifted_product_ler,\n"
+        "                                       qldpc_decode_example, threshold_sweep)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bp_osd_tpu.'))"
         " or m == 'bp_osd_tpu']\n"
         "assert not bad, bad\n"

@@ -183,8 +183,11 @@ def test_device_outputs_and_options_not_ported_yet():
     H = _dense(hamming_code(3))
     with pytest.raises(NotImplementedError):
         BpOsdDecoder(H, error_rate=0.05, input_vector_type="banana")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BpOsdDecoder(H, error_rate=0.05, schedule="layered")
+    layered = BpOsdDecoder(H, error_rate=0.05, max_iter=7, schedule="layered")
+    e1 = np.zeros(7, np.uint8)
+    e1[5] = 1
+    assert layered.schedule == "layered"
+    assert layered.decode(H @ e1 % 2).tolist() == e1.tolist()
     proto = [[(0, 1, 3)]]  # one circulant of lift 7: a cyclic [7,4] Hamming code
     lifted = BpOsdDecoder(protograph_to_binary(proto, 7), error_rate=0.05, proto=proto,
                           lift=7)
@@ -195,3 +198,25 @@ def test_device_outputs_and_options_not_ported_yet():
     out = dec.decode_batch(torch.as_tensor(H @ e % 2)[None], outputs="device")
     assert torch.is_tensor(out) and torch.is_tensor(dec.converge_batch)
     assert out[0].tolist() == e.tolist()
+
+
+def test_compact_osd_matches_fused_path():
+    """tests/test_decoder.py:333 on the port: compact_osd=True gives the
+    default path's outputs as host numpy, and refuses outputs="device"."""
+    H = _dense(hgp(rep_code(3), rep_code(3)).hz)
+    bpd = BpOsdDecoder(H, error_rate=0.08, max_iter=13, bp_method="ms",
+                       ms_scaling_factor=0.625, osd_method="osd_cs", osd_order=4)
+    errors = (np.random.default_rng(333).random((64, 13)) < 0.12).astype(np.uint8)
+    synds = errors @ H.T % 2
+    attrs = ("osdw_decoding_batch", "osd0_decoding_batch", "bp_decoding_batch",
+             "converge_batch", "iter_batch", "log_prob_ratios_batch")
+    bpd.decode_batch(synds)
+    fused = {a: getattr(bpd, a).copy() for a in attrs}
+    assert not fused["converge_batch"].all()
+    out = bpd.decode_batch(synds, compact_osd=True)
+    assert isinstance(out, np.ndarray)
+    for a in attrs:
+        assert isinstance(getattr(bpd, a), np.ndarray)
+        assert np.array_equal(getattr(bpd, a), fused[a]), a
+    with pytest.raises(ValueError, match="compact_osd"):
+        bpd.decode_batch(synds, compact_osd=True, outputs="device")
