@@ -1,4 +1,5 @@
-// bp_flood.cu -- flooding belief propagation, one thread block per sample.
+// bp_flood.cu -- flooding belief propagation (K1): persistent blocks whose
+// teams of warps each decode one sample at a time.
 //
 // Replaces the TPU kernel bp_osd_tpu/ops/pallas_bp.py:_bp_kernel (K1): the
 // whole min-sum / product-sum iteration loop for a batch of syndromes, with
@@ -7,16 +8,46 @@
 // version is bp_osd_tpu_torch/decoder/bp.py:bp_decode_plain; this kernel is
 // bit-identical to it for min-sum.
 //
-// What bounds it on an H100: latency, not bytes or flops.  Per iteration a
-// sample touches ~3 * E + 2 * n words of state (E = m * wr = 1344 edges on
-// the [[400,16,6]] flagship), all of it in shared memory, and the three
-// phases (check update, variable sum, v2c update + syndrome check) are
-// separated by block barriers; the device-memory traffic is the inputs and
-// outputs once per sample.  The TPU kernel ran a block of 128 samples in
-// lock step and could only leave the loop when all of them had converged;
-// here every sample is its own block and leaves at its own convergence, so
-// a converged sample costs nothing more and the card is filled by running
-// many small blocks (~27 KB of shared memory each at the flagship) at once.
+// What bounds it on an H100.  The necessary work is ~9 operations an edge
+// per sample-iteration (E = m * wr = 1344 edges on the [[400,16,6]]
+// flagship), mostly integer, and the device-memory traffic is the inputs and
+// outputs once per sample: the bound is a sixth of the measured time or
+// less (PERF.md).  What the card runs out of is instruction throughput: each slot of
+// a check costs a load of the total, the subtraction, the hard-decision
+// parity, the sign, the magnitude, the two-minimum update and the c2v
+// write, and each edge of the variable sum a gather and the four-lane
+// select, for every sample-iteration.  More resident warps or more
+// independent loads a thread did not move it; fewer instructions did.  The
+// first design (one 256-thread block per sample, three block barriers an
+// iteration, the tables copied into every block, 8 samples an SM) spent the
+// same instruction slots plus barrier waits and idle threads.  This design:
+//   * one persistent block per SM loads the Tanner tables (chk_var rows and
+//     their c2v rows padded to a multiple of 4 slots, read and written 16
+//     bytes at a time; var_edge rows with each entry's c2v index and lane;
+//     the per-check degree from the host) into shared memory once, and its
+//     teams (one warp, or a few warps with a named barrier each) decode one
+//     sample at a time; a team that finishes takes the next row from a global
+//     counter (atomicAdd), so the SM refills during the stage-3 tail;
+//   * bp_flood_plan sizes the team to the code and the batch: the least
+//     per-thread work between barriers whose resident teams hold all rows,
+//     else the most resident teams per unit of that work (3 warps, 2 checks
+//     and ~4 variables a thread, 10 teams an SM at the flagship);
+//   * check-side state lives in registers: the thread that owns a check keeps
+//     its compressed min-sum message (the two scaled minima, the first-minimum
+//     slot and the output sign bits); only c2v (E floats) and the totals
+//     (n floats) go through shared memory, ~7.6 KB a flagship sample instead
+//     of 26.5 KB;
+//   * two team barriers an iteration.  The check update of iteration t + 1
+//     reads tot_t and c2v_t, takes the syndrome parity of iteration t on the
+//     way, and writes c2v_{t+1}; the first barrier ORs the team's parity
+//     failures; a sample that stops at t emits tot_t and v2c_t (c2v_t rebuilt
+//     from its registers) and the speculative c2v_{t+1} is dropped; otherwise
+//     the variable sums follow and the second barrier closes the iteration;
+//   * a check row of 4 or 8 padded slots is updated unrolled and without
+//     branches (a pad reads a total of 1.0f and enters the minimum as the
+//     1e30 cap, which changes nothing).
+// Product-sum runs in the same teams with c2v double-buffered in shared
+// memory by iteration parity (its messages do not compress).
 //
 // Arithmetic contract (what makes min-sum bit-identical to the plain torch
 // version and, at the flagship shape, to the JAX XLA path):
@@ -28,22 +59,25 @@
 //     contracted into an FMA;
 //   * adaptive alpha_t = 1 - ldexpf(1, -t) (exact), fixed alpha as given;
 //   * sign test x < 0.0f (-0.0 counts as non-negative); exclusive minimum of
-//     the magnitude bits, seeded with the 1e30 cap (row weight 1 gets it);
+//     the magnitude bits, seeded with the 1e30 cap (row weight 1 gets it),
+//     the first minimum taken over ascending slots;
 //   * hard = total <= 0, then the syndrome check; a sample freezes at its
 //     first convergence and otherwise runs exactly max_iter iterations.
 //
 // Tables: chk_var [m * wr] (pad = n) and var_edge [n * wc] (pad = m * wr),
-// both int32 and ascending within a row, as TannerGraph lays them out.
+// both int32 and ascending within a row, as TannerGraph lays them out, and
+// deg [m], the count of chk_var < n of each check, from the host.
 //
-// Placement.  A block keeps the tables and its sample's state (syndrome,
-// v2c, c2v, totals, prior) in shared memory when bp_flood_smem_bytes fits a
-// block (232,448 bytes on Hopper: up to lift 140 of the bench protograph).
-// Above that (the dense [[10000,420]] lifted product needs 662,400 bytes)
-// the same code runs with kGlobal: the tables are read from device memory
-// through the read-only cache and the state lives in this block's slice of
-// a scratch buffer, bp_flood_scratch_words per sample, which stays in L2 for
-// the few hundred samples a launch takes.  The arithmetic is the same, so
-// both placements are bit-identical to the plain version.
+// Placement.  The team kernel runs every code whose whole per-sample state
+// in the first design (bp_flood_smem_bytes: tables, syndrome, v2c, c2v,
+// totals, prior) fits a block, up to lift 140 of the bench protograph, and
+// whose tables and one team fit too (product-sum stops earlier).  Above it
+// (the dense [[10000,420]] lifted product needs 662,400 bytes)
+// bp_flood_global_kernel keeps the first design: one block per sample, the
+// tables read from device memory through the read-only cache and the state
+// in this block's slice of a scratch buffer, bp_flood_scratch_words per
+// sample, which stays in L2 for the few hundred samples a launch takes.  The arithmetic is the same, so both are
+// bit-identical to the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,40 +86,34 @@ namespace {
 
 constexpr float kBig = 1e30f;
 constexpr float kTanhClip = 1.0f - 1e-7f;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // device-memory placement: threads a block
+constexpr int kSmemLimit = 232448;  // shared memory a block may use on Hopper
+constexpr int kMaxWarpTeams = 15;   // named barriers 1..15, one per multi-warp team
+constexpr int kMaxRowWeight = 27;   // sign bits 0..26, first-minimum slot in 27..31
+constexpr int kMaxChecksPerThread = 8;
 
-template <bool kGlobal>
+__device__ __forceinline__ float alpha_at(int it, float alpha_fixed) {
+  return alpha_fixed == 0.0f ? __fsub_rn(1.0f, ldexpf(1.0f, -it)) : alpha_fixed;
+}
+
+// ---------------------------------------------------------------------------
+// Device-memory placement: one block per sample (the first design).
+
 __global__ void __launch_bounds__(kThreads)
-bp_flood_kernel(const uint8_t* __restrict__ synd, const float* __restrict__ llr0,
-                long long llr0_stride, const uint8_t* __restrict__ skip,
-                const float* __restrict__ v2c_in, const int32_t* __restrict__ chk_var,
-                const int32_t* __restrict__ var_edge, uint8_t* __restrict__ hard,
-                float* __restrict__ llr, uint8_t* __restrict__ conv,
-                int32_t* __restrict__ iters, float* __restrict__ v2c_out, int32_t* scratch,
-                int m, int n, int wr, int wc, int max_iter, int it0, int product_sum,
-                float alpha_fixed) {
+bp_flood_global_kernel(const uint8_t* __restrict__ synd, const float* __restrict__ llr0,
+                       long long llr0_stride, const uint8_t* __restrict__ skip,
+                       const float* __restrict__ v2c_in, const int32_t* __restrict__ s_cv,
+                       const int32_t* __restrict__ s_ve, uint8_t* __restrict__ hard,
+                       float* __restrict__ llr, uint8_t* __restrict__ conv,
+                       int32_t* __restrict__ iters, float* __restrict__ v2c_out,
+                       int32_t* scratch, int m, int n, int wr, int wc, int max_iter, int it0,
+                       int product_sum, float alpha_fixed) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int E = m * wr;
 
-  extern __shared__ int32_t smem[];
-  const int32_t* s_cv;  // [E]
-  const int32_t* s_ve;  // [n * wc]
-  int32_t* s_syn;       // [m], then the float state below
-  if constexpr (kGlobal) {
-    s_cv = chk_var;
-    s_ve = var_edge;
-    s_syn = scratch + (size_t)b * (m + 2 * (size_t)E + 2 * (size_t)n);
-  } else {
-    int32_t* cv = smem;
-    int32_t* ve = cv + E;
-    for (int i = tid; i < E; i += nt) cv[i] = chk_var[i];
-    for (int i = tid; i < n * wc; i += nt) ve[i] = var_edge[i];
-    s_cv = cv;
-    s_ve = ve;
-    s_syn = ve + n * wc;
-  }
+  int32_t* s_syn = scratch + (size_t)b * (m + 2 * (size_t)E + 2 * (size_t)n);
   float* s_v2c = reinterpret_cast<float*>(s_syn + m);  // [E]
   float* s_c2v = s_v2c + E;              // [E]
   float* s_tot = s_c2v + E;              // [n]
@@ -119,8 +147,7 @@ bp_flood_kernel(const uint8_t* __restrict__ synd, const float* __restrict__ llr0
   const uint32_t big_bits = __float_as_uint(kBig);
   for (int it = it0 + 1;; ++it) {
     // ---- check update: one thread per check, v2c -> c2v ----
-    const float alpha =
-        alpha_fixed == 0.0f ? __fsub_rn(1.0f, ldexpf(1.0f, -it)) : alpha_fixed;
+    const float alpha = alpha_at(it, alpha_fixed);
     for (int c = tid; c < m; c += nt) {
       const int base = c * wr;
       int cnt = 0;
@@ -209,12 +236,426 @@ bp_flood_kernel(const uint8_t* __restrict__ synd, const float* __restrict__ llr0
   }
 }
 
+// ---------------------------------------------------------------------------
+// Shared-memory placement: persistent blocks of sample teams.
+
+// One team's synchronisation: __syncwarp for a one-warp team, else the named
+// barrier `id` over the team's `nthreads` (both order shared memory).
+struct Team {
+  int id;
+  int nthreads;
+
+  __device__ __forceinline__ void sync() const {
+    if (nthreads == 32) {
+      __syncwarp();
+    } else {
+      asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+    }
+  }
+
+  // Barrier that returns whether `pred` held on any thread of the team.
+  __device__ __forceinline__ int any(int pred) const {
+    if (nthreads == 32) {
+      __syncwarp();
+      return __any_sync(0xffffffffu, pred);
+    }
+    int r;
+    asm volatile(
+        "{\n\t.reg .pred p, q;\n\t"
+        "setp.ne.s32 p, %1, 0;\n\t"
+        "barrier.red.or.pred q, %2, %3, p;\n\t"
+        "selp.s32 %0, 1, 0, q;\n\t}"
+        : "=r"(r)
+        : "r"(pred), "r"(id), "r"(nthreads)
+        : "memory");
+    return r;
+  }
+};
+
+// A check's min-sum message, compressed: c2v of slot s is +-(s == i1 ? m2a :
+// m1a), negative where bit s of `sg` is set; i1 sits in bits 27..31.
+struct MinSumMsg {
+  float m1a, m2a;
+  uint32_t sg;
+};
+
+__device__ __forceinline__ float ms_value(const MinSumMsg& q, int s) {
+  const float mag = (int)(q.sg >> kMaxRowWeight) == s ? q.m2a : q.m1a;
+  return __uint_as_float(__float_as_uint(mag) ^ (((q.sg >> s) & 1u) << 31));  // +-mag
+}
+
+// Running exclusive-minimum state of one check over its v2c inputs.  The
+// update m2 = min(m2, max(m1, mag)), m1 = min(m1, mag), with i1 moving only
+// on a strictly smaller magnitude, is the first design's if/else chain.
+struct MinSumAcc {
+  uint32_t m1, m2, neg;
+  int i1;
+
+  __device__ __forceinline__ void init() {
+    m1 = m2 = __float_as_uint(kBig);
+    neg = 0u;
+    i1 = 31;
+  }
+
+  __device__ __forceinline__ void add(float x, int s) {
+    if (x < 0.0f) neg |= 1u << s;
+    const uint32_t mag = __float_as_uint(x) & 0x7fffffffu;
+    i1 = mag < m1 ? s : i1;
+    m2 = min(m2, max(m1, mag));
+    m1 = min(m1, mag);
+  }
+
+  __device__ __forceinline__ MinSumMsg finish(float alpha, int deg, int syn) const {
+    const uint32_t all = deg >= 32 ? 0xffffffffu : ((1u << deg) - 1u);
+    const int parity = syn ^ (__popc(neg) & 1);
+    return {__fmul_rn(__uint_as_float(m1), alpha), __fmul_rn(__uint_as_float(m2), alpha),
+            (neg ^ (parity ? all : 0u)) | ((uint32_t)i1 << kMaxRowWeight)};
+  }
+};
+
+// Product-sum c2v of one check from v2c = xin(s), written to row[s].
+template <typename In>
+__device__ __forceinline__ void ps_check(const In& xin, float* row, int deg, int syn) {
+  const float sgn = syn ? -1.0f : 1.0f;
+  float fwd = 1.0f;
+  for (int s = 0; s < deg; ++s) {
+    row[s] = fwd;
+    fwd = __fmul_rn(fwd, tanhf(__fmul_rn(0.5f, xin(s))));
+  }
+  float bwd = 1.0f;
+  for (int s = deg - 1; s >= 0; --s) {
+    float x = __fmul_rn(__fmul_rn(sgn, row[s]), bwd);
+    x = fminf(fmaxf(x, -kTanhClip), kTanhClip);
+    row[s] = __fmul_rn(2.0f, atanhf(x));
+    bwd = __fmul_rn(bwd, tanhf(__fmul_rn(0.5f, xin(s))));
+  }
+}
+
+// The four-lane sum of one variable's messages: lane e % 4, ascending e.
+struct LaneSum {
+  float p0, p1, p2, p3;
+
+  __device__ __forceinline__ void add4(const int4 e4, const float* c2v) {
+    const int ent[4] = {e4.x, e4.y, e4.z, e4.w};
+    float x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = ent[j] >= 0 ? c2v[ent[j] >> 2] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // a pad (-1, x = 0.0f) adds +0.0f to p3, which leaves it unchanged:
+      // a lane sum that starts at +0.0f never becomes -0.0f
+      const int k = ent[j] & 3;
+      if (k == 0) p0 = __fadd_rn(p0, x[j]);
+      if (k == 1) p1 = __fadd_rn(p1, x[j]);
+      if (k == 2) p2 = __fadd_rn(p2, x[j]);
+      if (k == 3) p3 = __fadd_rn(p3, x[j]);
+    }
+  }
+
+  __device__ __forceinline__ float total(float l0) const {
+    return __fadd_rn(l0, __fadd_rn(__fadd_rn(p0, p1), __fadd_rn(p2, p3)));
+  }
+};
+
+// Totals of iteration it: tot[v] = llr0[v] + the four-lane sum of c2v; a
+// variable's table row (wcp entries, a multiple of 4) is read 16 bytes at a
+// time.
+__device__ __forceinline__ void variable_sums(const int32_t* s_ve, const float* c2v,
+                                              const float* __restrict__ l0, float* tot,
+                                              int n, int wcp, int tid, int nthreads) {
+  for (int v = tid; v < n; v += nthreads) {
+    const int4* row = reinterpret_cast<const int4*>(s_ve + v * wcp);
+    LaneSum a{0.0f, 0.0f, 0.0f, 0.0f};
+    for (int g = 0; g < wcp / 4; ++g) a.add4(row[g], c2v);
+    tot[v] = a.total(__ldg(l0 + v));
+  }
+}
+
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// The min-sum check update of one check of a row of exactly kS slots (4 or
+// 8), unrolled and without branches: a pad slot (s >= dc) reads tot[n] =
+// 1.0f, which leaves the hard-decision parity alone, and enters the minimum
+// as the 1e30 cap, which changes neither minimum, the first-minimum slot
+// nor the signs.  cv and c2v point at the check's rows.
+template <int kS>
+__device__ __forceinline__ void check_slots(const int32_t* cv, const float* c2v, const float* tot,
+                                            int dc, int& hp, MinSumAcc& acc) {
+  int v[kS];
+  float cc[kS];
+#pragma unroll
+  for (int g = 0; g < kS / 4; ++g) {
+    const int4 v4 = reinterpret_cast<const int4*>(cv)[g];
+    const float4 c4 = reinterpret_cast<const float4*>(c2v)[g];  // c2v_it, own write
+    v[4 * g] = v4.x, v[4 * g + 1] = v4.y, v[4 * g + 2] = v4.z, v[4 * g + 3] = v4.w;
+    cc[4 * g] = c4.x, cc[4 * g + 1] = c4.y, cc[4 * g + 2] = c4.z, cc[4 * g + 3] = c4.w;
+  }
+  float tt[kS];
+#pragma unroll
+  for (int s = 0; s < kS; ++s) tt[s] = tot[v[s]];
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    hp ^= tt[s] <= 0.0f;
+    acc.add(s < dc ? __fsub_rn(tt[s], cc[s]) : kBig, s);
+  }
+}
+
+// Writes a check's c2v row from its message, 16 bytes at a time (pad slots
+// get values nothing reads): all kS slots when kS > 0, else the groups that
+// hold the dc slots.
+template <int kS>
+__device__ __forceinline__ void write_slots(const MinSumMsg& q, float* row, int dc = 0) {
+  const int groups = kS ? kS / 4 : (dc + 3) / 4;
+#pragma unroll
+  for (int g = 0; g < groups; ++g)
+    reinterpret_cast<float4*>(row)[g] = make_float4(
+        ms_value(q, 4 * g), ms_value(q, 4 * g + 1), ms_value(q, 4 * g + 2), ms_value(q, 4 * g + 3));
+}
+
+// kCPT: checks a thread owns (check c = tid + k * team_threads, k < kCPT).
+// Shared memory, in 4-byte words, every part a multiple of 16 bytes:
+//   tables: chk_var [m][wrp] (pad n), var_edge entries [n][wcp] ((c * wrp +
+//   s) << 2 | e % 4, pad -1), deg [m], with wrp and wcp wr and wc rounded up
+//   to a multiple of 4;
+//   per team: c2v [m][wrp] (twice for product-sum), tot [n + 1] (tot[n] =
+//   1.0f, the target of pad slots), two row slots.
+template <int kCPT, bool kProd>
+__global__ void bp_flood_team_kernel(
+    const uint8_t* __restrict__ synd, const float* __restrict__ llr0, long long llr0_stride,
+    const uint8_t* __restrict__ skip, const float* __restrict__ v2c_in,
+    const int32_t* __restrict__ chk_var, const int32_t* __restrict__ var_edge,
+    const int32_t* __restrict__ deg, uint8_t* __restrict__ hard, float* __restrict__ llr,
+    uint8_t* __restrict__ conv, int32_t* __restrict__ iters, float* __restrict__ v2c_out,
+    int32_t* __restrict__ counter, int B, int m, int n, int wr, int wc, int max_iter,
+    int it0, int team_threads, float alpha_fixed) {
+  extern __shared__ int4 smem_team[];
+  const int E = m * wr;
+  const int wrp = round4(wr), wcp = round4(wc);
+  int32_t* s_cv = reinterpret_cast<int32_t*>(smem_team);  // [m][wrp]
+  int32_t* s_ve = s_cv + m * wrp;                            // [n][wcp]
+  int32_t* s_deg = s_ve + n * wcp;                           // [m]
+  for (int i = threadIdx.x; i < m * wrp; i += blockDim.x) {
+    const int c = i / wrp, s = i - c * wrp;
+    s_cv[i] = s < wr ? chk_var[c * wr + s] : n;
+  }
+  for (int i = threadIdx.x; i < n * wcp; i += blockDim.x) {
+    const int v = i / wcp, j = i - v * wcp;
+    const int e = j < wc ? var_edge[v * wc + j] : E;
+    int ent = -1;
+    if (e < E) {
+      const int c = e / wr;
+      ent = ((c * wrp + e - c * wr) << 2) | (e & 3);
+    }
+    s_ve[i] = ent;
+  }
+  for (int c = threadIdx.x; c < m; c += blockDim.x) s_deg[c] = deg[c];
+  __syncthreads();
+
+  const int team = threadIdx.x / team_threads;
+  const int tid = threadIdx.x - team * team_threads;
+  const Team tm{team + 1, team_threads};
+  const int c2v_words = m * wrp;
+  const int team_words = (kProd ? 2 : 1) * c2v_words + round4(n + 3);
+  float* s_c2v0 = reinterpret_cast<float*>(s_cv + round4(m * wrp + n * wcp + m)) +
+                  (size_t)team * team_words;
+  float* s_c2v1 = kProd ? s_c2v0 + c2v_words : s_c2v0;  // c2v of iteration it in buffer it & 1
+  float* s_tot = s_c2v0 + (kProd ? 2 : 1) * c2v_words;    // [n + 1]
+  int32_t* s_row = reinterpret_cast<int32_t*>(s_tot + n + 1);  // [2] by fetch parity
+  if (tid == 0) s_tot[n] = 1.0f;  // target of pad slots: not a hard 1
+
+  for (int fetch = 0;; ++fetch) {
+    int row;
+    if (team_threads == 32) {
+      __syncwarp();
+      int r = 0;
+      if (tid == 0) r = atomicAdd(counter, 1);
+      row = __shfl_sync(0xffffffffu, r, 0);
+    } else {
+      if (tid == 0) s_row[fetch & 1] = atomicAdd(counter, 1);
+      tm.sync();
+      row = s_row[fetch & 1];
+    }
+    if (row >= B) return;
+
+    const float* l0 = llr0 + (size_t)row * llr0_stride;
+    const float* vin = v2c_in ? v2c_in + (size_t)row * E : nullptr;
+    float* vout = v2c_out ? v2c_out + (size_t)row * E : nullptr;
+    uint32_t syn = 0u;  // bit k: syndrome of check tid + k * team_threads
+#pragma unroll
+    for (int k = 0; k < kCPT; ++k) {
+      const int c = tid + k * team_threads;
+      if (c < m) syn |= (uint32_t)(synd[(size_t)row * m + c] & 1) << k;
+    }
+    // v2c of (check c, slot s) before the first iteration
+    auto v2c_start = [&](int c, int s) {
+      const int v = s_cv[c * wrp + s];
+      return v < n ? (vin ? vin[c * wr + s] : __ldg(l0 + v)) : 0.0f;
+    };
+
+    if (skip && skip[row]) {  // born converged: hard 0, llr the prior
+      for (int v = tid; v < n; v += team_threads) {
+        hard[(size_t)row * n + v] = 0;
+        llr[(size_t)row * n + v] = __ldg(l0 + v);
+      }
+      if (vout)
+        for (int c = tid; c < m; c += team_threads)
+          for (int s = 0; s < wr; ++s) vout[c * wr + s] = v2c_start(c, s);
+      if (tid == 0) {
+        conv[row] = 1;
+        iters[row] = it0;
+      }
+      continue;
+    }
+
+    // ---- iteration it0 + 1: c2v from the starting v2c, then the totals ----
+    MinSumMsg msg[kProd ? 1 : kCPT];
+    {
+      const float alpha = alpha_at(it0 + 1, alpha_fixed);
+      float* out = ((it0 + 1) & 1) ? s_c2v1 : s_c2v0;
+#pragma unroll
+      for (int k = 0; k < kCPT; ++k) {
+        const int c = tid + k * team_threads;
+        if (c >= m) continue;
+        const int dc = s_deg[c];
+        if constexpr (kProd) {
+          ps_check([&](int s) { return v2c_start(c, s); }, out + c * wrp, dc, (syn >> k) & 1);
+        } else {
+          MinSumAcc acc;
+          acc.init();
+          for (int s = 0; s < dc; ++s) acc.add(v2c_start(c, s), s);
+          msg[k] = acc.finish(alpha, dc, (syn >> k) & 1);
+          write_slots<0>(msg[k], out + c * wrp, dc);
+        }
+      }
+    }
+    tm.sync();
+    variable_sums(s_ve, ((it0 + 1) & 1) ? s_c2v1 : s_c2v0, l0, s_tot, n, wcp, tid,
+                  team_threads);
+    tm.sync();
+
+    for (int it = it0 + 1;; ++it) {
+      // ---- check update of it + 1 from tot_it, with the parity of it ----
+      const bool more = it < max_iter;
+      const float alpha = alpha_at(it + 1, alpha_fixed);
+      const float* prev = (it & 1) ? s_c2v1 : s_c2v0;  // c2v_it
+      float* out = (it & 1) ? s_c2v0 : s_c2v1;         // c2v_{it+1} (min-sum: the same)
+      int fail = 0;
+      MinSumMsg next[kProd ? 1 : kCPT];
+#pragma unroll
+      for (int k = 0; k < kCPT; ++k) {
+        const int c = tid + k * team_threads;
+        if (c >= m) continue;
+        const int dc = s_deg[c];
+        const int sb = (syn >> k) & 1;
+        const int32_t* cv = s_cv + c * wrp;  // the check's rows
+        const float* cp = prev + c * wrp;
+        float* co = out + c * wrp;
+        int hp = sb;
+        if constexpr (kProd) {
+          for (int s = 0; s < dc; ++s) hp ^= s_tot[cv[s]] <= 0.0f;
+          if (more) ps_check([&](int s) { return __fsub_rn(s_tot[cv[s]], cp[s]); }, co, dc, sb);
+        } else {
+          MinSumAcc acc;
+          acc.init();
+          if (wrp == 8) {
+            check_slots<8>(cv, cp, s_tot, dc, hp, acc);
+          } else if (wrp == 4) {
+            check_slots<4>(cv, cp, s_tot, dc, hp, acc);
+          } else {
+            for (int g = 0; 4 * g < dc; ++g) {  // four slots a step, 16-byte reads
+              const int4 v4 = reinterpret_cast<const int4*>(cv)[g];
+              const float4 c4 = reinterpret_cast<const float4*>(cp)[g];  // own write
+              const float tt[4] = {s_tot[v4.x], s_tot[v4.y], s_tot[v4.z], s_tot[v4.w]};
+              const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (4 * g + j >= dc) continue;
+                hp ^= tt[j] <= 0.0f;
+                acc.add(__fsub_rn(tt[j], cc[j]), 4 * g + j);
+              }
+            }
+          }
+          next[k] = acc.finish(alpha, dc, sb);
+          if (more) {
+            if (wrp == 8) write_slots<8>(next[k], co);
+            else if (wrp == 4) write_slots<4>(next[k], co);
+            else write_slots<0>(next[k], co, dc);
+          }
+        }
+        fail |= hp;
+      }
+      const int any_fail = tm.any(fail);
+
+      if (!any_fail || !more) {  // emit tot_it and v2c_it
+        for (int v = tid; v < n; v += team_threads) {
+          const float t = s_tot[v];
+          hard[(size_t)row * n + v] = (t <= 0.0f);
+          llr[(size_t)row * n + v] = t;
+        }
+        if (vout) {
+#pragma unroll
+          for (int k = 0; k < kCPT; ++k) {
+            const int c = tid + k * team_threads;
+            if (c >= m) continue;
+            const int dc = s_deg[c];
+            for (int s = 0; s < wr; ++s) {
+              float x = 0.0f;
+              if (s < dc) {
+                const int i = c * wrp + s;
+                float c2v;
+                if constexpr (kProd) c2v = prev[i];
+                else c2v = ms_value(msg[k], s);
+                x = __fsub_rn(s_tot[s_cv[i]], c2v);
+              }
+              vout[c * wr + s] = x;
+            }
+          }
+        }
+        if (tid == 0) {
+          conv[row] = !any_fail;
+          iters[row] = it;
+        }
+        break;
+      }
+      if constexpr (!kProd) {
+#pragma unroll
+        for (int k = 0; k < kCPT; ++k) msg[k] = next[k];
+      }
+      variable_sums(s_ve, out, l0, s_tot, n, wcp, tid, team_threads);
+      tm.sync();
+    }
+  }
+}
+
+using TeamKernel = void (*)(const uint8_t*, const float*, long long, const uint8_t*,
+                            const float*, const int32_t*, const int32_t*, const int32_t*,
+                            uint8_t*, float*, uint8_t*, int32_t*, float*, int32_t*, int, int,
+                            int, int, int, int, int, int, float);
+
+TeamKernel team_kernel(int cpt, int product_sum) {
+  if (cpt <= 1) return product_sum ? bp_flood_team_kernel<1, true> : bp_flood_team_kernel<1, false>;
+  if (cpt <= 2) return product_sum ? bp_flood_team_kernel<2, true> : bp_flood_team_kernel<2, false>;
+  if (cpt <= 4) return product_sum ? bp_flood_team_kernel<4, true> : bp_flood_team_kernel<4, false>;
+  return product_sum ? bp_flood_team_kernel<8, true> : bp_flood_team_kernel<8, false>;
+}
+
 }  // namespace
 
-// Shared memory of one block in the shared-memory placement.
+// Shared memory of one sample's whole state in the first design (tables,
+// syndrome, v2c, c2v, totals, prior): the boundary of the shared-memory
+// placement (ops/cuda_bp.py:k1_fits).
 extern "C" size_t bp_flood_smem_bytes(int m, int n, int wr, int wc) {
   const size_t E = (size_t)m * wr;
   return 4 * (E + (size_t)n * wc + m + 2 * E + 2 * (size_t)n);
+}
+
+// Team kernel: shared memory of the tables a block loads once, and of one
+// sample team's state (c2v, once or twice, totals, two row slots).
+extern "C" size_t bp_flood_table_bytes(int m, int n, int wr, int wc) {
+  return 4 * (size_t)round4(m * round4(wr) + n * round4(wc) + m);
+}
+extern "C" size_t bp_flood_team_bytes(int m, int n, int wr, int product_sum) {
+  return 4 * ((product_sum ? 2 : 1) * (size_t)m * round4(wr) + round4(n + 3));
 }
 
 // Scratch words of one sample in the device-memory placement.
@@ -222,26 +663,147 @@ extern "C" size_t bp_flood_scratch_words(int m, int n, int wr) {
   return (size_t)m + 2 * (size_t)m * wr + 2 * (size_t)n;
 }
 
-// Launches B blocks on `stream`; with `scratch` (B * bp_flood_scratch_words
-// int32) the state lives there, else in shared memory.  Returns
-// cudaGetLastError() of the launch.
+namespace {
+
+// Attributes of a team-kernel instance, read once; its dynamic shared memory
+// limit is raised to the block maximum on first use.
+cudaError_t team_attributes(int cpt, int product_sum, cudaFuncAttributes* attr) {
+  static cudaFuncAttributes cache[2][kMaxChecksPerThread + 1];
+  static bool have[2][kMaxChecksPerThread + 1];
+  const int key = cpt <= 1 ? 1 : cpt <= 2 ? 2 : cpt <= 4 ? 4 : 8;
+  if (!have[product_sum][key]) {
+    TeamKernel kernel = team_kernel(key, product_sum);
+    cudaError_t err = cudaFuncGetAttributes(&cache[product_sum][key], kernel);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    have[product_sum][key] = true;
+  }
+  *attr = cache[product_sum][key];
+  return cudaSuccess;
+}
+
+// Teams of `warps` warps: out = {team threads, teams a block, blocks an SM,
+// dynamic shared memory, registers}, with at most `cap` teams a block.
+cudaError_t team_shape(int warps, int m, int n, int wr, int wc, int product_sum, long long cap,
+                       int* out) {
+  const int T = 32 * warps;
+  const int cpt = (m + T - 1) / T;
+  if (T > 1024 || cpt > kMaxChecksPerThread) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = team_attributes(cpt, product_sum, &attr);
+  if (err != cudaSuccess) return err;
+  const long long tables = (long long)bp_flood_table_bytes(m, n, wr, wc);
+  const long long team = (long long)bp_flood_team_bytes(m, n, wr, product_sum);
+  long long teams = (kSmemLimit - tables - (long long)attr.sharedSizeBytes) / team;
+  if (teams > attr.maxThreadsPerBlock / T) teams = attr.maxThreadsPerBlock / T;
+  if (T > 32 && teams > kMaxWarpTeams) teams = kMaxWarpTeams;
+  if (teams > cap) teams = cap;
+  if (teams < 1) return cudaErrorInvalidValue;
+  const int smem = (int)(tables + teams * team);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, team_kernel(cpt, product_sum),
+                                                      (int)teams * T, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  out[0] = T;
+  out[1] = (int)teams;
+  out[2] = per_sm;
+  out[3] = smem;
+  out[4] = attr.numRegs;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The team kernel's launch for B rows: out = {team threads, teams a block,
+// blocks an SM, grid, dynamic shared memory bytes, registers a thread}.
+// team_warps = 0 adapts the team to the graph and B.  A team's iteration
+// costs about the work of its busiest thread, path = ceil(m/T) * wr +
+// ceil(n/T) * wc slot and edge updates between its two barriers.  Among
+// teams of 1 to 8 warps that keep a thread at <= 8 checks: if some hold all
+// B rows resident at once, the one of least path (each row finishes
+// soonest); else the one of most resident teams per path (the most
+// sample-iterations an SM runs at a time).
+// Returns 0, or cudaErrorInvalidValue for a graph the team kernel does not
+// take (row weight above 27, more than 1024 threads a team, or a team that
+// does not fit a block), or the CUDA error of a query.
+extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_sum,
+                             int team_warps, int* out) {
+  if (wr > kMaxRowWeight || m <= 0 || n <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = ((long long)B + sms - 1) / sms;  // rows an SM when spread evenly
+  int shape[5];
+  if (team_warps <= 0) {
+    const int lo = (m + 32 * kMaxChecksPerThread - 1) / (32 * kMaxChecksPerThread);
+    const int hi_all = (m + 31) / 32;
+    const int hi = hi_all < lo + 7 ? hi_all : lo + 7;
+    int fit = 0, most = 0;
+    long long fit_path = 0;
+    double most_rate = -1.0;
+    for (int w = lo; w <= hi; ++w) {
+      if (team_shape(w, m, n, wr, wc, product_sum, need, shape) != cudaSuccess) continue;
+      const int T = 32 * w;
+      const long long path = (long long)((m + T - 1) / T) * wr + (long long)((n + T - 1) / T) * wc;
+      const long long resident = (long long)shape[1] * shape[2];
+      if (resident >= need && (!fit || path < fit_path)) {
+        fit = w;
+        fit_path = path;
+      }
+      const double rate = (double)resident / (double)path;
+      if (rate > most_rate) {
+        most_rate = rate;
+        most = w;
+      }
+    }
+    team_warps = fit ? fit : most;
+    if (!team_warps) return (int)cudaErrorInvalidValue;
+  }
+  err = team_shape(team_warps, m, n, wr, wc, product_sum, need, shape);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = ((long long)B + shape[1] - 1) / shape[1];
+  const long long resident = (long long)sms * shape[2];
+  out[0] = shape[0];
+  out[1] = shape[1];
+  out[2] = shape[2];
+  out[3] = (int)(blocks < resident ? blocks : resident);
+  out[4] = shape[3];
+  out[5] = shape[4];
+  return 0;
+}
+
+// Launches K1 on `stream`.  With `scratch` (B * bp_flood_scratch_words
+// int32) the first design runs one block per sample with the state there;
+// else the team kernel, with `deg` [m] int32 and `counter` one int32 set to
+// 0 by the caller.  Returns cudaGetLastError() of the launch, or the error
+// of bp_flood_plan.
 extern "C" int bp_flood_launch(const void* synd, const void* llr0, long long llr0_stride,
                                const void* skip, const void* v2c_in, const void* chk_var,
-                               const void* var_edge, void* hard, void* llr, void* conv,
-                               void* iters, void* v2c_out, void* scratch, int B, int m,
-                               int n, int wr, int wc, int max_iter, int it0,
-                               int product_sum, float alpha_fixed, void* stream) {
-  const size_t smem = scratch ? 0 : bp_flood_smem_bytes(m, n, wr, wc);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bp_flood_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+                               const void* var_edge, const void* deg, void* hard, void* llr,
+                               void* conv, void* iters, void* v2c_out, void* scratch,
+                               void* counter, int B, int m, int n, int wr, int wc,
+                               int max_iter, int it0, int product_sum, float alpha_fixed,
+                               int team_warps, void* stream) {
+  if (scratch) {
+    bp_flood_global_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,
+        (const float*)v2c_in, (const int32_t*)chk_var, (const int32_t*)var_edge,
+        (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters, (float*)v2c_out,
+        (int32_t*)scratch, m, n, wr, wc, max_iter, it0, product_sum, alpha_fixed);
+    return (int)cudaGetLastError();
   }
-  auto kernel = scratch ? bp_flood_kernel<true> : bp_flood_kernel<false>;
-  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  int plan[6];
+  const int err = bp_flood_plan(B, m, n, wr, wc, product_sum, team_warps, plan);
+  if (err != 0) return err;
+  const int T = plan[0];
+  team_kernel((m + T - 1) / T, product_sum)<<<plan[3], plan[1] * T, plan[4],
+                                              (cudaStream_t)stream>>>(
       (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,
       (const float*)v2c_in, (const int32_t*)chk_var, (const int32_t*)var_edge,
-      (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters, (float*)v2c_out,
-      (int32_t*)scratch, m, n, wr, wc, max_iter, it0, product_sum, alpha_fixed);
+      (const int32_t*)deg, (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters,
+      (float*)v2c_out, (int32_t*)counter, B, m, n, wr, wc, max_iter, it0, T, alpha_fixed);
   return (int)cudaGetLastError();
 }

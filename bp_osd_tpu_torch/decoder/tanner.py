@@ -12,6 +12,9 @@ fixed-shape, padded index tensors on one device:
 - ``H_cols [n, ceil(m/32)]`` int32: column-packed PCM (bit ``i`` of word ``w``
   of row ``c`` is ``H[32w + i, c]``), the column layout of the OSD matrix; not
   a field of the JAX graph.
+- ``chk_deg [m]`` int32: the degree of each check (its count of
+  ``chk_var < n``), which kernel K1 reads instead of scanning a row; not a
+  field of the JAX graph.
 
 The JAX graph's pytree protocol and its one-hot ``edge_var_onehot`` operator
 (a TPU device that routes gathers through the matrix unit) have no
@@ -43,7 +46,7 @@ class TannerGraph:
 
     _FIELDS = ("chk_var", "chk_mask", "var_edge", "var_mask", "H_packed")
     _INTS = ("m", "n", "wr", "wc", "num_words", "rank")
-    _DERIVED = ("H_cols",)
+    _DERIVED = ("H_cols", "chk_deg")
 
     def __init__(self, H, device="cpu"):
         Hd = gf2.to_dense(H)
@@ -94,6 +97,7 @@ class TannerGraph:
         self.var_mask = self.var_edge != m * self.wr
         self.H_packed = torch.from_numpy(h_packed).to(dev)
         self.H_cols = torch.from_numpy(h_cols).to(dev)
+        self.chk_deg = torch.from_numpy(row_counts.astype(np.int32)).to(dev)
 
     def to(self, device) -> "TannerGraph":
         """The same graph with its tensors on ``device``."""

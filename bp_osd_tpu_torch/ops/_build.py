@@ -115,14 +115,20 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(so_path)
     P, I, LL, F, SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float, ctypes.c_size_t)
-    lib.bp_flood_launch.argtypes = [P, P, LL, P, P, P, P, P, P, P, P, P, P,
-                                    I, I, I, I, I, I, I, I, F, P]
+    lib.bp_flood_launch.argtypes = [P, P, LL, P, P, P, P, P, P, P, P, P, P, P, P,
+                                    I, I, I, I, I, I, I, I, F, I, P]
     lib.bp_flood_launch.restype = I
     lib.bp_flood_smem_bytes.argtypes = [I, I, I, I]
     lib.bp_flood_smem_bytes.restype = SZ
     lib.bp_flood_scratch_words.argtypes = [I, I, I]
     lib.bp_flood_scratch_words.restype = SZ
-    lib.osd_cs_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]
+    lib.bp_flood_table_bytes.argtypes = [I, I, I, I]
+    lib.bp_flood_table_bytes.restype = SZ
+    lib.bp_flood_team_bytes.argtypes = [I, I, I, I]
+    lib.bp_flood_team_bytes.restype = SZ
+    lib.bp_flood_plan.argtypes = [I, I, I, I, I, I, I, ctypes.POINTER(I)]
+    lib.bp_flood_plan.restype = I
+    lib.osd_cs_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.osd_cs_launch.restype = I
     lib.osd_e_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.osd_e_launch.restype = I
@@ -132,6 +138,10 @@ def load() -> ctypes.CDLL:
     lib.gf2_elim_smem_bytes.restype = SZ
     lib.osd_cs_smem_bytes.argtypes = [I, I, I, I, I]
     lib.osd_cs_smem_bytes.restype = SZ
+    lib.osd_cs_warp_smem_bytes.argtypes = [I, I, I, I]
+    lib.osd_cs_warp_smem_bytes.restype = SZ
+    lib.osd_cs_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
+    lib.osd_cs_plan.restype = I
     lib.osd_large_launch.argtypes = [P, P, P, P, P, P, P, P,
                                      I, I, I, I, I, I, I, I, I, P]
     lib.osd_large_launch.restype = I

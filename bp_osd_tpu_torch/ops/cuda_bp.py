@@ -1,15 +1,19 @@
-"""Wrapper of kernel K1, ``csrc/bp_flood.cu``: flooding BP, one block per sample.
+"""Wrapper of kernel K1, ``csrc/bp_flood.cu``: flooding BP.
 
 Replaces ``bp_osd_tpu/ops/pallas_bp.py:bp_decode_pallas``.  CUDA tensors go
 to the kernel; CPU tensors to the plain torch version,
-:func:`bp_osd_tpu_torch.decoder.bp.bp_decode_plain`.  A graph whose tables and
-state fit a block's shared memory (:func:`k1_fits`) runs there; a larger one
-keeps each sample's state in a device-memory scratch slice, launched in row
-chunks of at most ``_SCRATCH_BYTES``.  ``bp_flood.launches`` counts kernel
-launches.
+:func:`bp_osd_tpu_torch.decoder.bp.bp_decode_plain`.  A graph whose
+per-sample state fits a block's shared memory (:func:`k1_fits`) runs in the
+team kernel: persistent blocks that hold the tables once and decode one
+sample per team of warps, rows handed out by a counter; a larger one keeps
+each sample's state in a device-memory scratch slice, one block per sample,
+launched in row chunks of at most ``_SCRATCH_BYTES``.  ``bp_flood.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -17,10 +21,13 @@ from ..decoder.bp import bp_decode_plain
 from ..decoder.tanner import TannerGraph
 from . import _build
 
-__all__ = ["bp_flood", "bp_flood_smem_bytes", "k1_fits"]
+__all__ = ["bp_flood", "bp_flood_plan", "bp_flood_smem_bytes", "bp_flood_table_bytes",
+           "bp_flood_team_bytes", "k1_fits", "team_shape"]
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _SCRATCH_BYTES = 1 << 30  # device-memory placement: scratch per launch
+_MAX_ROW_WEIGHT = 27  # the team kernel keeps a check's sign bits in one word
+_MAX_CHECKS_PER_THREAD = 8
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -32,16 +39,69 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
 
 
 def bp_flood_smem_bytes(m: int, n: int, wr: int, wc: int) -> int:
-    """Shared memory of one K1 block, as ``csrc/bp_flood.cu:bp_flood_smem_bytes``
-    computes it (``chip_smoke.py`` holds the two equal on the card)."""
+    """One sample's whole state in K1's first design (tables, syndrome, v2c,
+    c2v, totals, prior), the boundary of the shared-memory placement, as
+    ``csrc/bp_flood.cu:bp_flood_smem_bytes`` computes it (``chip_smoke.py``
+    holds the two equal on the card)."""
     E = m * wr
     return 4 * (E + n * wc + m + 2 * E + 2 * n)
 
 
-def k1_fits(graph) -> bool:
-    """Whether K1 holds ``graph``'s tables and a sample's state in a block's
-    shared memory; otherwise the state goes to device memory."""
-    return bp_flood_smem_bytes(graph.m, graph.n, graph.wr, graph.wc) <= _SMEM_LIMIT
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def bp_flood_table_bytes(m: int, n: int, wr: int, wc: int) -> int:
+    """Shared memory of the tables a team-kernel block loads once (chk_var
+    ``[m][wr]`` and var_edge ``[n][wc]`` with rows padded to a multiple of 4
+    words, check degrees), as ``csrc/bp_flood.cu`` computes it."""
+    return 4 * _round4(m * _round4(wr) + n * _round4(wc) + m)
+
+
+def bp_flood_team_bytes(m: int, n: int, wr: int, product_sum: bool) -> int:
+    """Shared memory of one sample team in the team kernel: c2v ``[m][wr]``
+    with rows padded to a multiple of 4 (twice for product-sum), the totals
+    with a pad slot, and two row slots."""
+    return 4 * ((2 if product_sum else 1) * m * _round4(wr) + _round4(n + 3))
+
+
+def team_shape(m: int) -> tuple[int, int]:
+    """``(threads, checks a thread)`` of the smallest team
+    ``csrc/bp_flood.cu:bp_flood_plan`` considers: the fewest warps that keep
+    a thread at <= 8 checks."""
+    warps = -(-m // (32 * _MAX_CHECKS_PER_THREAD))
+    return 32 * warps, -(-m // (32 * warps))
+
+
+def k1_fits(graph, product_sum: bool = False) -> bool:
+    """Whether K1 decodes ``graph`` in shared memory (the team kernel): one
+    sample's whole state in the first design's layout fits a block, the row
+    weight is at most 27, a team of at most 1024 threads owns the checks,
+    and the tables and one team fit a block.  Otherwise the state goes to
+    device memory."""
+    m, n, wr, wc = graph.m, graph.n, graph.wr, graph.wc
+    threads, cpt = team_shape(m)
+    return (bp_flood_smem_bytes(m, n, wr, wc) <= _SMEM_LIMIT
+            and wr <= _MAX_ROW_WEIGHT and threads <= 1024 and cpt <= _MAX_CHECKS_PER_THREAD
+            and bp_flood_table_bytes(m, n, wr, wc) + bp_flood_team_bytes(m, n, wr, product_sum)
+            <= _SMEM_LIMIT)
+
+
+def bp_flood_plan(graph, B: int, *, product_sum: bool = False, team_warps: int = 0) -> dict:
+    """The team kernel's launch for ``B`` rows on the current card, from
+    ``csrc/bp_flood.cu:bp_flood_plan``: team threads, teams a block, blocks
+    an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), grid, dynamic
+    shared memory, registers a thread, and the samples resident on an SM."""
+    plan = (ctypes.c_int * 6)()
+    err = _build.load().bp_flood_plan(int(B), graph.m, graph.n, graph.wr, graph.wc,
+                                      int(product_sum), int(team_warps), plan)
+    if err != 0:
+        raise RuntimeError(f"bp_flood_plan failed: CUDA error {err}")
+    keys = ("team_threads", "teams_per_block", "blocks_per_sm", "grid", "smem_bytes",
+            "registers")
+    out = dict(zip(keys, plan))
+    out["resident_per_sm"] = out["teams_per_block"] * out["blocks_per_sm"]
+    return out
 
 
 def bp_flood(
@@ -56,11 +116,15 @@ def bp_flood(
     v2c_init: torch.Tensor | None = None,
     it0: int = 0,
     emit_state: bool = False,
+    team_warps: int = 0,
 ):
     """Flooding BP; same arguments and results as ``bp_decode_plain``.
 
     ``synd [B, m]`` uint8, ``llr0 [B, n]`` f32 (a broadcast ``[n]`` row is
     read with stride 0), ``skip [B]`` bool, ``v2c_init [B, m * wr]`` f32.
+    ``team_warps`` sets the warps of a sample team in the team kernel, for
+    measurement and tests (0: the choice of ``csrc/bp_flood.cu:bp_flood_plan``
+    for this code and batch); the result does not depend on it.
     """
     kw = dict(method=method, max_iter=max_iter, ms_scaling_factor=ms_scaling_factor,
               skip=skip, v2c_init=v2c_init, it0=it0, emit_state=emit_state)
@@ -93,12 +157,14 @@ def bp_flood(
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     v2c = torch.empty(B, E, dtype=torch.float32, device=dev) if emit_state else None
     if B:
-        if k1_fits(graph):
+        if k1_fits(graph, method == "product_sum"):
             rows, scratch = B, None
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
         else:
             per_row = lib.bp_flood_scratch_words(m, n, wr)
             rows = max(1, min(B, _SCRATCH_BYTES // (4 * per_row)))
             scratch = torch.empty(rows * per_row, dtype=torch.int32, device=dev)
+            counter = None
         chk_var = graph.chk_var.contiguous()
         var_edge = graph.var_edge.contiguous()
         alpha = float(ms_scaling_factor) if method == "minimum_sum" else 1.0
@@ -111,11 +177,11 @@ def bp_flood(
             err = lib.bp_flood_launch(
                 ptr(synd, row0), llr0[row0:].data_ptr() if stride else llr0.data_ptr(),
                 stride, ptr(skip, row0), ptr(v2c_init, row0),
-                chk_var.data_ptr(), var_edge.data_ptr(),
+                chk_var.data_ptr(), var_edge.data_ptr(), graph.chk_deg.data_ptr(),
                 ptr(hard, row0), ptr(llr, row0), ptr(conv, row0), ptr(iters, row0),
-                ptr(v2c, row0), None if scratch is None else scratch.data_ptr(),
+                ptr(v2c, row0), ptr(scratch, 0), ptr(counter, 0),
                 min(rows, B - row0), m, n, wr, wc, int(max_iter), int(it0),
-                int(method == "product_sum"), alpha, stream,
+                int(method == "product_sum"), alpha, int(team_warps), stream,
             )
             if err != 0:
                 raise RuntimeError(f"bp_flood launch failed: CUDA error {err}")

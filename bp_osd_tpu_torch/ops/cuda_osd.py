@@ -1,15 +1,18 @@
 """Wrappers of kernels K2 and K3, ``csrc/osd_cs.cu``: osd0 / osd_cs
-(:func:`osd_cs`) and osd_e (:func:`osd_e`), one block per sample.
+(:func:`osd_cs`, one warp per sample, several samples a block) and osd_e
+(:func:`osd_e`, one block per sample).
 
 Replace ``bp_osd_tpu/ops/pallas_osd.py:osd_cs_pallas`` and ``osd_e_pallas``
-and their pre-pass ``_permuted_packed_h`` (the kernel builds the permuted
-matrix itself from ``perm`` and ``H_packed``).  CUDA tensors go to the
+and their pre-pass ``_permuted_packed_h`` (the kernels build the permuted
+matrix themselves from ``perm`` and ``H_cols`` (K2) or ``H_packed`` (K3)).  CUDA tensors go to the
 kernel; CPU tensors to the plain torch version,
 :func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain`.  ``osd_cs.launches``
 and ``osd_e.launches`` count kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -19,30 +22,67 @@ from ..decoder.tanner import TannerGraph
 from . import _build
 from .cuda_bp import _SMEM_LIMIT, _check
 
-__all__ = ["k2_fits", "k3_fits", "osd_cs", "osd_cs_smem_bytes", "osd_e"]
+__all__ = ["k2_fits", "k3_fits", "osd_cs", "osd_cs_plan", "osd_cs_smem_bytes",
+           "osd_cs_warp_smem_bytes", "osd_e"]
 
-_K3_MAX_ROWS = 1024  # K3 keeps a residual of ceil(m/32) <= 32 words in registers
+_MAX_WORDS = 32  # K2 and K3 keep a column of ceil(m/32) <= 32 words in registers
 
 
 def osd_cs_smem_bytes(m: int, n: int, lam: int) -> int:
-    """Shared memory of one K2 block, as ``csrc/osd_cs.cu:osd_cs_smem_bytes``
-    computes it (``chip_smoke.py`` holds the two equal on the card)."""
+    """Shared memory of one K3 block (the block-per-sample layout: the
+    row-packed H and one sample's matrix and state), as
+    ``csrc/osd_cs.cu:osd_cs_smem_bytes`` computes it (``chip_smoke.py`` holds
+    the two equal on the card)."""
     W, Wm = -(-n // 32), -(-m // 32)
     return 8 * 8 + 4 * ((n + 1) * Wm + m * W + 2 * n + max(lam, 1) + 3 * Wm + 4)
 
 
+def osd_cs_warp_smem_bytes(m: int, n: int, lam: int, warps: int = 1) -> int:
+    """Shared memory of one K2 block of ``warps`` samples: the column-packed
+    H once, then per warp the ``n + 1`` columns, the pivot rows (int16), the
+    T columns and the best residual, as
+    ``csrc/osd_cs.cu:osd_cs_warp_smem_bytes`` computes it.  A column takes
+    ``Wm = ceil(m/32)`` words rounded up to even (it is XORed in 64-bit
+    pairs)."""
+    Wm = -(-m // 32)
+    Wp = Wm + (Wm & 1)
+    per_warp = (n + 1) * Wp + (n + 1) // 2 + max(lam, 1) + Wm
+    per_warp += per_warp & 1  # even: the next warp's columns stay 8-byte aligned
+    return 4 * (n * Wp + warps * per_warp)
+
+
 def k2_fits(graph: TannerGraph, osd_order: int) -> bool:
     """Whether K2 holds this graph's matrix in a block's shared memory at
-    ``osd_order``; the card decodes the rest with K5 (``osd_large.cu``), as
-    the JAX package routes by ``fused_osd_fits``."""
+    ``osd_order`` (one warp's sample and the shared H); the card decodes the
+    rest with K5 (``osd_large.cu``), as the JAX package routes by
+    ``fused_osd_fits``."""
     lam = max(0, min(int(osd_order), graph.n - graph.rank))
-    return osd_cs_smem_bytes(graph.m, graph.n, lam) <= _SMEM_LIMIT
+    return (-(-graph.m // 32) <= _MAX_WORDS
+            and osd_cs_warp_smem_bytes(graph.m, graph.n, lam) <= _SMEM_LIMIT)
 
 
 def k3_fits(graph: TannerGraph, osd_order: int) -> bool:
-    """Whether K3 takes this graph at ``osd_order``: K2's shared memory (the
-    same layout) and at most 1024 rows."""
-    return k2_fits(graph, osd_order) and graph.m <= _K3_MAX_ROWS
+    """Whether K3 takes this graph at ``osd_order``: its block-per-sample
+    layout fits a block's shared memory and there are at most 1024 rows."""
+    lam = max(0, min(int(osd_order), graph.n - graph.rank))
+    return (-(-graph.m // 32) <= _MAX_WORDS
+            and osd_cs_smem_bytes(graph.m, graph.n, lam) <= _SMEM_LIMIT)
+
+
+def osd_cs_plan(graph: TannerGraph, B: int, osd_order: int) -> dict:
+    """K2's launch for ``B`` rows on the current card, from
+    ``csrc/osd_cs.cu:osd_cs_plan``: warps (samples) a block, blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), grid, dynamic
+    shared memory, registers a thread, and the samples resident on an SM."""
+    lam = max(0, min(int(osd_order), graph.n - graph.rank))
+    plan = (ctypes.c_int * 5)()
+    err = _build.load().osd_cs_plan(int(B), graph.m, graph.n, lam, plan)
+    if err != 0:
+        raise RuntimeError(f"osd_cs_plan failed: CUDA error {err}")
+    out = dict(zip(("warps_per_block", "blocks_per_sm", "grid", "smem_bytes", "registers"),
+                   plan))
+    out["resident_per_sm"] = out["warps_per_block"] * out["blocks_per_sm"]
+    return out
 
 
 def _check_inputs(perm, synd, skip, B, m, n, dev):
@@ -68,8 +108,10 @@ def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     dev = perm.device
     graph = graph.to(dev)
     B, m, n, r = perm.shape[0], graph.m, graph.n, graph.rank
-    W, Wm = graph.num_words, -(-m // 32)
     lam = max(0, min(int(osd_order), n - r))
+    if not k2_fits(graph, lam):
+        raise ValueError(f"K2 does not take m={m}, n={n} at lam={lam} (k2_fits); "
+                         f"the card decodes it with K5")
     skip = _check_inputs(perm, synd, skip, B, m, n, dev)
     n_pairs = lam * (lam - 1) // 2
     if n_pairs:
@@ -81,20 +123,15 @@ def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
         pairs_t = None
 
     lib = _build.load()
-    smem = lib.osd_cs_smem_bytes(m, n, W, Wm, lam)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"graph needs {smem} bytes of shared memory per block, "
-                         f"more than the {_SMEM_LIMIT} a block may use")
     e0 = torch.empty(B, n, dtype=torch.uint8, device=dev)
     ew = torch.empty(B, n, dtype=torch.uint8, device=dev)
     if B:
-        h_packed = graph.H_packed.contiguous()
         err = lib.osd_cs_launch(
-            h_packed.data_ptr(), perm.data_ptr(), synd.data_ptr(),
+            graph.H_cols.contiguous().data_ptr(), perm.data_ptr(), synd.data_ptr(),
             skip.data_ptr() if skip is not None else None,
             pairs_t.data_ptr() if pairs_t is not None else None,
             e0.data_ptr(), ew.data_ptr(),
-            B, m, n, W, Wm, r, lam, n_pairs, int(lam > 0),
+            B, m, n, r, lam, n_pairs, int(lam > 0),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:

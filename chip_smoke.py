@@ -17,7 +17,13 @@ Phases, one line each (any failed check exits non-zero):
    bit-identical, and every osdw satisfies its syndrome;
 5. the main path, ``BpOsdDecoder(...).decode_batch``: the corpus's osdw and
    weights bit for bit, then 16384 fresh syndromes (every osdw satisfies its
-   syndrome) timed end to end; both kernels' launch counts must be > 0;
+   syndrome) timed end to end; both kernels' launch counts must be > 0; then
+   K1 at each of the decode's three launches (the rows and ``it0`` the
+   pipeline gives stages 1-3, CUDA events, median of 5) and K2 on the
+   decode's OSD rows, each beside its bound and its plain version, with the
+   launch plans (team or warp shape, resident samples per SM from
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, registers), and stage 3
+   again with teams of 1, 2, 3 and 6 warps;
 6. the README golden decode (surface code, errors on qubits 5 and 12);
 7. K5 (``osd_large.cu``) against its plain version: (a) K5, K2 and the plain
    version bit-identical on the 512 corpus rows at order 42; (b) on the
@@ -72,9 +78,18 @@ Phases, one line each (any failed check exits non-zero):
    ``examples/lifted_product_decode_results.json``, K5 launched.
 
 It prints the card's name and power limit and a JSON line of per-kernel
-results before the last line, ``{"ok": true, "device": {...}}``.  The JAX
-package is not imported: the JAX reference enters only through the
-committed corpora and LER artifacts.
+results before the last line, ``{"ok": true, "device": {...}}``.  Each kernel
+there has its launches on the main path's run and per decode of the path
+that uses it, its time, its plain version's time, its bound and what sets
+the bound (no single PyTorch call computes any of them: ``library_ms`` is
+null).  A bound is the larger of the bytes the call must move (each input
+read once, each output written once) over 3.35 TB/s and its operations over
+the peak rate of their type: float32 at 67 TFLOP/s, integer at 64 INT32
+lanes x 132 SMs x 1.98 GHz = 16.73 Tops/s (the larger of the two), counted
+from this run's data (the iterations each BP row ran, the column tests and
+word XORs each elimination made: :func:`elim_work`).  The JAX package is
+not imported: the JAX reference enters only through the committed corpora
+and LER artifacts.
 """
 
 from __future__ import annotations
@@ -84,6 +99,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -144,6 +160,103 @@ def artifact(name: str) -> dict:
 def sigmas(ler: float, eb: float, ref_ler: float, ref_eb: float) -> float:
     """Distance of two binomial estimates in combined standard errors."""
     return abs(ler - ref_ler) / float(np.hypot(eb, ref_eb))
+
+
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory
+F32_OPS_S = 67e12  # float32 outside the tensor cores
+INT_OPS_S = 64 * 132 * 1.98e9  # INT32 lanes x SMs x boost clock
+
+
+class Bound(NamedTuple):
+    """The least time of a call on the H100 SXM: the larger of its bytes over
+    the memory rate and its operations over their type's peak (float and
+    integer work may overlap, so the larger of those two)."""
+
+    ms: float
+    by: str  # "bytes" or "operations"
+    nbytes: float
+    float_ops: float
+    int_ops: float
+
+    def detail(self) -> str:
+        return (f"{self.ms:.4f} ms ({self.by}: {self.int_ops:.4g} integer + "
+                f"{self.float_ops:.4g} float operations, {self.nbytes:.4g} bytes)")
+
+
+def bound_ms(nbytes: float, float_ops: float = 0.0, int_ops: float = 0.0) -> Bound:
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(float_ops / F32_OPS_S, int_ops / INT_OPS_S)
+    return Bound(1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+                 float(nbytes), float(float_ops), float(int_ops))
+
+
+def k1_bound(graph, rows: int, sample_its: int, *, prior_rows: int, v2c_in: bool, emit: bool):
+    """K1's bound for ``rows`` rows that ran ``sample_its`` iterations in
+    all.  A sample-iteration is 2E + n + m float operations (v2c subtract,
+    variable add, prior add, scale) and 7E + n integer ones (sign,
+    magnitude, the two-minimum update, sign apply, parity; hard decision)."""
+    m, n, E = graph.m, graph.n, graph.m * graph.wr
+    nbytes = (rows * m + 4 * prior_rows * n + 4 * (E + n * graph.wc + m)
+              + rows * (n + 4 * n + 1 + 4) + 4 * rows * E * (int(v2c_in) + int(emit)))
+    return bound_ms(nbytes, sample_its * (2 * E + n + m), sample_its * (7 * E + n))
+
+
+def elim_work(graph, perm: torch.Tensor, synd: torch.Tensor):
+    """``(steps, tests, xor_words)`` of the Gauss-Jordan elimination the OSD
+    kernels run on these rows, summed over the rows: a step is one column t
+    taken while fewer than rank pivots are found, each step tests all n + 1
+    columns at the pivot row and XORs the Wm words of the hit columns (the
+    column elimination of ``decoder/osd.py:_eliminate``, counted)."""
+    from bp_osd_tpu_torch.decoder.osd import _pack_rows_bits, _popcount32, _wrap_i32
+
+    cols = torch.cat([graph.H_cols[perm.long()], _pack_rows_bits(synd)[:, None, :]], 1)
+    B, n1, Wm = cols.shape
+    dev = cols.device
+    used = torch.zeros(B, Wm, dtype=torch.int32, device=dev)
+    rr = torch.zeros(B, dtype=torch.int64, device=dev)
+    ar = torch.arange(B, device=dev)
+    word_ids = torch.arange(Wm, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    for t in range(n1 - 1):
+        live = rr < graph.rank
+        if not bool(live.any()):
+            break
+        steps += live.sum()
+        ct = cols[:, t, :]
+        elig = ct & ~used
+        nz = elig != 0
+        has = nz.any(1) & live
+        w = nz.to(torch.int32).argmax(1)
+        word = elig[ar, w]
+        bit = _popcount32((word & -word) - 1)
+        bit = torch.where(has, bit, 0)
+        pmask = torch.where(word_ids[None, :] == w[:, None],
+                            _wrap_i32(torch.ones_like(bit) << bit)[:, None], 0)
+        pmask = torch.where(has[:, None], pmask, 0)
+        S = ct & ~pmask & -has.to(torch.int32)[:, None]
+        sel = (cols.gather(2, w[:, None, None].expand(B, n1, 1)).squeeze(2)
+               >> bit[:, None].to(torch.int32)) & 1
+        sel = sel * has[:, None]
+        hits += sel.sum()
+        cols ^= (-sel)[:, :, None] & S[:, None, :]
+        used |= pmask
+        rr += has.to(torch.int64)
+    return int(steps), int(steps) * n1, int(hits) * Wm
+
+
+def osd_bound(graph, perm: torch.Tensor, synd: torch.Tensor, *, search_ops_per_row: float,
+              in_bytes: float, out_bytes: float):
+    """An OSD kernel's bound on these rows: the elimination's column tests
+    (shift and test: 2 operations) and word XORs (1), the search's
+    ``search_ops_per_row`` integer operations, and its bytes."""
+    _, tests, xors = elim_work(graph, perm, synd)
+    B = perm.shape[0]
+    return bound_ms(in_bytes + out_bytes, 0.0, 2 * tests + xors + B * search_ops_per_row)
+
+
+def plan_line(plan: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in plan.items())
 
 
 def phase12(dev, qcode, reset_counts, counts, tag, rows=SIM_ROWS, runs=SIM_RUNS,
@@ -311,9 +424,11 @@ def main() -> None:
                                               osd_decode_plain, osd_route)
     from bp_osd_tpu_torch.decoder.tanner import TannerGraph
     from bp_osd_tpu_torch.ops import _build
-    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_smem_bytes, k1_fits
+    from bp_osd_tpu_torch.ops.cuda_bp import (bp_flood, bp_flood_plan, bp_flood_smem_bytes,
+                                              bp_flood_table_bytes, bp_flood_team_bytes, k1_fits)
     from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, gf2_elim_smem_bytes, k4_fits
-    from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_smem_bytes, osd_e
+    from bp_osd_tpu_torch.ops.cuda_osd import (k2_fits, osd_cs, osd_cs_plan, osd_cs_smem_bytes,
+                                               osd_cs_warp_smem_bytes, osd_e)
     from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
 
     dev = torch.device("cuda")
@@ -411,13 +526,56 @@ def main() -> None:
           f"(median of walls {[round(w, 4) for w in walls]} s); converged fraction "
           f"{conv_f:.4f}; mean iterations {mean_it:.2f}; launches {launches} {tag}")
 
-    # kernel vs plain times at the main path's shapes: K1 at stage 1 of the
-    # fresh batch (B=16384, 24 iterations, emit), K2 on its OSD rows
+    # one decode's launches, then K1 at each of its three launches (the rows,
+    # it0 and state the pipeline gives each stage) and K2 on its OSD rows,
+    # beside their bounds and plain versions
+    bp_flood.launches = osd_cs.launches = 0
+    dec.decode_batch(fresh, outputs="device")
+    per_decode = {"bp_flood": bp_flood.launches, "osd_cs": osd_cs.launches}
+    check(per_decode == {"bp_flood": 3, "osd_cs": 1}, f"one decode's launches {per_decode}")
     fl0 = llr0[:1].expand(FRESH, n)
-    bp_ms = cuda_ms(lambda: bp_flood(graph, fresh, fl0, max_iter=24, emit_state=True,
-                                     **bp_kw), 5)
-    bp_plain_ms = cuda_ms(lambda: bp_decode_plain(graph, fresh, fl0, max_iter=24,
-                                                  emit_state=True, **bp_kw), 3)
+    caps = (24, 96, max_iter)
+    stages = []  # (arguments, keywords, sample-iterations, rows) of each stage's launch
+    rows = torch.arange(FRESH, device=dev)
+    v2c_s = None
+    for i, cap in enumerate(caps):
+        it0 = caps[i - 1] if i else 0
+        emit = cap < max_iter
+        kw_s = dict(max_iter=cap, it0=it0, emit_state=emit, v2c_init=v2c_s, **bp_kw)
+        l0_s = fl0 if i == 0 else fl0[rows]
+        args = (graph, fresh[rows], l0_s)
+        out = bp_flood(*args, **kw_s)
+        stages.append((args, kw_s, int((out[3] - it0).sum()), rows.numel()))
+        going = ~out[2]
+        rows, v2c_s = rows[going], (out[4][going] if emit else None)
+    check(same(rows, torch.nonzero(~dec.converge_batch).flatten()),
+          "the staged rows differ from the decoder's failures")
+    stage_ms, stage_plain_ms, stage_bound, report = [], [], [], []
+    for i, (args, kw_s, sample_its, nrows) in enumerate(stages):
+        k_ms = cuda_ms(lambda: bp_flood(*args, **kw_s), 5)
+        p_ms = cuda_ms(lambda: bp_decode_plain(*args, **kw_s), 1)
+        b = k1_bound(graph, nrows, sample_its, prior_rows=1 if i == 0 else nrows,
+                     v2c_in=i > 0, emit=kw_s["emit_state"])
+        plan = bp_flood_plan(graph, nrows)
+        stage_ms.append(k_ms)
+        stage_plain_ms.append(p_ms)
+        stage_bound.append(b)
+        report.append(f"stage {i + 1} ({nrows} rows, iterations {kw_s['it0'] + 1}-"
+                      f"{kw_s['max_iter']}, {sample_its} sample-iterations): {k_ms:.3f} ms vs plain "
+                      f"{p_ms:.3f} ms; bound {b.detail()}, {100 * b.ms / k_ms:.1f}% of it; "
+                      f"plan: {plan_line(plan)}")
+    # stage 3 at other team sizes: one warp (the smallest team) to six
+    args, kw_s, _, nrows = stages[-1]
+    sweep = []
+    for tw in (1, 2, 3, 6):
+        plan = bp_flood_plan(graph, nrows, team_warps=tw)
+        t_ms = cuda_ms(lambda: bp_flood(*args, team_warps=tw, **kw_s), 5)
+        sweep.append(f"{tw} warp(s) {t_ms:.3f} ms ({plan['resident_per_sm']} resident, "
+                     f"{plan['registers']} registers)")
+    report.append("stage 3 with teams of " + ", ".join(sweep))
+    bp_ms, bp_plain_ms = sum(stage_ms), sum(stage_plain_ms)
+    bp_bound = bound_ms(*(sum(getattr(b, f) for b in stage_bound)
+                          for f in ("nbytes", "float_ops", "int_ops")))
     fail = ~dec.converge_batch
     f_synd = fresh[fail]
     f_perm = torch.argsort(dec.log_prob_ratios_batch[fail], dim=1, stable=True).to(torch.int32)
@@ -425,9 +583,19 @@ def main() -> None:
                                     pairs=consts.pairs), 5)
     osd_plain_ms = cuda_ms(lambda: osd_decode_plain(graph, f_perm, f_synd, method="osd_cs",
                                                     osd_order=osd_order, pairs=consts.pairs), 3)
-    print(f"phase 5 times: K1 B={FRESH} x 24 it: {bp_ms:.3f} ms vs plain {bp_plain_ms:.3f} ms; "
-          f"K2 B={int(fail.sum())} order {osd_order}: {osd_ms:.3f} ms vs plain "
-          f"{osd_plain_ms:.3f} ms {tag}")
+    nf, Wm = f_perm.shape[0], -(-m // 32)
+    n_pairs = len(consts.pairs) if consts.pairs is not None else 0
+    osd_b = osd_bound(
+        graph, f_perm, f_synd,
+        search_ops_per_row=(n - graph.rank) * (2 * Wm + 1) + n_pairs * (3 * Wm + 1),
+        in_bytes=nf * (4 * n + m) + 4 * n * Wm + 8 * n_pairs, out_bytes=2 * nf * n)
+    print("phase 5 K1 at the decode's launches: " + "; ".join(report)
+          + f"; K1 per decode {bp_ms:.3f} ms vs plain {bp_plain_ms:.3f} ms, bound "
+          f"{bp_bound.detail()}, {100 * bp_bound.ms / bp_ms:.1f}% of it {tag}")
+    print(f"phase 5 K2 B={nf} order {osd_order}: {osd_ms:.3f} ms vs plain {osd_plain_ms:.3f} ms; "
+          f"bound {osd_b.detail()}, {100 * osd_b.ms / osd_ms:.1f}% of it; "
+          f"plan: {plan_line(osd_cs_plan(graph, nf, osd_order))}; launches per decode "
+          f"{per_decode} {tag}")
 
     # ---- phase 6: README golden decode ----
     surf = hgp(rep_code(3), rep_code(3), compute_distance=True)
@@ -447,7 +615,11 @@ def main() -> None:
                         (720, 1500, LIFT_ORDER), (4800, 10000, LIFT_ORDER), (720, 1500, 0)):
         lib_bytes = lib.osd_cs_smem_bytes(mm, nn, -(-nn // 32), -(-mm // 32), lam)
         check(osd_cs_smem_bytes(mm, nn, lam) == lib_bytes,
-              f"K2 shared-memory mirror differs from the library at m={mm} n={nn} lam={lam}")
+              f"K3 shared-memory mirror differs from the library at m={mm} n={nn} lam={lam}")
+        for warps in (1, 20):
+            check(osd_cs_warp_smem_bytes(mm, nn, lam, warps)
+                  == lib.osd_cs_warp_smem_bytes(nn, -(-mm // 32), lam, warps),
+                  f"K2 shared-memory mirror differs from the library at m={mm} n={nn} lam={lam}")
     a0, aw = osd_large(graph, perm, synd, osd_order=osd_order, pairs=consts.pairs)
     check(same(a0, q0) and same(aw, qw) and same(a0, e0) and same(aw, ew),
           "K5 differs from K2 / the plain version on the corpus rows")
@@ -491,6 +663,11 @@ def main() -> None:
     check(bool((k5[1].sum(1) <= k5[0].sum(1)).all()), "K5 osdw heavier than osd0")
     k5_err = float((k5[1].int() - k5_plain[1].int()).abs().max())
     k5_ms = cuda_ms(lambda: osd_large(gl, p8, s8, osd_order=LIFT_ORDER, pairs=pairs_l), 3)
+    Wml, lam_l = -(-ml // 32), min(LIFT_ORDER, nl - gl.rank)
+    k5_b = osd_bound(
+        gl, p8, s8,
+        search_ops_per_row=(nl - gl.rank) * (2 * Wml + 1) + len(pairs_l) * (3 * Wml + 1),
+        in_bytes=8 * (4 * nl + ml) + 4 * nl * Wml + 8 * len(pairs_l), out_bytes=2 * 8 * nl)
 
     aux = np.load(AUX)
     _, ma, na = (int(x) for x in aux["lifted_streamed_shape"])
@@ -513,8 +690,9 @@ def main() -> None:
           f"lift {LIFT} (m={ml}, n={nl}, rank {gl.rank}; code + decoder built in "
           f"{build_s:.1f} s): 8 BP-failing rows bit-identical, all satisfied, osdw weights "
           f"{k5[1].sum(1).tolist()} <= osd0 {k5[0].sum(1).tolist()}; K5 {k5_ms:.3f} ms vs "
-          f"plain {k5_plain_ms:.1f} ms for the 8 rows; aux corpus lifted_streamed "
-          f"reproduced through K5; K2 shared-memory mirror == library {tag}")
+          f"plain {k5_plain_ms:.1f} ms for the 8 rows, bound {k5_b.detail()}, "
+          f"{100 * k5_b.ms / k5_ms:.2f}% of it; aux corpus lifted_streamed "
+          f"reproduced through K5; K2/K3 shared-memory mirrors == library {tag}")
 
     # ---- phase 8: the lifted path at full width ----
     fresh_l = lifted_batch(LIFT_P, SEED + 2, LIFT_B)
@@ -542,6 +720,9 @@ def main() -> None:
     check(launches_l["osd_cs"] == 0 and launches_l["bp_flood"] == 0,
           f"the lifted path launched K1/K2: {launches_l}")
     check(satisfies(out_h, Hl_f, heavy_l), "a heavy-batch lifted osdw violates its syndrome")
+    osd_large.launches = 0
+    dec_l.decode_batch(heavy_l, channel_probs=np.full(nl, LIFT_HEAVY_P), outputs="device")
+    k5_per_decode = osd_large.launches
     conv_h = dec_l.converge_batch.clone()
     n_fail_h = int((~conv_h).sum())
     rate_l = LIFT_B / float(np.median(walls_l))
@@ -566,7 +747,7 @@ def main() -> None:
           f"all satisfied, wall {wall_h * 1e3:.3f} ms = lifted BP {hbp_ms:.3f} + argsort "
           f"{sort_ms:.3f} + K5 {k5_all_ms:.3f} ({k5_all_ms / max(n_fail_h, 1):.3f} ms per "
           f"failing row) + host glue {glue_ms:.3f} ms; K5 on 8 rows {k5_ms:.3f} ms vs plain "
-          f"{k5_plain_ms:.1f} ms; launches {launches_l} {tag}")
+          f"{k5_plain_ms:.1f} ms; launches {launches_l}, K5 {k5_per_decode} per decode {tag}")
 
     counters = (bp_flood, osd_cs, osd_e, eliminate, osd_large)
 
@@ -622,6 +803,14 @@ def main() -> None:
           "a default-decoder osd0 violates its syndrome")
     f_perm0, f_synd0 = failing_rows(dec0, fresh)
     k4_ms = cuda_ms(lambda: eliminate(graph, f_perm0, f_synd0), 5)
+    n4, W = f_perm0.shape[0], graph.num_words
+    k4_b = osd_bound(
+        graph, f_perm0, f_synd0, search_ops_per_row=0,
+        in_bytes=n4 * (4 * n + m) + 4 * m * W,
+        out_bytes=n4 * (4 * m * W + 4 * m + 8 * graph.rank + n))
+    reset_counts()
+    dec0.decode_batch(fresh, outputs="device")
+    k4_per_decode = counts()["eliminate"]
     k4_plain_ms = cuda_ms(lambda: eliminate_plain(graph, f_perm0, f_synd0), 3)
     f_llr0 = dec0.log_prob_ratios_batch[~dec0.converge_batch]
     tail0_ms = cuda_ms(lambda: osd_decode(graph, f_synd0, f_llr0, osd_method="osd0"), 5)
@@ -631,7 +820,9 @@ def main() -> None:
           f"{FRESH / float(np.median(walls0)):.1f} syndromes/s (median of walls "
           f"{[round(w, 4) for w in walls0]} s); converged fraction "
           f"{float(dec0.converge_batch.float().mean()):.4f}; launches {launches0}; "
-          f"K4 B={f_perm0.shape[0]}: {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms; the OSD "
+          f"K4 B={f_perm0.shape[0]}: {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, bound "
+          f"{k4_b.detail()}, {100 * k4_b.ms / k4_ms:.1f}% of it, "
+          f"{k4_per_decode} launch(es) per decode; the OSD "
           f"tail (argsort + K4 + osd0 read-off) {tail0_ms:.3f} ms of the "
           f"{float(np.median(walls0)) * 1e3:.3f} ms wall {tag}")
 
@@ -662,6 +853,13 @@ def main() -> None:
     check(satisfies(out_e, H_f, fresh), "a fresh osd_e osdw violates its syndrome")
     f_perm_e, f_synd_e = failing_rows(dec_e, fresh)
     k3_ms = cuda_ms(lambda: osd_e(graph, f_perm_e, f_synd_e, osd_order=12), 5)
+    n3 = f_perm_e.shape[0]
+    k3_b = osd_bound(
+        graph, f_perm_e, f_synd_e, search_ops_per_row=(1 << 12) * (2 * Wm + 1),
+        in_bytes=n3 * (4 * n + m) + 4 * m * graph.num_words, out_bytes=2 * n3 * n)
+    reset_counts()
+    dec_e.decode_batch(fresh, outputs="device")
+    k3_per_decode = counts()["osd_e"]
     k3_plain_ms = cuda_ms(lambda: osd_decode_plain(graph, f_perm_e, f_synd_e, method="osd_e",
                                                    osd_order=12), 3)
     k3_16_ms = cuda_ms(lambda: osd_e(graph, f_perm_e, f_synd_e, osd_order=16), 5)
@@ -670,7 +868,9 @@ def main() -> None:
           f"{FRESH} fresh syndromes at osd_e 12, max_iter 100: all satisfied; "
           f"{FRESH / float(np.median(walls_e)):.1f} syndromes/s (median of walls "
           f"{[round(w, 4) for w in walls_e]} s); launches {launches_e}; K3 "
-          f"B={f_perm_e.shape[0]}: {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms; K3 at order 16 "
+          f"B={f_perm_e.shape[0]}: {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms, bound "
+          f"{k3_b.detail()}, {100 * k3_b.ms / k3_ms:.1f}% of it, {k3_per_decode} "
+          f"launch(es) per decode; K3 at order 16 "
           f"on the same rows {k3_16_ms:.3f} ms {tag}")
 
     # ---- phase 11: the device-memory routes ----
@@ -724,7 +924,10 @@ def main() -> None:
     k1g_plain_ms = cuda_ms(lambda: bp_decode_plain(gd, s64, l0d, **d_kw), 1)
     for mm, nn, wr, wc in ((graph.m, graph.n, graph.wr, graph.wc), (720, 1500, 7, 4),
                            (1680, 3500, 7, 4), (1692, 3525, 7, 4), (ml, nl, gd.wr, gd.wc)):
-        check(lib.bp_flood_smem_bytes(mm, nn, wr, wc) == bp_flood_smem_bytes(mm, nn, wr, wc),
+        check(lib.bp_flood_smem_bytes(mm, nn, wr, wc) == bp_flood_smem_bytes(mm, nn, wr, wc)
+              and lib.bp_flood_table_bytes(mm, nn, wr, wc) == bp_flood_table_bytes(mm, nn, wr, wc)
+              and all(lib.bp_flood_team_bytes(mm, nn, wr, ps) == bp_flood_team_bytes(mm, nn, wr, ps)
+                      for ps in (0, 1)),
               f"K1 shared-memory mirror differs from the library at m={mm} n={nn}")
         for g_ in (0, 1):
             check(lib.gf2_elim_smem_bytes(mm, -(-nn // 32), g_)
@@ -740,23 +943,27 @@ def main() -> None:
     phase13(H, synd, dec, tag)
     phase14(qcode, reset_counts, counts, tag)
 
+    def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
+        return {"name": name, "route": "cuda", "source": f"bp_osd_tpu_torch/csrc/{source}",
+                "replaces": f"bp_osd_tpu/ops/{replaces}", "launches": launches,
+                "launches_per_decode": per_decode, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b.ms, "bound_by": b.by, "library_ms": None,
+                "bound_bytes": b.nbytes, "bound_int_ops": b.int_ops,
+                "bound_float_ops": b.float_ops, **extra}
+
     kernels = [
-        {"name": "bp_flood", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/bp_flood.cu",
-         "replaces": "bp_osd_tpu/ops/pallas_bp.py:140", "launches": launches["bp_flood"],
-         "max_abs_err": bp_err, "ms": bp_ms, "plain_ms": bp_plain_ms},
-        {"name": "osd_cs", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/osd_cs.cu",
-         "replaces": "bp_osd_tpu/ops/pallas_osd.py:135", "launches": launches["osd_cs"],
-         "max_abs_err": osd_err, "ms": osd_ms, "plain_ms": osd_plain_ms},
-        {"name": "osd_e", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/osd_cs.cu",
-         "replaces": "bp_osd_tpu/ops/pallas_osd.py:565", "launches": launches_e["osd_e"],
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "gf2_elim", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/gf2_elim.cu",
-         "replaces": "bp_osd_tpu/ops/pallas_gf2.py:57", "launches": launches0["eliminate"],
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
-        {"name": "osd_large", "route": "cuda", "source": "bp_osd_tpu_torch/csrc/osd_large.cu",
-         "replaces": "bp_osd_tpu/ops/pallas_osd_large.py:62",
-         "launches": launches_l["osd_large"], "max_abs_err": k5_err, "ms": k5_ms,
-         "plain_ms": k5_plain_ms},
+        row("bp_flood", "bp_flood.cu", "pallas_bp.py:140", launches["bp_flood"],
+            per_decode["bp_flood"], bp_err, bp_ms, bp_plain_ms, bp_bound,
+            stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
+            stage_bound_ms=[b.ms for b in stage_bound]),
+        row("osd_cs", "osd_cs.cu", "pallas_osd.py:135", launches["osd_cs"],
+            per_decode["osd_cs"], osd_err, osd_ms, osd_plain_ms, osd_b),
+        row("osd_e", "osd_cs.cu", "pallas_osd.py:565", launches_e["osd_e"], k3_per_decode,
+            k3_err, k3_ms, k3_plain_ms, k3_b),
+        row("gf2_elim", "gf2_elim.cu", "pallas_gf2.py:57", launches0["eliminate"],
+            k4_per_decode, k4_err, k4_ms, k4_plain_ms, k4_b),
+        row("osd_large", "osd_large.cu", "pallas_osd_large.py:62", launches_l["osd_large"],
+            k5_per_decode, k5_err, k5_ms, k5_plain_ms, k5_b),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -15,9 +15,9 @@ from bp_osd_tpu_torch.decoder.bp import bp_decode, bp_decode_plain, llr_from_cha
 from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd_decode,
                                           osd_decode_plain)
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
-from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, k1_fits
+from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_plan, k1_fits
 from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, k4_fits
-from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_e
+from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_plan, osd_e
 from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
 
 pytestmark = pytest.mark.gpu
@@ -271,3 +271,125 @@ def test_bp_flood_device_memory_placement(dev, monkeypatch):
     before = bp_flood.launches
     _equal(bp_flood(g, synd, llr0, **kw), want)
     assert bp_flood.launches == before + 3  # 10 rows, 4 per launch
+
+
+# ---- the team kernel's scheduling (persistent blocks, a row counter) ----
+
+_MS = dict(method="minimum_sum", ms_scaling_factor=0.0)
+
+
+@pytest.mark.parametrize("B", [1, 5, 3000, 65536])
+def test_bp_flood_team_batch_sizes(dev, B):
+    """One row, fewer rows than an SM's teams, and far more rows than the
+    card's resident teams (each team takes many rows from the counter):
+    bit-identical to the plain version in every output, the state
+    included."""
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, llr0 = _batch(H, B, 0.05, 20 + B, dev)
+    plan = bp_flood_plan(g, B)
+    assert plan["teams_per_block"] * plan["grid"] >= min(B, plan["teams_per_block"])
+    max_iter = 400 if B <= 3000 else 40
+    kw = dict(max_iter=max_iter, emit_state=True, **_MS)
+    _equal(bp_flood(g, synd, llr0, **kw), bp_decode_plain(g, synd, llr0, **kw))
+
+
+def _wide_rows():
+    """A random code whose rows weigh 9 to 13: the team kernel's generic
+    check path (rows of more than 8 slots)."""
+    rng = np.random.default_rng(5)
+    H = np.zeros((40, 120), np.uint8)
+    for c in range(40):
+        H[c, rng.choice(120, size=9 + c % 5, replace=False)] = 1
+    return H
+
+
+CODES["wide"] = _wide_rows
+
+
+@pytest.mark.parametrize("code", ["surface", "flagship", "625", "weight1", "wide"])
+@pytest.mark.parametrize("team_warps", [0, 1, 2, 3])
+def test_bp_flood_team_sizes_and_skip_rows(dev, code, team_warps):
+    """Teams of one warp (__syncwarp) and of several (a named barrier each)
+    give the plain version's results bit for bit, with skip rows, a
+    per-row prior and a resumed state."""
+    H = np.asarray(CODES[code](), np.uint8)
+    g = TannerGraph(H, dev)
+    if team_warps and -(-g.m // (32 * team_warps)) > 8:
+        pytest.skip("a team this small would own more than 8 checks a thread")
+    B = 300
+    synd, _ = _batch(H, B, 0.06, 7, dev)
+    rng = np.random.default_rng(8)
+    llr0 = torch.as_tensor(rng.uniform(1.0, 4.0, (B, g.n)).astype(np.float32), device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[::5] = True
+    v2c = torch.as_tensor(rng.normal(1.0, 2.0, (B, g.m * g.wr)).astype(np.float32), device=dev)
+    for extra in ({"skip": skip}, {"skip": skip, "v2c_init": v2c, "it0": 9}):
+        kw = dict(max_iter=50, emit_state=True, **_MS, **extra)
+        _equal(bp_flood(g, synd, llr0, team_warps=team_warps, **kw),
+               bp_decode_plain(g, synd, llr0, **kw))
+
+
+def test_bp_flood_team_resume_chain(dev):
+    """The pipeline's chain 24 -> 96 -> 400 through the team kernel equals a
+    straight run and the plain version's chain."""
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, llr0 = _batch(H, 2048, 0.05, 21, dev)
+    straight = bp_flood(g, synd, llr0, max_iter=400, **_MS)
+    _equal(straight, bp_decode_plain(g, synd, llr0, max_iter=400, **_MS))
+    hard, llr, conv, iters, v2c = (x.clone() for x in
+                                  bp_flood(g, synd, llr0, max_iter=24, emit_state=True, **_MS))
+    for s_prev, s_next in ((24, 96), (96, 400)):
+        sel = torch.nonzero(~conv).flatten()
+        out = bp_flood(g, synd[sel], llr0[sel], max_iter=s_next, v2c_init=v2c[sel],
+                       it0=s_prev, emit_state=s_next < 400, **_MS)
+        want = bp_decode_plain(g, synd[sel], llr0[sel], max_iter=s_next, v2c_init=v2c[sel],
+                               it0=s_prev, emit_state=s_next < 400, **_MS)
+        _equal(out, want)
+        hard[sel], llr[sel], conv[sel], iters[sel] = out[:4]
+        if out[4] is not None:
+            v2c[sel] = out[4]
+    _equal((hard, llr, conv, iters), straight[:4])
+
+
+@pytest.mark.parametrize("code,team_warps", [("surface", 0), ("flagship", 0), ("flagship", 2),
+                                             ("625", 0)])
+def test_bp_flood_team_product_sum(dev, code, team_warps, monkeypatch):
+    """Product-sum in the teams (c2v double-buffered) equals the one-block-
+    per-sample kernel (the device-memory placement, forced) bit for bit in
+    every output, and the plain version within the first design's tolerance
+    (torch's CUDA tanh/atanh may round differently by an ulp: llr within
+    1e-4, decisions identical)."""
+    import bp_osd_tpu_torch.ops.cuda_bp as k1
+
+    H = np.asarray(CODES[code](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, llr0 = _batch(H, 128, 0.05, 22, dev)
+    kw = dict(method="product_sum", max_iter=20, ms_scaling_factor=1.0, emit_state=True)
+    k = bp_flood(g, synd, llr0, team_warps=team_warps, **kw)
+    monkeypatch.setattr(k1, "k1_fits", lambda graph, product_sum=False: False)
+    _equal(k, bp_flood(g, synd, llr0, **kw))
+    p = bp_decode_plain(g, synd, llr0, **kw)
+    for i in (0, 2, 3):
+        assert torch.equal(k[i], p[i])
+    assert torch.allclose(k[1], p[1], atol=1e-4)
+
+
+@pytest.mark.parametrize("order", [0, 1, 42])
+@pytest.mark.parametrize("B", [1, 700])
+def test_osd_cs_warp_kernel_orders_and_skip(dev, order, B):
+    """K2 (one warp a sample, several a block) at orders 0, 1 and 42, with
+    skip rows, on one row and on more rows than a wave of blocks holds."""
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, B, 30 + order, dev)
+    pairs = build_osd_consts(g, "osd_cs", order).pairs
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[1::3] = True
+    plan = osd_cs_plan(g, B, order)
+    assert plan["warps_per_block"] >= 1 and plan["grid"] * plan["warps_per_block"] >= B
+    for sk in (None, skip):
+        _equal(osd_cs(g, perm, synd, osd_order=order, pairs=pairs, skip=sk),
+               osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=order,
+                                pairs=pairs, skip=sk))
