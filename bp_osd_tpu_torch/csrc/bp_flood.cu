@@ -28,10 +28,10 @@
 //     teams (one warp, or a few warps with a named barrier each) decode one
 //     sample at a time; a team that finishes takes the next row from a global
 //     counter (atomicAdd), so the SM refills during the stage-3 tail;
-//   * bp_flood_plan sizes the team to the code and the batch: the least
-//     per-thread work between barriers whose resident teams hold all rows,
-//     else the most resident teams per unit of that work (3 warps, 2 checks
-//     and ~4 variables a thread, 10 teams an SM at the flagship);
+//   * bp_flood_plan sizes the team to the code alone, once a graph: the most
+//     resident teams per unit of per-thread work between barriers (3 warps,
+//     2 checks and ~4 variables a thread, 10 teams an SM at the flagship),
+//     so every batch size runs the same kernel build;
 //   * check-side state lives in registers: the thread that owns a check keeps
 //     its compressed min-sum message (the two scaled minima, the first-minimum
 //     slot and the output sign bits); only c2v (E floats) and the totals
@@ -80,7 +80,12 @@
 // bit-identical to the plain version.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -714,20 +719,60 @@ cudaError_t team_shape(int warps, int m, int n, int wr, int wc, int product_sum,
   return cudaSuccess;
 }
 
+// The warps of a team for this graph, chosen on first use and kept.  A
+// team's iteration costs about the work of its busiest thread, path =
+// ceil(m/T) * wr + ceil(n/T) * wc slot and edge updates between its two
+// barriers.  Among teams of 1 to 8 warps that keep a thread at <= 8 checks,
+// the one of most resident teams per path (the most sample-iterations an SM
+// runs at a time).  The batch size plays no part, so every batch runs the
+// kernel build that the checks of a small batch exercise.
+cudaError_t team_warps_of(int dev, int m, int n, int wr, int wc, int product_sum, int* warps) {
+  struct Choice {
+    int key[6];
+    int warps;
+  };
+  static std::mutex mu;
+  static std::vector<Choice> chosen;
+  const int key[6] = {dev, m, n, wr, wc, product_sum};
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Choice& c : chosen) {
+    if (std::equal(key, key + 6, c.key)) {
+      *warps = c.warps;
+      return cudaSuccess;
+    }
+  }
+  const int lo = (m + 32 * kMaxChecksPerThread - 1) / (32 * kMaxChecksPerThread);
+  const int hi_all = (m + 31) / 32;
+  const int hi = hi_all < lo + 7 ? hi_all : lo + 7;
+  int best = 0;
+  double best_rate = -1.0;
+  for (int w = lo; w <= hi; ++w) {
+    int shape[5];
+    if (team_shape(w, m, n, wr, wc, product_sum, LLONG_MAX, shape) != cudaSuccess) continue;
+    const int T = 32 * w;
+    const long long path = (long long)((m + T - 1) / T) * wr + (long long)((n + T - 1) / T) * wc;
+    const double rate = (double)shape[1] * shape[2] / (double)path;
+    if (rate > best_rate) {
+      best_rate = rate;
+      best = w;
+    }
+  }
+  if (!best) return cudaErrorInvalidValue;
+  Choice c{{dev, m, n, wr, wc, product_sum}, best};
+  chosen.push_back(c);
+  *warps = best;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // The team kernel's launch for B rows: out = {team threads, teams a block,
 // blocks an SM, grid, dynamic shared memory bytes, registers a thread}.
-// team_warps = 0 adapts the team to the graph and B.  A team's iteration
-// costs about the work of its busiest thread, path = ceil(m/T) * wr +
-// ceil(n/T) * wc slot and edge updates between its two barriers.  Among
-// teams of 1 to 8 warps that keep a thread at <= 8 checks: if some hold all
-// B rows resident at once, the one of least path (each row finishes
-// soonest); else the one of most resident teams per path (the most
-// sample-iterations an SM runs at a time).
-// Returns 0, or cudaErrorInvalidValue for a graph the team kernel does not
-// take (row weight above 27, more than 1024 threads a team, or a team that
-// does not fit a block), or the CUDA error of a query.
+// team_warps = 0 takes the team of team_warps_of for the graph; a small
+// batch gets fewer teams a block (about B / SMs), so its rows spread over
+// the SMs.  Returns 0, or cudaErrorInvalidValue for a graph the team kernel
+// does not take (row weight above 27, more than 1024 threads a team, or a
+// team that does not fit a block), or the CUDA error of a query.
 extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_sum,
                              int team_warps, int* out) {
   if (wr > kMaxRowWeight || m <= 0 || n <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
@@ -736,32 +781,11 @@ extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_su
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const long long need = ((long long)B + sms - 1) / sms;  // rows an SM when spread evenly
-  int shape[5];
   if (team_warps <= 0) {
-    const int lo = (m + 32 * kMaxChecksPerThread - 1) / (32 * kMaxChecksPerThread);
-    const int hi_all = (m + 31) / 32;
-    const int hi = hi_all < lo + 7 ? hi_all : lo + 7;
-    int fit = 0, most = 0;
-    long long fit_path = 0;
-    double most_rate = -1.0;
-    for (int w = lo; w <= hi; ++w) {
-      if (team_shape(w, m, n, wr, wc, product_sum, need, shape) != cudaSuccess) continue;
-      const int T = 32 * w;
-      const long long path = (long long)((m + T - 1) / T) * wr + (long long)((n + T - 1) / T) * wc;
-      const long long resident = (long long)shape[1] * shape[2];
-      if (resident >= need && (!fit || path < fit_path)) {
-        fit = w;
-        fit_path = path;
-      }
-      const double rate = (double)resident / (double)path;
-      if (rate > most_rate) {
-        most_rate = rate;
-        most = w;
-      }
-    }
-    team_warps = fit ? fit : most;
-    if (!team_warps) return (int)cudaErrorInvalidValue;
+    err = team_warps_of(dev, m, n, wr, wc, product_sum, &team_warps);
+    if (err != cudaSuccess) return (int)err;
   }
+  int shape[5];
   err = team_shape(team_warps, m, n, wr, wc, product_sum, need, shape);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = ((long long)B + shape[1] - 1) / shape[1];

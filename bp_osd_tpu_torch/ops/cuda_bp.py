@@ -28,6 +28,10 @@ _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _SCRATCH_BYTES = 1 << 30  # device-memory placement: scratch per launch
 _MAX_ROW_WEIGHT = 27  # the team kernel keeps a check's sign bits in one word
 _MAX_CHECKS_PER_THREAD = 8
+# Warps of a sample team in the team kernel; 0 takes the choice of
+# ``csrc/bp_flood.cu:bp_flood_plan`` for the graph.  Tests and measurements
+# set it to run other team sizes; the result does not depend on it.
+_TEAM_WARPS = 0
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -87,14 +91,14 @@ def k1_fits(graph, product_sum: bool = False) -> bool:
             <= _SMEM_LIMIT)
 
 
-def bp_flood_plan(graph, B: int, *, product_sum: bool = False, team_warps: int = 0) -> dict:
+def bp_flood_plan(graph, B: int, *, product_sum: bool = False) -> dict:
     """The team kernel's launch for ``B`` rows on the current card, from
     ``csrc/bp_flood.cu:bp_flood_plan``: team threads, teams a block, blocks
     an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), grid, dynamic
     shared memory, registers a thread, and the samples resident on an SM."""
     plan = (ctypes.c_int * 6)()
     err = _build.load().bp_flood_plan(int(B), graph.m, graph.n, graph.wr, graph.wc,
-                                      int(product_sum), int(team_warps), plan)
+                                      int(product_sum), int(_TEAM_WARPS), plan)
     if err != 0:
         raise RuntimeError(f"bp_flood_plan failed: CUDA error {err}")
     keys = ("team_threads", "teams_per_block", "blocks_per_sm", "grid", "smem_bytes",
@@ -116,15 +120,11 @@ def bp_flood(
     v2c_init: torch.Tensor | None = None,
     it0: int = 0,
     emit_state: bool = False,
-    team_warps: int = 0,
 ):
     """Flooding BP; same arguments and results as ``bp_decode_plain``.
 
     ``synd [B, m]`` uint8, ``llr0 [B, n]`` f32 (a broadcast ``[n]`` row is
     read with stride 0), ``skip [B]`` bool, ``v2c_init [B, m * wr]`` f32.
-    ``team_warps`` sets the warps of a sample team in the team kernel, for
-    measurement and tests (0: the choice of ``csrc/bp_flood.cu:bp_flood_plan``
-    for this code and batch); the result does not depend on it.
     """
     kw = dict(method=method, max_iter=max_iter, ms_scaling_factor=ms_scaling_factor,
               skip=skip, v2c_init=v2c_init, it0=it0, emit_state=emit_state)
@@ -181,7 +181,7 @@ def bp_flood(
                 ptr(hard, row0), ptr(llr, row0), ptr(conv, row0), ptr(iters, row0),
                 ptr(v2c, row0), ptr(scratch, 0), ptr(counter, 0),
                 min(rows, B - row0), m, n, wr, wc, int(max_iter), int(it0),
-                int(method == "product_sum"), alpha, int(team_warps), stream,
+                int(method == "product_sum"), alpha, int(_TEAM_WARPS), stream,
             )
             if err != 0:
                 raise RuntimeError(f"bp_flood launch failed: CUDA error {err}")

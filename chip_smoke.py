@@ -22,8 +22,11 @@ Phases, one line each (any failed check exits non-zero):
    pipeline gives stages 1-3, CUDA events, median of 5) and K2 on the
    decode's OSD rows, each beside its bound and its plain version, with the
    launch plans (team or warp shape, resident samples per SM from
-   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, registers), and stage 3
-   again with teams of 1, 2, 3 and 6 warps;
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, registers); every
+   stage's outputs (the state included) and K2's are held bit for bit to the
+   plain versions on those inputs; stage 3 again with teams of 1, 2, 3 and 6
+   warps and the corpus rows with teams of 3 and 6, each held to the plain
+   version;
 6. the README golden decode (surface code, errors on qubits 5 and 12);
 7. K5 (``osd_large.cu``) against its plain version: (a) K5, K2 and the plain
    version bit-identical on the 512 corpus rows at order 42; (b) on the
@@ -423,7 +426,7 @@ def main() -> None:
     from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd_decode,
                                               osd_decode_plain, osd_route)
     from bp_osd_tpu_torch.decoder.tanner import TannerGraph
-    from bp_osd_tpu_torch.ops import _build
+    from bp_osd_tpu_torch.ops import _build, cuda_bp
     from bp_osd_tpu_torch.ops.cuda_bp import (bp_flood, bp_flood_plan, bp_flood_smem_bytes,
                                               bp_flood_table_bytes, bp_flood_team_bytes, k1_fits)
     from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, gf2_elim_smem_bytes, k4_fits
@@ -535,7 +538,7 @@ def main() -> None:
     check(per_decode == {"bp_flood": 3, "osd_cs": 1}, f"one decode's launches {per_decode}")
     fl0 = llr0[:1].expand(FRESH, n)
     caps = (24, 96, max_iter)
-    stages = []  # (arguments, keywords, sample-iterations, rows) of each stage's launch
+    stages = []  # (arguments, keywords, kernel outputs, sample-iterations) of each stage
     rows = torch.arange(FRESH, device=dev)
     v2c_s = None
     for i, cap in enumerate(caps):
@@ -545,13 +548,29 @@ def main() -> None:
         l0_s = fl0 if i == 0 else fl0[rows]
         args = (graph, fresh[rows], l0_s)
         out = bp_flood(*args, **kw_s)
-        stages.append((args, kw_s, int((out[3] - it0).sum()), rows.numel()))
+        stages.append((args, kw_s, out, int((out[3] - it0).sum())))
         going = ~out[2]
         rows, v2c_s = rows[going], (out[4][going] if emit else None)
     check(same(rows, torch.nonzero(~dec.converge_batch).flatten()),
           "the staged rows differ from the decoder's failures")
+
+    def k1_equal(got, want, what):
+        for name, a, b in zip(("hard", "llr", "converged", "iterations", "v2c"), got, want):
+            check(same(a, b) if a is not None and b is not None else a is b,
+                  f"K1 {what}: {name} differs from the plain version")
+
+    def with_team(warps, fn):  # fn() with teams of `warps` warps
+        cuda_bp._TEAM_WARPS = warps
+        try:
+            return fn()
+        finally:
+            cuda_bp._TEAM_WARPS = 0
+
     stage_ms, stage_plain_ms, stage_bound, report = [], [], [], []
-    for i, (args, kw_s, sample_its, nrows) in enumerate(stages):
+    for i, (args, kw_s, out, sample_its) in enumerate(stages):
+        nrows = args[1].shape[0]
+        want = bp_decode_plain(*args, **kw_s)  # the last stage's stays for the sweep
+        k1_equal(out, want, f"stage {i + 1} ({nrows} rows)")
         k_ms = cuda_ms(lambda: bp_flood(*args, **kw_s), 5)
         p_ms = cuda_ms(lambda: bp_decode_plain(*args, **kw_s), 1)
         b = k1_bound(graph, nrows, sample_its, prior_rows=1 if i == 0 else nrows,
@@ -562,23 +581,34 @@ def main() -> None:
         stage_bound.append(b)
         report.append(f"stage {i + 1} ({nrows} rows, iterations {kw_s['it0'] + 1}-"
                       f"{kw_s['max_iter']}, {sample_its} sample-iterations): {k_ms:.3f} ms vs plain "
-                      f"{p_ms:.3f} ms; bound {b.detail()}, {100 * b.ms / k_ms:.1f}% of it; "
-                      f"plan: {plan_line(plan)}")
-    # stage 3 at other team sizes: one warp (the smallest team) to six
-    args, kw_s, _, nrows = stages[-1]
+                      f"{p_ms:.3f} ms, outputs bit-identical; bound {b.detail()}, "
+                      f"{100 * b.ms / k_ms:.1f}% of it; plan: {plan_line(plan)}")
+    # other team sizes, each held to the plain version: stage 3 at one warp
+    # (the smallest team) to six, and the 512 corpus rows (a harness-sized
+    # stage) at three warps (the flagship's team) and at six
+    corpus = ((graph, synd, llr0), dict(max_iter=max_iter, **bp_kw), p)
     sweep = []
-    for tw in (1, 2, 3, 6):
-        plan = bp_flood_plan(graph, nrows, team_warps=tw)
-        t_ms = cuda_ms(lambda: bp_flood(*args, team_warps=tw, **kw_s), 5)
-        sweep.append(f"{tw} warp(s) {t_ms:.3f} ms ({plan['resident_per_sm']} resident, "
-                     f"{plan['registers']} registers)")
-    report.append("stage 3 with teams of " + ", ".join(sweep))
+    for label, (a_s, k_s, w_s), teams in (("stage 3", (args, kw_s, want), (1, 2, 3, 6)),
+                                          ("corpus", corpus, (3, 6))):
+        for tw in teams:
+            k1_equal(with_team(tw, lambda: bp_flood(*a_s, **k_s)), w_s,
+                     f"{label} with teams of {tw} warps")
+            plan = with_team(tw, lambda: bp_flood_plan(graph, a_s[1].shape[0]))
+            t_ms = with_team(tw, lambda: cuda_ms(lambda: bp_flood(*a_s, **k_s), 5))
+            sweep.append(f"{label} {a_s[1].shape[0]} rows, {tw} warp(s) {t_ms:.3f} ms "
+                         f"({plan['resident_per_sm']} resident, {plan['registers']} registers)")
+    report.append("other teams, bit-identical: " + ", ".join(sweep))
     bp_ms, bp_plain_ms = sum(stage_ms), sum(stage_plain_ms)
     bp_bound = bound_ms(*(sum(getattr(b, f) for b in stage_bound)
                           for f in ("nbytes", "float_ops", "int_ops")))
     fail = ~dec.converge_batch
     f_synd = fresh[fail]
     f_perm = torch.argsort(dec.log_prob_ratios_batch[fail], dim=1, stable=True).to(torch.int32)
+    f_got = osd_cs(graph, f_perm, f_synd, osd_order=osd_order, pairs=consts.pairs)
+    f_want = osd_decode_plain(graph, f_perm, f_synd, method="osd_cs", osd_order=osd_order,
+                              pairs=consts.pairs)
+    check(same(f_got[0], f_want[0]) and same(f_got[1], f_want[1]),
+          "K2 osd0/osdw differ from the plain version on the decode's OSD rows")
     osd_ms = cuda_ms(lambda: osd_cs(graph, f_perm, f_synd, osd_order=osd_order,
                                     pairs=consts.pairs), 5)
     osd_plain_ms = cuda_ms(lambda: osd_decode_plain(graph, f_perm, f_synd, method="osd_cs",
@@ -592,7 +622,8 @@ def main() -> None:
     print("phase 5 K1 at the decode's launches: " + "; ".join(report)
           + f"; K1 per decode {bp_ms:.3f} ms vs plain {bp_plain_ms:.3f} ms, bound "
           f"{bp_bound.detail()}, {100 * bp_bound.ms / bp_ms:.1f}% of it {tag}")
-    print(f"phase 5 K2 B={nf} order {osd_order}: {osd_ms:.3f} ms vs plain {osd_plain_ms:.3f} ms; "
+    print(f"phase 5 K2 B={nf} order {osd_order}: {osd_ms:.3f} ms vs plain {osd_plain_ms:.3f} ms, "
+          f"osd0/osdw bit-identical; "
           f"bound {osd_b.detail()}, {100 * osd_b.ms / osd_ms:.1f}% of it; "
           f"plan: {plan_line(osd_cs_plan(graph, nf, osd_order))}; launches per decode "
           f"{per_decode} {tag}")

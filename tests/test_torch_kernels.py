@@ -283,12 +283,13 @@ def test_bp_flood_team_batch_sizes(dev, B):
     """One row, fewer rows than an SM's teams, and far more rows than the
     card's resident teams (each team takes many rows from the counter):
     bit-identical to the plain version in every output, the state
-    included."""
+    included.  The team size is the graph's, whatever the batch."""
     H = np.asarray(CODES["flagship"](), np.uint8)
     g = TannerGraph(H, dev)
     synd, llr0 = _batch(H, B, 0.05, 20 + B, dev)
     plan = bp_flood_plan(g, B)
     assert plan["teams_per_block"] * plan["grid"] >= min(B, plan["teams_per_block"])
+    assert plan["team_threads"] == bp_flood_plan(g, 16384)["team_threads"]
     max_iter = 400 if B <= 3000 else 40
     kw = dict(max_iter=max_iter, emit_state=True, **_MS)
     _equal(bp_flood(g, synd, llr0, **kw), bp_decode_plain(g, synd, llr0, **kw))
@@ -309,10 +310,12 @@ CODES["wide"] = _wide_rows
 
 @pytest.mark.parametrize("code", ["surface", "flagship", "625", "weight1", "wide"])
 @pytest.mark.parametrize("team_warps", [0, 1, 2, 3])
-def test_bp_flood_team_sizes_and_skip_rows(dev, code, team_warps):
+def test_bp_flood_team_sizes_and_skip_rows(dev, code, team_warps, monkeypatch):
     """Teams of one warp (__syncwarp) and of several (a named barrier each)
     give the plain version's results bit for bit, with skip rows, a
     per-row prior and a resumed state."""
+    import bp_osd_tpu_torch.ops.cuda_bp as k1
+
     H = np.asarray(CODES[code](), np.uint8)
     g = TannerGraph(H, dev)
     if team_warps and -(-g.m // (32 * team_warps)) > 8:
@@ -324,9 +327,10 @@ def test_bp_flood_team_sizes_and_skip_rows(dev, code, team_warps):
     skip = torch.zeros(B, dtype=torch.bool, device=dev)
     skip[::5] = True
     v2c = torch.as_tensor(rng.normal(1.0, 2.0, (B, g.m * g.wr)).astype(np.float32), device=dev)
+    monkeypatch.setattr(k1, "_TEAM_WARPS", team_warps)
     for extra in ({"skip": skip}, {"skip": skip, "v2c_init": v2c, "it0": 9}):
         kw = dict(max_iter=50, emit_state=True, **_MS, **extra)
-        _equal(bp_flood(g, synd, llr0, team_warps=team_warps, **kw),
+        _equal(bp_flood(g, synd, llr0, **kw),
                bp_decode_plain(g, synd, llr0, **kw))
 
 
@@ -367,7 +371,8 @@ def test_bp_flood_team_product_sum(dev, code, team_warps, monkeypatch):
     g = TannerGraph(H, dev)
     synd, llr0 = _batch(H, 128, 0.05, 22, dev)
     kw = dict(method="product_sum", max_iter=20, ms_scaling_factor=1.0, emit_state=True)
-    k = bp_flood(g, synd, llr0, team_warps=team_warps, **kw)
+    monkeypatch.setattr(k1, "_TEAM_WARPS", team_warps)
+    k = bp_flood(g, synd, llr0, **kw)
     monkeypatch.setattr(k1, "k1_fits", lambda graph, product_sum=False: False)
     _equal(k, bp_flood(g, synd, llr0, **kw))
     p = bp_decode_plain(g, synd, llr0, **kw)
