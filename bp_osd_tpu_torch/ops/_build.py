@@ -130,21 +130,21 @@ def load() -> ctypes.CDLL:
     lib.bp_flood_plan.restype = I
     lib.osd_cs_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.osd_cs_launch.restype = I
-    lib.osd_e_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.osd_e_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
     lib.osd_e_launch.restype = I
     lib.gf2_elim_launch.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
     lib.gf2_elim_launch.restype = I
     lib.gf2_elim_smem_bytes.argtypes = [I, I, I]
     lib.gf2_elim_smem_bytes.restype = SZ
-    lib.osd_cs_smem_bytes.argtypes = [I, I, I, I, I]
-    lib.osd_cs_smem_bytes.restype = SZ
     lib.osd_cs_warp_smem_bytes.argtypes = [I, I, I, I]
     lib.osd_cs_warp_smem_bytes.restype = SZ
-    lib.osd_cs_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
+    lib.osd_cs_plan.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
     lib.osd_cs_plan.restype = I
     lib.osd_large_launch.argtypes = [P, P, P, P, P, P, P, P,
-                                     I, I, I, I, I, I, I, I, I, P]
+                                     I, I, I, I, I, I, I, I, I, I, P]
     lib.osd_large_launch.restype = I
-    lib.osd_large_smem_bytes.argtypes = [I, I, I]
+    lib.osd_large_smem_bytes.argtypes = [I, I, I, I]
     lib.osd_large_smem_bytes.restype = SZ
+    lib.osd_large_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
+    lib.osd_large_plan.restype = I
     return lib

@@ -1,10 +1,10 @@
 """Wrappers of kernels K2 and K3, ``csrc/osd_cs.cu``: osd0 / osd_cs
-(:func:`osd_cs`, one warp per sample, several samples a block) and osd_e
-(:func:`osd_e`, one block per sample).
+(:func:`osd_cs`) and osd_e (:func:`osd_e`), both one warp per sample,
+several samples a block sharing the column-packed H.
 
 Replace ``bp_osd_tpu/ops/pallas_osd.py:osd_cs_pallas`` and ``osd_e_pallas``
 and their pre-pass ``_permuted_packed_h`` (the kernels build the permuted
-matrix themselves from ``perm`` and ``H_cols`` (K2) or ``H_packed`` (K3)).  CUDA tensors go to the
+matrix themselves from ``perm`` and ``H_cols``).  CUDA tensors go to the
 kernel; CPU tensors to the plain torch version,
 :func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain`.  ``osd_cs.launches``
 and ``osd_e.launches`` count kernel launches.
@@ -22,23 +22,13 @@ from ..decoder.tanner import TannerGraph
 from . import _build
 from .cuda_bp import _SMEM_LIMIT, _check
 
-__all__ = ["k2_fits", "k3_fits", "osd_cs", "osd_cs_plan", "osd_cs_smem_bytes",
-           "osd_cs_warp_smem_bytes", "osd_e"]
+__all__ = ["k2_fits", "k3_fits", "osd_cs", "osd_cs_plan", "osd_cs_warp_smem_bytes", "osd_e"]
 
 _MAX_WORDS = 32  # K2 and K3 keep a column of ceil(m/32) <= 32 words in registers
 
 
-def osd_cs_smem_bytes(m: int, n: int, lam: int) -> int:
-    """Shared memory of one K3 block (the block-per-sample layout: the
-    row-packed H and one sample's matrix and state), as
-    ``csrc/osd_cs.cu:osd_cs_smem_bytes`` computes it (``chip_smoke.py`` holds
-    the two equal on the card)."""
-    W, Wm = -(-n // 32), -(-m // 32)
-    return 8 * 8 + 4 * ((n + 1) * Wm + m * W + 2 * n + max(lam, 1) + 3 * Wm + 4)
-
-
 def osd_cs_warp_smem_bytes(m: int, n: int, lam: int, warps: int = 1) -> int:
-    """Shared memory of one K2 block of ``warps`` samples: the column-packed
+    """Shared memory of one K2 or K3 block of ``warps`` samples: the column-packed
     H once, then per warp the ``n + 1`` columns, the pivot rows (int16), the
     T columns and the best residual, as
     ``csrc/osd_cs.cu:osd_cs_warp_smem_bytes`` computes it.  A column takes
@@ -62,21 +52,23 @@ def k2_fits(graph: TannerGraph, osd_order: int) -> bool:
 
 
 def k3_fits(graph: TannerGraph, osd_order: int) -> bool:
-    """Whether K3 takes this graph at ``osd_order``: its block-per-sample
-    layout fits a block's shared memory and there are at most 1024 rows."""
-    lam = max(0, min(int(osd_order), graph.n - graph.rank))
-    return (-(-graph.m // 32) <= _MAX_WORDS
-            and osd_cs_smem_bytes(graph.m, graph.n, lam) <= _SMEM_LIMIT)
+    """Whether K3 takes this graph at ``osd_order``: K2's fit (one warp's
+    sample and the shared H in a block's shared memory, at most 1024 rows);
+    the card runs the rest through K4 and the torch search."""
+    return k2_fits(graph, osd_order)
 
 
-def osd_cs_plan(graph: TannerGraph, B: int, osd_order: int) -> dict:
-    """K2's launch for ``B`` rows on the current card, from
-    ``csrc/osd_cs.cu:osd_cs_plan``: warps (samples) a block, blocks an SM
+def osd_cs_plan(graph: TannerGraph, B: int, osd_order: int, method: str = "osd_cs") -> dict:
+    """The launch of K2 (``method="osd_cs"``) or K3 (``"osd_e"``) for ``B``
+    rows on the current card, from ``csrc/osd_cs.cu:osd_cs_plan``: warps
+    (samples) a block, blocks an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), grid, dynamic
     shared memory, registers a thread, and the samples resident on an SM."""
+    if method not in ("osd_cs", "osd_e"):
+        raise ValueError(f"osd_cs_plan: method {method!r} is neither osd_cs nor osd_e")
     lam = max(0, min(int(osd_order), graph.n - graph.rank))
     plan = (ctypes.c_int * 5)()
-    err = _build.load().osd_cs_plan(int(B), graph.m, graph.n, lam, plan)
+    err = _build.load().osd_cs_plan(int(B), graph.m, graph.n, lam, int(method == "osd_e"), plan)
     if err != 0:
         raise RuntimeError(f"osd_cs_plan failed: CUDA error {err}")
     out = dict(zip(("warps_per_block", "blocks_per_sm", "grid", "smem_bytes", "registers"),
@@ -157,7 +149,6 @@ def osd_e(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     dev = perm.device
     graph = graph.to(dev)
     B, m, n, r = perm.shape[0], graph.m, graph.n, graph.rank
-    W, Wm = graph.num_words, -(-m // 32)
     lam = max(0, min(int(osd_order), n - r))
     if not 1 <= lam <= 16 or not k3_fits(graph, lam):
         raise ValueError(f"K3 takes 1 <= lam <= 16 on a graph that fits it "
@@ -168,9 +159,9 @@ def osd_e(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     ew = torch.empty(B, n, dtype=torch.uint8, device=dev)
     if B:
         err = lib.osd_e_launch(
-            graph.H_packed.contiguous().data_ptr(), perm.data_ptr(), synd.data_ptr(),
+            graph.H_cols.contiguous().data_ptr(), perm.data_ptr(), synd.data_ptr(),
             skip.data_ptr() if skip is not None else None, e0.data_ptr(), ew.data_ptr(),
-            B, m, n, W, Wm, r, lam, torch.cuda.current_stream(dev).cuda_stream,
+            B, m, n, r, lam, torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"osd_e launch failed: CUDA error {err}")

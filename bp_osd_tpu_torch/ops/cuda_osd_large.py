@@ -5,11 +5,15 @@ Replaces ``bp_osd_tpu/ops/pallas_osd_large.py:osd_cs_large_pallas``.  CUDA
 tensors go to the kernel; CPU tensors to the plain torch version,
 :func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain` (the same as for K2).
 Each sample's ``(n + 1) x ceil(m/32)`` matrix lives in a scratch buffer that
-this wrapper allocates; rows are launched in chunks so the scratch stays
+this wrapper allocates, word-major (word ``w`` of every column contiguous);
+the kernel works on a window of two panels of :func:`osd_large_panel`
+columns in shared memory.  Rows are launched in chunks so the scratch stays
 within ``_SCRATCH_BYTES``.  ``osd_large.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -19,9 +23,53 @@ from ..decoder.tanner import TannerGraph
 from . import _build
 from .cuda_bp import _SMEM_LIMIT, _check
 
-__all__ = ["osd_large"]
+__all__ = ["osd_large", "osd_large_panel", "osd_large_plan", "osd_large_smem_bytes"]
 
 _SCRATCH_BYTES = 3 << 30  # 3 GiB: 512 samples of the [[10000,420]] code
+# columns a panel, at most: on the H100 panels of 8-16 columns ran the
+# [[10000,420]] code fastest, 64 the slowest (chip_smoke.py phase 7)
+_MAX_PANEL = 16
+_PANEL = 0  # a panel width to force (tests only); 0: osd_large_panel
+_MAX_INDEX = 32767  # pivot rows and hit columns are int16 in shared memory
+
+
+def osd_large_smem_bytes(m: int, n: int, lam: int, panel: int) -> int:
+    """Shared memory of one K5 block, as ``csrc/osd_large.cu:osd_large_smem_bytes``
+    computes it (``chip_smoke.py`` holds the two equal on the card): two
+    panels of ``panel`` columns at an odd stride of ``Wm | 1`` words, S twice
+    (words and indices), the syndromes, the T columns and ten event words, then the pivot row of each column and the hit list as
+    int16, after the 32 warps' reduction slots."""
+    Wm = -(-m // 32)
+    return 8 * 32 + 4 * (2 * panel * (Wm | 1) + 6 * Wm + max(lam, 1) + 10) + 2 * (2 * n + 1)
+
+
+def _row_words(m: int, n: int) -> int:
+    """Scratch words of one sample: ``ceil(m/32)`` words of n + 1 columns."""
+    return -(-m // 32) * (n + 1)
+
+
+def osd_large_panel(m: int, n: int, lam: int) -> int:
+    """K5's panel width: the most columns, up to 16 (and n), whose two
+    panels fit a block's shared memory with the rest; 0 if none does."""
+    for panel in range(min(_MAX_PANEL, n), 0, -1):
+        if osd_large_smem_bytes(m, n, lam, panel) <= _SMEM_LIMIT:
+            return panel
+    return 0
+
+
+def osd_large_plan(graph: TannerGraph, osd_order: int) -> dict:
+    """K5's launch at this graph on the current card: panel width, dynamic
+    shared memory, registers a thread and resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    m, n = graph.m, graph.n
+    lam = max(0, min(int(osd_order), n - graph.rank))
+    panel = _PANEL or osd_large_panel(m, n, lam)
+    out = (ctypes.c_int * 2)()
+    err = _build.load().osd_large_plan(n, -(-m // 32), lam, panel, out)
+    if err != 0:
+        raise RuntimeError(f"osd_large_plan failed: CUDA error {err}")
+    return {"panel": panel, "smem_bytes": osd_large_smem_bytes(m, n, lam, panel),
+            "registers": out[0], "blocks_per_sm": out[1]}
 
 
 def osd_large(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
@@ -52,15 +100,16 @@ def osd_large(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
         if pairs.shape != (n_pairs, 2):
             raise ValueError(f"pairs: expected ({n_pairs}, 2), got {pairs.shape}")
         pairs_t = torch.from_numpy(pairs.reshape(-1)).to(dev)
-    per_row = (n + 1) * Wm
-    if per_row >= 2**31:
-        raise ValueError(f"a {m} x {n} matrix is beyond the kernel's 32-bit indexing")
+    per_row = _row_words(m, n)
+    if per_row >= 2**31 or max(m, n) > _MAX_INDEX:
+        raise ValueError(f"a {m} x {n} matrix is beyond the kernel's indexing "
+                         f"(int16 rows and columns, 32-bit words)")
+    panel = _PANEL or osd_large_panel(m, n, lam)
+    if panel == 0:
+        raise ValueError(f"n={n}, m={m} needs {osd_large_smem_bytes(m, n, lam, 1)} bytes of "
+                         f"shared memory per block, more than the {_SMEM_LIMIT} a block may use")
 
     lib = _build.load()
-    smem = lib.osd_large_smem_bytes(n, Wm, lam)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"n={n} needs {smem} bytes of shared memory per block, "
-                         f"more than the {_SMEM_LIMIT} a block may use")
     e0 = torch.empty(B, n, dtype=torch.uint8, device=dev)
     ew = torch.empty(B, n, dtype=torch.uint8, device=dev)
     if B:
@@ -75,7 +124,7 @@ def osd_large(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
                 pairs_t.data_ptr() if pairs_t is not None else None,
                 scratch.data_ptr(), e0.data_ptr(), ew.data_ptr(),
                 row0, min(rows, B - row0), m, n, Wm, r, lam, n_pairs, int(lam > 0),
-                stream,
+                panel, stream,
             )
             if err != 0:
                 raise RuntimeError(f"osd_large launch failed: CUDA error {err}")

@@ -31,11 +31,16 @@ Phases, one line each (any failed check exits non-zero):
 7. K5 (``osd_large.cu``) against its plain version: (a) K5, K2 and the plain
    version bit-identical on the 512 corpus rows at order 42; (b) on the
    [[10000,420]] lifted product (lift 400) K5 and the plain version
-   bit-identical on 8 rows that failed BP, every output satisfying its
-   syndrome and osdw no heavier than osd0; (c) the aux corpus
-   ``lifted_streamed`` (lift 60, where K2 does not fit) reproduced through
-   ``BpOsdDecoder(..., proto, lift=60)`` with K5 launched; the Python mirror
-   of K2's shared-memory size equals the library's;
+   bit-identical on 8 rows that failed BP and on the first of them alone,
+   every output satisfying its syndrome and osdw no heavier than osd0; K5
+   timed on 1 row and on the 8 rows, each beside its bound, with its launch
+   plan and, from this run's data (:class:`ElimWork`), the column steps,
+   pivot steps, hit tests, hit columns and XORed words and the bytes they
+   imply in a column-major and in the word-major scratch layout;
+   (c) the aux corpus ``lifted_streamed`` (lift 60, where K2 does not fit)
+   reproduced through ``BpOsdDecoder(..., proto, lift=60)`` with K5
+   launched; the Python mirrors of K2's and K5's shared-memory sizes equal
+   the library's;
 8. the lifted path at full width: ``BpOsdDecoder(hx, proto=hx_proto,
    lift=400)`` (p = 0.005, min-sum 0.625, max_iter 100, osd_cs order 15) on
    512 fresh syndromes, timed (median of 3 calls), then one batch at
@@ -51,7 +56,9 @@ Phases, one line each (any failed check exits non-zero):
    rows at orders 12 and 16; the aux corpus ``flagship_osd_e`` reproduced
    through ``BpOsdDecoder(..., osd_method="osd_e", osd_order=12,
    max_iter=100)``; then the 16384 fresh syndromes at osd_e order 12, timed:
-   all satisfied, K3 launched, K2 and K4 not;
+   all satisfied, K3 launched, K2 and K4 not; K3 held to the plain osd_e on
+   that decode's OSD rows at orders 12 and 16 and timed at both, each beside
+   its bound, with its launch plan;
 11. the device-memory routes: osd_e order 8 on the lift-60 and lift-100
    ``proto``/``lift`` decoders goes to K4 and the torch search (lift 60 in
    shared memory, where K4 also runs forced to device memory; lift 100 above
@@ -89,8 +96,11 @@ null).  A bound is the larger of the bytes the call must move (each input
 read once, each output written once) over 3.35 TB/s and its operations over
 the peak rate of their type: float32 at 67 TFLOP/s, integer at 64 INT32
 lanes x 132 SMs x 1.98 GHz = 16.73 Tops/s (the larger of the two), counted
-from this run's data (the iterations each BP row ran, the column tests and
-word XORs each elimination made: :func:`elim_work`).  The JAX package is
+from this run's data (the iterations each BP row ran; the pivot searches,
+the hit tests at pivot steps and the nonzero words XORed that each
+elimination needs: :func:`elim_work`).  The OSD kernels also carry
+``bound_ms_all_columns``, the earlier and larger count in which every
+column step tests every column and XORs every word of a hit column.  The JAX package is
 not imported: the JAX reference enters only through the committed corpora
 and LER artifacts.
 """
@@ -204,12 +214,60 @@ def k1_bound(graph, rows: int, sample_its: int, *, prior_rows: int, v2c_in: bool
     return bound_ms(nbytes, sample_its * (2 * E + n + m), sample_its * (7 * E + n))
 
 
-def elim_work(graph, perm: torch.Tensor, synd: torch.Tensor):
-    """``(steps, tests, xor_words)`` of the Gauss-Jordan elimination the OSD
-    kernels run on these rows, summed over the rows: a step is one column t
-    taken while fewer than rank pivots are found, each step tests all n + 1
-    columns at the pivot row and XORs the Wm words of the hit columns (the
-    column elimination of ``decoder/osd.py:_eliminate``, counted)."""
+class ElimWork(NamedTuple):
+    """What the Gauss-Jordan elimination of the OSD kernels does on some rows
+    (the column elimination of ``decoder/osd.py:_eliminate``, counted), one
+    entry a row: ``steps`` columns taken while fewer than rank pivots are
+    found, ``pivots`` of them with a pivot, ``pivot_tests`` the columns after
+    t (syndrome included) tested at the pivot steps (the sum of n - t),
+    ``hits`` the columns after t that carry the pivot row, ``xor_words`` the
+    words XORed into them (hits x nonzero words of S) and ``cm_sectors`` the
+    32-byte sectors those words span in the column-major layout (hits x the
+    8-word groups of S that hold a nonzero word)."""
+
+    steps: np.ndarray
+    pivots: np.ndarray
+    pivot_tests: np.ndarray
+    hits: np.ndarray
+    xor_words: np.ndarray
+    cm_sectors: np.ndarray
+    n1: int
+    Wm: int
+
+    def rows(self, sel) -> "ElimWork":
+        return ElimWork(*(getattr(self, f)[sel] for f in self._fields[:6]), self.n1, self.Wm)
+
+    @property
+    def ops(self) -> int:
+        """The integer operations the elimination needs: at every step the
+        pivot search (an AND-NOT and a test of each of column t's Wm words),
+        at a pivot step the hit tests (shift and test, 2 each) and the XORs
+        (1 a nonzero word of S into each hit column)."""
+        return int(2 * self.Wm * self.steps.sum() + 2 * self.pivot_tests.sum()
+                   + self.xor_words.sum())
+
+    @property
+    def ops_all_columns(self) -> int:
+        """The earlier, larger count: every step tests all n + 1 columns (2
+        operations a test) and XORs Wm words into every column holding the
+        pivot bit, column t included."""
+        return (2 * int(self.steps.sum()) * self.n1
+                + int((self.hits + self.pivots).sum()) * self.Wm)
+
+    def traffic(self) -> tuple[float, float]:
+        """Device-memory bytes of the pivot steps' hit tests and XORs in the
+        column-major layout (a test reads one 32-byte sector for its 4 bytes;
+        an XOR reads and writes the sectors S spans in a column) and in the
+        word-major one (4 bytes a test, coalesced; each XORed word its own
+        sector, read and written)."""
+        tests = float(self.pivot_tests.sum())
+        return (32 * tests + 64 * float(self.cm_sectors.sum()),
+                4 * tests + 64 * float(self.xor_words.sum()))
+
+
+def elim_work(graph, perm: torch.Tensor, synd: torch.Tensor) -> ElimWork:
+    """:class:`ElimWork` of the elimination of these rows, counted on their
+    device."""
     from bp_osd_tpu_torch.decoder.osd import _pack_rows_bits, _popcount32, _wrap_i32
 
     cols = torch.cat([graph.H_cols[perm.long()], _pack_rows_bits(synd)[:, None, :]], 1)
@@ -219,13 +277,13 @@ def elim_work(graph, perm: torch.Tensor, synd: torch.Tensor):
     rr = torch.zeros(B, dtype=torch.int64, device=dev)
     ar = torch.arange(B, device=dev)
     word_ids = torch.arange(Wm, device=dev)
-    steps = torch.zeros((), dtype=torch.int64, device=dev)
-    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    col_ids = torch.arange(n1, device=dev)
+    groups = -(-Wm // 8)
+    acc = torch.zeros(6, B, dtype=torch.int64, device=dev)
     for t in range(n1 - 1):
         live = rr < graph.rank
         if not bool(live.any()):
             break
-        steps += live.sum()
         ct = cols[:, t, :]
         elig = ct & ~used
         nz = elig != 0
@@ -241,21 +299,35 @@ def elim_work(graph, perm: torch.Tensor, synd: torch.Tensor):
         sel = (cols.gather(2, w[:, None, None].expand(B, n1, 1)).squeeze(2)
                >> bit[:, None].to(torch.int32)) & 1
         sel = sel * has[:, None]
-        hits += sel.sum()
+        hits_after = (sel * (col_ids > t)).sum(1)
+        s_nz = S != 0
+        s_groups = torch.nn.functional.pad(s_nz, (0, 8 * groups - Wm)).view(B, groups, 8).any(2)
+        acc += torch.stack([live.long(), has.long(), has.long() * (n1 - 1 - t), hits_after,
+                            hits_after * s_nz.sum(1), hits_after * s_groups.sum(1)])
         cols ^= (-sel)[:, :, None] & S[:, None, :]
         used |= pmask
         rr += has.to(torch.int64)
-    return int(steps), int(steps) * n1, int(hits) * Wm
+    return ElimWork(*acc.cpu().numpy(), n1, Wm)
 
 
 def osd_bound(graph, perm: torch.Tensor, synd: torch.Tensor, *, search_ops_per_row: float,
-              in_bytes: float, out_bytes: float):
-    """An OSD kernel's bound on these rows: the elimination's column tests
-    (shift and test: 2 operations) and word XORs (1), the search's
-    ``search_ops_per_row`` integer operations, and its bytes."""
-    _, tests, xors = elim_work(graph, perm, synd)
-    B = perm.shape[0]
-    return bound_ms(in_bytes + out_bytes, 0.0, 2 * tests + xors + B * search_ops_per_row)
+              in_bytes: float, out_bytes: float,
+              work: ElimWork | None = None) -> tuple[Bound, Bound]:
+    """An OSD kernel's bound on these rows: the operations the elimination
+    needs (:attr:`ElimWork.ops`), the search's ``search_ops_per_row``
+    integer operations, and its bytes; then the same with the earlier count
+    :attr:`ElimWork.ops_all_columns`.  ``work`` is these rows'
+    :func:`elim_work` where it is already counted."""
+    work = elim_work(graph, perm, synd) if work is None else work
+    search = perm.shape[0] * search_ops_per_row
+    return tuple(bound_ms(in_bytes + out_bytes, 0.0, ops + search)
+                 for ops in (work.ops, work.ops_all_columns))
+
+
+def bound_text(b: tuple[Bound, Bound], ms: float) -> str:
+    """A kernel's two bounds (:func:`osd_bound`) beside its time."""
+    return (f"bound {b[0].detail()}, {100 * b[0].ms / ms:.2f}% of it (every column counted: "
+            f"{b[1].ms:.4f} ms, {100 * b[1].ms / ms:.2f}%)")
 
 
 def plan_line(plan: dict) -> str:
@@ -430,9 +502,10 @@ def main() -> None:
     from bp_osd_tpu_torch.ops.cuda_bp import (bp_flood, bp_flood_plan, bp_flood_smem_bytes,
                                               bp_flood_table_bytes, bp_flood_team_bytes, k1_fits)
     from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, gf2_elim_smem_bytes, k4_fits
-    from bp_osd_tpu_torch.ops.cuda_osd import (k2_fits, osd_cs, osd_cs_plan, osd_cs_smem_bytes,
+    from bp_osd_tpu_torch.ops.cuda_osd import (k2_fits, osd_cs, osd_cs_plan,
                                                osd_cs_warp_smem_bytes, osd_e)
-    from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
+    from bp_osd_tpu_torch.ops.cuda_osd_large import (osd_large, osd_large_panel, osd_large_plan,
+                                                     osd_large_smem_bytes)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -623,8 +696,7 @@ def main() -> None:
           + f"; K1 per decode {bp_ms:.3f} ms vs plain {bp_plain_ms:.3f} ms, bound "
           f"{bp_bound.detail()}, {100 * bp_bound.ms / bp_ms:.1f}% of it {tag}")
     print(f"phase 5 K2 B={nf} order {osd_order}: {osd_ms:.3f} ms vs plain {osd_plain_ms:.3f} ms, "
-          f"osd0/osdw bit-identical; "
-          f"bound {osd_b.detail()}, {100 * osd_b.ms / osd_ms:.1f}% of it; "
+          f"osd0/osdw bit-identical; {bound_text(osd_b, osd_ms)}; "
           f"plan: {plan_line(osd_cs_plan(graph, nf, osd_order))}; launches per decode "
           f"{per_decode} {tag}")
 
@@ -644,9 +716,11 @@ def main() -> None:
     lib = _build.load()
     for mm, nn, lam in ((graph.m, graph.n, osd_order), (480, 1000, LIFT_ORDER),
                         (720, 1500, LIFT_ORDER), (4800, 10000, LIFT_ORDER), (720, 1500, 0)):
-        lib_bytes = lib.osd_cs_smem_bytes(mm, nn, -(-nn // 32), -(-mm // 32), lam)
-        check(osd_cs_smem_bytes(mm, nn, lam) == lib_bytes,
-              f"K3 shared-memory mirror differs from the library at m={mm} n={nn} lam={lam}")
+        for panel in (1, 16, osd_large_panel(mm, nn, lam)):
+            check(osd_large_smem_bytes(mm, nn, lam, panel)
+                  == lib.osd_large_smem_bytes(nn, -(-mm // 32), lam, panel),
+                  f"K5 shared-memory mirror differs from the library at m={mm} n={nn} "
+                  f"lam={lam} panel={panel}")
         for warps in (1, 20):
             check(osd_cs_warp_smem_bytes(mm, nn, lam, warps)
                   == lib.osd_cs_warp_smem_bytes(nn, -(-mm // 32), lam, warps),
@@ -693,12 +767,41 @@ def main() -> None:
           "K5 output violates syndromes at lift 400")
     check(bool((k5[1].sum(1) <= k5[0].sum(1)).all()), "K5 osdw heavier than osd0")
     k5_err = float((k5[1].int() - k5_plain[1].int()).abs().max())
-    k5_ms = cuda_ms(lambda: osd_large(gl, p8, s8, osd_order=LIFT_ORDER, pairs=pairs_l), 3)
-    Wml, lam_l = -(-ml // 32), min(LIFT_ORDER, nl - gl.rank)
-    k5_b = osd_bound(
-        gl, p8, s8,
-        search_ops_per_row=(nl - gl.rank) * (2 * Wml + 1) + len(pairs_l) * (3 * Wml + 1),
-        in_bytes=8 * (4 * nl + ml) + 4 * nl * Wml + 8 * len(pairs_l), out_bytes=2 * 8 * nl)
+
+    def k5_run(rows):  # K5 on the first `rows` rows
+        return osd_large(gl, p8[:rows], s8[:rows], osd_order=LIFT_ORDER, pairs=pairs_l)
+
+    one = k5_run(1)
+    check(same(one[0], k5_plain[0][:1]) and same(one[1], k5_plain[1][:1]),
+          "K5 on the first row alone differs from the plain version")
+    k5_ms, k5_one_ms = cuda_ms(lambda: k5_run(8), 3), cuda_ms(lambda: k5_run(1), 3)
+    Wml = -(-ml // 32)
+    work8 = elim_work(gl, p8, s8)
+
+    def k5_bound(rows):
+        return osd_bound(
+            gl, p8[:rows], s8[:rows],
+            search_ops_per_row=(nl - gl.rank) * (2 * Wml + 1) + len(pairs_l) * (3 * Wml + 1),
+            in_bytes=rows * (4 * nl + ml) + 4 * nl * Wml + 8 * len(pairs_l),
+            out_bytes=2 * rows * nl, work=work8.rows(slice(0, rows)))
+
+    k5_b, k5_one_b = k5_bound(8), k5_bound(1)
+    k5_plan = osd_large_plan(gl, LIFT_ORDER)
+
+    def traffic_line(w: ElimWork, label: str) -> str:
+        cm, wm = w.traffic()
+        return (f"{label}: {int(w.steps.sum())} column steps, {int(w.pivots.sum())} pivot "
+                f"steps, {int(w.pivot_tests.sum())} tests at pivot steps, "
+                f"{int(w.hits.sum())} hit columns, {int(w.xor_words.sum())} XORed words; "
+                f"hit tests + XORs move {cm / 1e6:.1f} MB column-major, {wm / 1e6:.1f} MB "
+                f"word-major")
+
+    k5_report = (
+        f"K5 (panels of {k5_plan['panel']}) 1 row {k5_one_ms:.3f} ms, "
+        f"{bound_text(k5_one_b, k5_one_ms)}; 8 rows {k5_ms:.3f} ms, "
+        f"{bound_text(k5_b, k5_ms)}; plan {plan_line(k5_plan)}; plain "
+        f"{k5_plain_ms:.1f} ms for the 8 rows; " + traffic_line(work8.rows(slice(0, 1)), "row 0")
+        + "; " + traffic_line(work8, "8 rows"))
 
     aux = np.load(AUX)
     _, ma, na = (int(x) for x in aux["lifted_streamed_shape"])
@@ -719,11 +822,10 @@ def main() -> None:
           "lifted_streamed converged/iterations != aux corpus")
     print(f"phase 7 K5 vs plain: corpus rows K5 == K2 == plain at order {osd_order}; "
           f"lift {LIFT} (m={ml}, n={nl}, rank {gl.rank}; code + decoder built in "
-          f"{build_s:.1f} s): 8 BP-failing rows bit-identical, all satisfied, osdw weights "
-          f"{k5[1].sum(1).tolist()} <= osd0 {k5[0].sum(1).tolist()}; K5 {k5_ms:.3f} ms vs "
-          f"plain {k5_plain_ms:.1f} ms for the 8 rows, bound {k5_b.detail()}, "
-          f"{100 * k5_b.ms / k5_ms:.2f}% of it; aux corpus lifted_streamed "
-          f"reproduced through K5; K2/K3 shared-memory mirrors == library {tag}")
+          f"{build_s:.1f} s): 8 BP-failing rows and the first alone bit-identical, all "
+          f"satisfied, osdw weights {k5[1].sum(1).tolist()} <= osd0 "
+          f"{k5[0].sum(1).tolist()}; {k5_report}; aux corpus lifted_streamed reproduced "
+          f"through K5; K2/K5 shared-memory mirrors == library {tag}")
 
     # ---- phase 8: the lifted path at full width ----
     fresh_l = lifted_batch(LIFT_P, SEED + 2, LIFT_B)
@@ -768,6 +870,10 @@ def main() -> None:
     sort_ms = cuda_ms(lambda: torch.argsort(llr_fail, dim=1, stable=True), 3)
     p_fail = torch.argsort(llr_fail, dim=1, stable=True).to(torch.int32)
     s_fail = heavy_l[~conv_h]
+    k5_all = osd_large(gl, p_fail, s_fail, osd_order=LIFT_ORDER, pairs=pairs_l)
+    check(same(k5_all[1][:8], osd_decode_plain(gl, p_fail[:8], s_fail[:8], method="osd_cs",
+                                               osd_order=LIFT_ORDER, pairs=pairs_l)[1]),
+          "K5 differs from the plain version on the heavy batch's first failing rows")
     k5_all_ms = cuda_ms(lambda: osd_large(gl, p_fail, s_fail, osd_order=LIFT_ORDER,
                                           pairs=pairs_l), 3)
     glue_ms = wall_h * 1e3 - hbp_ms - sort_ms - k5_all_ms
@@ -777,7 +883,8 @@ def main() -> None:
           f"{lbp_ms:.3f} ms per batch; p={LIFT_HEAVY_P}: {n_fail_h}/{LIFT_B} rows failed BP, "
           f"all satisfied, wall {wall_h * 1e3:.3f} ms = lifted BP {hbp_ms:.3f} + argsort "
           f"{sort_ms:.3f} + K5 {k5_all_ms:.3f} ({k5_all_ms / max(n_fail_h, 1):.3f} ms per "
-          f"failing row) + host glue {glue_ms:.3f} ms; K5 on 8 rows {k5_ms:.3f} ms vs plain "
+          f"failing row) + host glue {glue_ms:.3f} ms; K5 "
+          f"on 1 row {k5_one_ms:.3f} ms, on 8 rows {k5_ms:.3f} ms vs plain "
           f"{k5_plain_ms:.1f} ms; launches {launches_l}, K5 {k5_per_decode} per decode {tag}")
 
     counters = (bp_flood, osd_cs, osd_e, eliminate, osd_large)
@@ -851,8 +958,8 @@ def main() -> None:
           f"{FRESH / float(np.median(walls0)):.1f} syndromes/s (median of walls "
           f"{[round(w, 4) for w in walls0]} s); converged fraction "
           f"{float(dec0.converge_batch.float().mean()):.4f}; launches {launches0}; "
-          f"K4 B={f_perm0.shape[0]}: {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, bound "
-          f"{k4_b.detail()}, {100 * k4_b.ms / k4_ms:.1f}% of it, "
+          f"K4 B={f_perm0.shape[0]}: {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, "
+          f"{bound_text(k4_b, k4_ms)}, "
           f"{k4_per_decode} launch(es) per decode; the OSD "
           f"tail (argsort + K4 + osd0 read-off) {tail0_ms:.3f} ms of the "
           f"{float(np.median(walls0)) * 1e3:.3f} ms wall {tag}")
@@ -883,26 +990,35 @@ def main() -> None:
           and launches_e["eliminate"] == 0, f"the osd_e decoder's kernels: {launches_e}")
     check(satisfies(out_e, H_f, fresh), "a fresh osd_e osdw violates its syndrome")
     f_perm_e, f_synd_e = failing_rows(dec_e, fresh)
-    k3_ms = cuda_ms(lambda: osd_e(graph, f_perm_e, f_synd_e, osd_order=12), 5)
     n3 = f_perm_e.shape[0]
-    k3_b = osd_bound(
-        graph, f_perm_e, f_synd_e, search_ops_per_row=(1 << 12) * (2 * Wm + 1),
-        in_bytes=n3 * (4 * n + m) + 4 * m * graph.num_words, out_bytes=2 * n3 * n)
+    work_e = elim_work(graph, f_perm_e, f_synd_e)
+    k3_t, k3_bounds = {}, {}
+    for o in (12, 16):  # the decode's OSD rows, held to the plain osd_e, then timed
+        got = osd_e(graph, f_perm_e, f_synd_e, osd_order=o)
+        want = osd_decode_plain(graph, f_perm_e, f_synd_e, method="osd_e", osd_order=o)
+        check(same(got[0], want[0]) and same(got[1], want[1]),
+              f"K3 differs from the plain osd_e on the decode's OSD rows at order {o}")
+        k3_t[o] = cuda_ms(lambda: osd_e(graph, f_perm_e, f_synd_e, osd_order=o), 5)
+        k3_bounds[o] = osd_bound(
+            graph, f_perm_e, f_synd_e, search_ops_per_row=(1 << o) * (2 * Wm + 1),
+            in_bytes=n3 * (4 * n + m) + 4 * m * graph.num_words, out_bytes=2 * n3 * n,
+            work=work_e)
+    k3_ms, k3_16_ms, k3_b, k3_16_b = k3_t[12], k3_t[16], k3_bounds[12], k3_bounds[16]
     reset_counts()
     dec_e.decode_batch(fresh, outputs="device")
     k3_per_decode = counts()["osd_e"]
     k3_plain_ms = cuda_ms(lambda: osd_decode_plain(graph, f_perm_e, f_synd_e, method="osd_e",
                                                    osd_order=12), 3)
-    k3_16_ms = cuda_ms(lambda: osd_e(graph, f_perm_e, f_synd_e, osd_order=16), 5)
     print(f"phase 10 K3 vs plain: {B} corpus rows at osd_e orders 12 and 16 bit-identical; "
           f"aux corpus flagship_osd_e ({synd_e.shape[0]} rows) reproduced through K3; "
           f"{FRESH} fresh syndromes at osd_e 12, max_iter 100: all satisfied; "
           f"{FRESH / float(np.median(walls_e)):.1f} syndromes/s (median of walls "
           f"{[round(w, 4) for w in walls_e]} s); launches {launches_e}; K3 "
-          f"B={f_perm_e.shape[0]}: {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms, bound "
-          f"{k3_b.detail()}, {100 * k3_b.ms / k3_ms:.1f}% of it, {k3_per_decode} "
-          f"launch(es) per decode; K3 at order 16 "
-          f"on the same rows {k3_16_ms:.3f} ms {tag}")
+          f"B={f_perm_e.shape[0]}: {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms, "
+          f"{bound_text(k3_b, k3_ms)}, {k3_per_decode} "
+          f"launch(es) per decode; K3 at order 16 on the same rows {k3_16_ms:.3f} ms, "
+          f"{bound_text(k3_16_b, k3_16_ms)}; plan: "
+          f"{plan_line(osd_cs_plan(graph, n3, 12, method='osd_e'))} {tag}")
 
     # ---- phase 11: the device-memory routes ----
     report = []
@@ -975,6 +1091,8 @@ def main() -> None:
     phase14(qcode, reset_counts, counts, tag)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
+        if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)
+            b, extra["bound_ms_all_columns"] = b[0], b[1].ms
         return {"name": name, "route": "cuda", "source": f"bp_osd_tpu_torch/csrc/{source}",
                 "replaces": f"bp_osd_tpu/ops/{replaces}", "launches": launches,
                 "launches_per_decode": per_decode, "max_abs_err": err, "ms": ms,
@@ -990,11 +1108,17 @@ def main() -> None:
         row("osd_cs", "osd_cs.cu", "pallas_osd.py:135", launches["osd_cs"],
             per_decode["osd_cs"], osd_err, osd_ms, osd_plain_ms, osd_b),
         row("osd_e", "osd_cs.cu", "pallas_osd.py:565", launches_e["osd_e"], k3_per_decode,
-            k3_err, k3_ms, k3_plain_ms, k3_b),
+            k3_err, k3_ms, k3_plain_ms, k3_b, order16_ms=k3_16_ms, order16_bound_ms=k3_16_b[0].ms,
+            design="a warp per sample, several a block sharing the column-packed H; "
+                   "K2's elimination, then 2^lam / 32 Gray-code patterns a lane"),
         row("gf2_elim", "gf2_elim.cu", "pallas_gf2.py:57", launches0["eliminate"],
             k4_per_decode, k4_err, k4_ms, k4_plain_ms, k4_b),
         row("osd_large", "osd_large.cu", "pallas_osd_large.py:62", launches_l["osd_large"],
-            k5_per_decode, k5_err, k5_ms, k5_plain_ms, k5_b),
+            k5_per_decode, k5_err, k5_ms, k5_plain_ms, k5_b, lone_row_ms=k5_one_ms,
+            lone_row_bound_ms=k5_one_b[0].ms, heavy_ms=k5_all_ms, heavy_rows=n_fail_h,
+            design="word-major scratch, a window of two panels in shared memory owned "
+                   "by warp 0 (search, window XOR, dependent columns without a barrier), "
+                   "warps 1-31 test and XOR the later columns"),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -173,7 +173,7 @@ def test_osd_large_row_chunks(dev, monkeypatch):
     synd, perm = _osd_inputs(H, 11, 8, dev)
     pairs = build_osd_consts(g, "osd_cs", 15).pairs
     whole = osd_large(g, perm, synd, osd_order=15, pairs=pairs)
-    monkeypatch.setattr(k5, "_SCRATCH_BYTES", 3 * 4 * (g.n + 1) * (-(-g.m // 32)))
+    monkeypatch.setattr(k5, "_SCRATCH_BYTES", 3 * 4 * k5._row_words(g.m, g.n))
     before = osd_large.launches
     _equal(osd_large(g, perm, synd, osd_order=15, pairs=pairs), whole)
     assert osd_large.launches == before + 4  # 11 rows, 3 per launch
@@ -398,3 +398,78 @@ def test_osd_cs_warp_kernel_orders_and_skip(dev, order, B):
         _equal(osd_cs(g, perm, synd, osd_order=order, pairs=pairs, skip=sk),
                osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=order,
                                 pairs=pairs, skip=sk))
+
+
+# ---- K5's panel design and K3 on the warp layout ----
+
+
+@pytest.mark.parametrize("B", [1, 8, 140])
+def test_osd_large_batches_and_chunks(dev, B, monkeypatch):
+    """K5 on one row, on 8 and on more rows than the card has SMs, with skip
+    rows and with the rows split over launches: bit-identical to the plain
+    version."""
+    import bp_osd_tpu_torch.ops.cuda_osd_large as k5
+
+    H = np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, B, 40 + B, dev, p=0.04)
+    pairs = build_osd_consts(g, "osd_cs", 15).pairs
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[1::4] = True
+    for sk in (None, skip):
+        want = osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=15, pairs=pairs,
+                                skip=sk)
+        _equal(osd_large(g, perm, synd, osd_order=15, pairs=pairs, skip=sk), want)
+    rows = max(1, B // 3)
+    monkeypatch.setattr(k5, "_SCRATCH_BYTES", rows * 4 * k5._row_words(g.m, g.n))
+    before = osd_large.launches
+    _equal(osd_large(g, perm, synd, osd_order=15, pairs=pairs, skip=skip),
+           osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=15, pairs=pairs,
+                            skip=skip))
+    assert osd_large.launches == before + -(-B // rows)
+
+
+@pytest.mark.parametrize("P", [1, 7, 64])
+def test_osd_large_panel_widths(dev, P, monkeypatch):
+    """Panels of 1, 7 and 64 columns give the same bits at lift 100 (a panel
+    of one column turns every column into a panel change)."""
+    import bp_osd_tpu_torch.ops.cuda_osd_large as k5
+
+    H = np.asarray(lifted_hgp(PROTO, lift=100).hx.toarray(), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, 6, 50 + P, dev, p=0.04)
+    pairs = build_osd_consts(g, "osd_cs", 15).pairs
+    monkeypatch.setattr(k5, "_PANEL", P)
+    _equal(osd_large(g, perm, synd, osd_order=15, pairs=pairs),
+           osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=15, pairs=pairs))
+
+
+@pytest.mark.parametrize("order", [1, 2, 12, 16])
+@pytest.mark.parametrize("B", [1, 37, 1001])
+def test_osd_e_warp_kernel_orders_and_skip(dev, order, B):
+    """K3 (one warp a sample) at orders 1, 2, 12 and 16, with skip rows, on
+    one row and on batches that are not a multiple of the samples a block
+    holds: bit-identical to the plain osd_e."""
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, B, 60 + order, dev)
+    plan = osd_cs_plan(g, B, order, method="osd_e")
+    assert plan["grid"] * plan["warps_per_block"] >= B
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[2::5] = True
+    for sk in (None, skip):
+        _equal(osd_e(g, perm, synd, osd_order=order, skip=sk),
+               osd_decode_plain(g, perm, synd, method="osd_e", osd_order=order, skip=sk))
+
+
+@pytest.mark.parametrize("code", ["surface", "flagship", "625"])
+def test_osd_e_and_osd_cs_share_the_elimination(dev, code):
+    """K3 and K2 run the same warp elimination: their osd0 agree bit for bit
+    at every order."""
+    H = np.asarray(CODES[code](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, 300, 71, dev)
+    for order in (1, 8, 12):
+        pairs = build_osd_consts(g, "osd_cs", order).pairs
+        assert torch.equal(osd_e(g, perm, synd, osd_order=order)[0],
+                           osd_cs(g, perm, synd, osd_order=order, pairs=pairs)[0])

@@ -28,7 +28,7 @@ from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
 from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode_plain
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import _SMEM_LIMIT
-from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs_smem_bytes
+from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs_warp_smem_bytes
 from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
 
 torch.set_num_threads(1)
@@ -174,11 +174,12 @@ def test_plain_osd_equals_jax_large_kernel(order, with_skip):
 
 
 def test_k2_k5_routing_by_shared_memory():
-    """K2's shared memory (mirror of ``csrc/osd_cs.cu:osd_cs_smem_bytes``) at
-    osd_cs order 15 decides K2 or K5, as ``fused_osd_fits`` does on the TPU."""
-    assert osd_cs_smem_bytes(480, 1000, 15) == 129_820  # lift 40 fits
-    assert osd_cs_smem_bytes(720, 1500, 15) == 285_868  # lift 60 does not
-    assert osd_cs_smem_bytes(4800, 10000, 15) > 12_000_000
+    """K2's shared memory (mirror of ``csrc/osd_cs.cu:osd_cs_warp_smem_bytes``:
+    the shared H and one warp's sample) at osd_cs order 15 decides K2 or K5,
+    as ``fused_osd_fits`` does on the TPU."""
+    assert osd_cs_warp_smem_bytes(480, 1000, 15) == 130_184  # lift 40 fits
+    assert osd_cs_warp_smem_bytes(720, 1500, 15) == 291_248  # lift 60 does not
+    assert osd_cs_warp_smem_bytes(4800, 10000, 15) > 12_000_000
     assert _SMEM_LIMIT == 232_448
     flagship = TannerGraph(_dense(hgp(_dense(protograph_to_binary(PROTO, 1))).hx))
     assert k2_fits(flagship, 42)
