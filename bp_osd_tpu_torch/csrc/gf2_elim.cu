@@ -1,7 +1,12 @@
 // gf2_elim.cu -- batched GF(2) Gauss-Jordan elimination in a per-sample
-// column order, one thread block per sample.
+// column order, one thread block per sample (K4's block kernel).
 //
-// Replaces the TPU kernel bp_osd_tpu/ops/pallas_gf2.py:_elim_kernel (K4).
+// Replaces the TPU kernel bp_osd_tpu/ops/pallas_gf2.py:_elim_kernel (K4) on
+// the codes whose warp layout does not fit a block's shared memory (the
+// osd_e route of lifted products that K3 cannot hold); every smaller code,
+// the flagship's default osd0 decode among them, runs K4's warp kernel
+// (osd_cs.cu, gf2_elim_warp_launch).  This block kernel keeps its first
+// design: step B below walks a word's hit rows one after another.
 // The plain torch version is bp_osd_tpu_torch/decoder/osd.py:eliminate_plain;
 // the two agree bit for bit in all five outputs, which are those of the JAX
 // package's decoder/osd.py:_eliminate:

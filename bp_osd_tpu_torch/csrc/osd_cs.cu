@@ -1,12 +1,35 @@
 // osd_cs.cu -- ordered-statistics decoding with the combination sweep (K2)
-// or the exhaustive search (K3), one warp per sample, several samples a
-// block sharing one copy of H.
+// or the exhaustive search (K3), and the GF(2) elimination alone (K4's warp
+// kernel), one warp per sample, several samples a block sharing one copy of
+// H.
 //
 // Replaces the TPU kernel bp_osd_tpu/ops/pallas_osd.py:_osd_kernel with
 // mode="cs" (K2, entry osd_cs_launch) and mode="e" (K3, entry osd_e_launch),
 // together with its matrix-unit pre-pass _permuted_packed_h.  The plain
 // torch version is bp_osd_tpu_torch/decoder/osd.py:osd_decode_plain; both
 // kernels agree with it bit for bit.
+//
+// K4 (entry gf2_elim_warp_launch) replaces the TPU kernel
+// bp_osd_tpu/ops/pallas_gf2.py:_elim_kernel on every code whose warp layout
+// fits a block's shared memory (the flagship's default osd0 decode); its
+// plain version is decoder/osd.py:eliminate_plain, whose five outputs it
+// gives bit for bit (h_work, the fully reduced H row-packed in original
+// column order; s_work; pivot_ids and pivot_rows in the order found;
+// pivot_mask; zeros on skipped rows).  What bounds it on an H100: integer
+// operations (~1.3e5 a flagship row for the elimination's needed work) along
+// a chain of ~200-250 dependent column steps a row, and the ~10 KB of h_work
+// a row it must write.  The first K4 (gf2_elim.cu, kept for codes above
+// this layout) ran a 256-thread block per sample: a row scan and two block
+// barriers a pivot step, and each warp walking its hit rows one after
+// another.  Here the chain runs in one warp with no block barrier: the
+// elimination is K2's warp_eliminate (column-major, every column updated,
+// so a pivot column ends as the unit vector of its row), many samples a
+// block hide each other's step latency, and the write-out is warp-wide:
+// lane j of a 32-column word w takes the column that original column
+// 32 w + j went to (an inverse of perm, int16 in the warp's slice), each
+// 32 x 32 bit tile is transposed in registers by five shuffle steps, and
+// lane i stores row 32 rw + i's word; the pivot lists come from prow by a
+// ballot prefix count.
 //
 // Per sample, with perm the stable ascending argsort of the BP posterior:
 //   1. build the column-permuted matrix, column-major and bit-packed along
@@ -75,34 +98,46 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long x) {
 // column is read and XORed as 64-bit pairs.
 __host__ __device__ inline int pair_words(int Wm) { return (Wm + 1) & ~1; }
 
-__host__ __device__ inline size_t warp_words(int n, int Wm, int lam) {
+// `inv`: K4's warp also keeps the inverse of perm (n int16).
+__host__ __device__ inline size_t warp_words(int n, int Wm, int lam, bool inv = false) {
   // columns (n + 1) x pair_words, pivot rows as int16, T columns, best
-  // residual; even, so that the next warp's columns stay 8-byte aligned
-  const size_t w = (size_t)(n + 1) * pair_words(Wm) + (n + 1) / 2 + (lam > 0 ? lam : 1) + Wm;
+  // residual, [inverse perm]; even, so that the next warp's columns stay
+  // 8-byte aligned
+  const size_t w = (size_t)(n + 1) * pair_words(Wm) + (n + 1) / 2 + (lam > 0 ? lam : 1) + Wm +
+                   (inv ? (n + 1) / 2 : 0);
   return (w + 1) & ~(size_t)1;
+}
+
+// A block of `warps` samples: the column-packed H once, then each warp's
+// slice (mode 2, K4's warp kernel, with the inverse perm and lam = 0).
+__host__ __device__ inline size_t block_words(int n, int Wm, int lam, int mode, int warps) {
+  return (size_t)n * pair_words(Wm) +
+         (size_t)warps * warp_words(n, Wm, mode == 2 ? 0 : lam, mode == 2);
 }
 
 __device__ __forceinline__ uint32_t bit_at(const uint32_t* x, int p) {
   return (x[p >> 5] >> (p & 31)) & 1u;
 }
 
-// One warp's sample in shared memory: its columns, pivot rows, T columns and
-// best residual.
+// One warp's sample in shared memory: its columns, pivot rows, T columns,
+// best residual and (K4) the inverse perm.
 struct WarpSample {
   uint32_t* cols;  // [n + 1][Wp], the syndrome as column n
   int16_t* prow;   // [n]
   int32_t* tcol;   // [max(lam, 1)]
   uint32_t* best;  // [Wm]
+  int16_t* inv;    // [n], K4 only: inv[perm[t]] = t
 };
 
 __device__ __forceinline__ WarpSample warp_sample(uint32_t* s_h, int warp, int n, int Wm,
-                                                  int lam) {
+                                                  int lam, bool inv = false) {
   const int Wp = pair_words(Wm);
   WarpSample ws;
-  ws.cols = s_h + (size_t)n * Wp + warp * warp_words(n, Wm, lam);
+  ws.cols = s_h + (size_t)n * Wp + warp * warp_words(n, Wm, lam, inv);
   ws.prow = reinterpret_cast<int16_t*>(ws.cols + (size_t)(n + 1) * Wp);
   ws.tcol = reinterpret_cast<int32_t*>(ws.cols + (size_t)(n + 1) * Wp + (n + 1) / 2);
   ws.best = reinterpret_cast<uint32_t*>(ws.tcol + (lam > 0 ? lam : 1));
+  ws.inv = reinterpret_cast<int16_t*>(ws.best + Wm);
   return ws;
 }
 
@@ -386,8 +421,97 @@ __global__ void osd_e_warp_kernel(const int32_t* __restrict__ h_cols,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: the elimination alone, with the JAX package's five outputs.
+
+// Lane j holds row j of a 32 x 32 bit tile (bit i = entry (j, i)); returns
+// column `lane` of it (bit j = entry (j, lane)).  Five butterfly steps: at
+// step s the lanes j and j ^ s swap the s x s blocks off the diagonal.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    // the bits i with (i & s) == 0: 0x0000ffff, 0x00ff00ff, ..., 0x55555555
+    const uint32_t lo = kFull / ((1ull << s) + 1);
+    const uint32_t y = __shfl_xor_sync(kFull, x, s);
+    x = (lane & s) ? (x & ~lo) | ((y & ~lo) >> s) : (x & lo) | ((y & lo) << s);
+  }
+  return x;
+}
+
+template <int kWm>
+__global__ void gf2_elim_warp_kernel(const int32_t* __restrict__ h_cols,
+                                     const int32_t* __restrict__ perm,
+                                     const uint8_t* __restrict__ synd,
+                                     const uint8_t* __restrict__ skip,
+                                     uint32_t* __restrict__ h_work, int32_t* __restrict__ s_work,
+                                     int32_t* __restrict__ pivot_ids,
+                                     int32_t* __restrict__ pivot_rows,
+                                     uint8_t* __restrict__ pivot_mask, int B, int m, int n,
+                                     int Wm, int rank) {
+  extern __shared__ uint32_t smem32[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int Wp = pair_words(Wm);
+  const int W = (n + 31) / 32;
+  load_h(smem32, h_cols, n, Wm);
+
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;
+  uint32_t* hw = h_work + (size_t)b * m * W;
+  int32_t* sw = s_work + (size_t)b * m;
+  int32_t* pid = pivot_ids + (size_t)b * rank;
+  int32_t* prw = pivot_rows + (size_t)b * rank;
+  uint8_t* pmk = pivot_mask + (size_t)b * n;
+  if (skip && skip[b]) {
+    for (size_t i = lane; i < (size_t)m * W; i += 32) hw[i] = 0u;
+    for (int i = lane; i < m; i += 32) sw[i] = 0;
+    for (int i = lane; i < rank; i += 32) pid[i] = prw[i] = 0;
+    for (int t = lane; t < n; t += 32) pmk[t] = 0;
+    return;
+  }
+  const WarpSample ws = warp_sample(smem32, warp, n, Wm, 0, true);
+  const int32_t* pm = perm + (size_t)b * n;
+  warp_eliminate<kWm>(smem32, ws, pm, synd + (size_t)b * m, m, n, Wm, rank, 0, lane);
+  const uint32_t* cols = ws.cols;
+
+  // ---- the pivots in the order found, the pivot mask, the inverse perm ----
+  int cnt = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int t = base + lane;
+    const int p = t < n ? ws.prow[t] : -1;
+    const unsigned mask = __ballot_sync(kFull, p >= 0);
+    const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
+    if (t < n) {
+      const int col = pm[t];
+      ws.inv[col] = (int16_t)t;
+      pmk[t] = p >= 0;
+      if (p >= 0 && pos < rank) {
+        pid[pos] = col;
+        prw[pos] = p;
+      }
+    }
+    cnt += __popc(mask);
+  }
+  for (int row = lane; row < m; row += 32) sw[row] = (int32_t)bit_at(cols + (size_t)n * Wp, row);
+  __syncwarp();
+
+  // ---- h_work: the 32 x 32 tiles of word w, transposed from columns to rows ----
+  for (int w = 0; w < W; ++w) {
+    const int oc = 32 * w + lane;  // original column; zero beyond n
+    const uint32_t* col = oc < n ? cols + (size_t)ws.inv[oc] * Wp : nullptr;
+    for (int rw = 0; rw < Wm; ++rw) {
+      const uint32_t x = transpose32(col ? col[rw] : 0u, lane);
+      const int row = 32 * rw + lane;
+      if (row < m) hw[(size_t)row * W + w] = x;
+    }
+  }
+}
+
 using WarpKernel = void (*)(const int32_t*, const int32_t*, const uint8_t*, const uint8_t*,
                             const int32_t*, uint8_t*, uint8_t*, int, int, int, int, int, int,
+                            int, int);
+using ElimKernel = void (*)(const int32_t*, const int32_t*, const uint8_t*, const uint8_t*,
+                            uint32_t*, int32_t*, int32_t*, int32_t*, uint8_t*, int, int, int,
                             int, int);
 
 // mode 0: K2 (osd_cs), mode 1: K3 (osd_e)
@@ -396,23 +520,37 @@ WarpKernel warp_kernel(int Wm, int mode) {
   return Wm <= 8 ? osd_cs_warp_kernel<8> : osd_cs_warp_kernel<32>;
 }
 
+ElimKernel elim_kernel(int Wm) {
+  return Wm <= 8 ? gf2_elim_warp_kernel<8> : gf2_elim_warp_kernel<32>;
+}
+
+// mode 2: K4's warp kernel
+const void* any_kernel(int Wm, int mode) {
+  return mode == 2 ? (const void*)elim_kernel(Wm) : (const void*)warp_kernel(Wm, mode);
+}
+
 }  // namespace
 
 // A block of `warps` samples: the column-packed H once, then each warp's
 // columns, pivot rows, T columns and best residual (K2 and K3 alike).
 extern "C" size_t osd_cs_warp_smem_bytes(int n, int Wm, int lam, int warps) {
-  return 4 * ((size_t)n * pair_words(Wm) + (size_t)warps * warp_words(n, Wm, lam));
+  return 4 * block_words(n, Wm, lam, 0, warps);
 }
 
-// The launch of K2 (mode 0) or K3 (mode 1) for B rows: out = {warps a
-// block, blocks an SM, grid, dynamic shared memory bytes, registers a
-// thread}.  Returns 0, or cudaErrorInvalidValue for a shape the kernels do
-// not take (Wm > 32, or one warp's block above the shared memory), or the
-// CUDA error of a query.
+// A block of K4's warp kernel: K2's layout at lam = 0 and the inverse perm.
+extern "C" size_t gf2_elim_warp_smem_bytes(int n, int Wm, int warps) {
+  return 4 * block_words(n, Wm, 0, 2, warps);
+}
+
+// The launch of K2 (mode 0), K3 (mode 1) or K4's warp kernel (mode 2, lam
+// ignored) for B rows: out = {warps a block, blocks an SM, grid, dynamic
+// shared memory bytes, registers a thread}.  Returns 0, or
+// cudaErrorInvalidValue for a shape the kernels do not take (Wm > 32, or
+// one warp's block above the shared memory), or the CUDA error of a query.
 extern "C" int osd_cs_plan(int B, int m, int n, int lam, int mode, int* out) {
   const int Wm = (m + 31) / 32;
-  if (Wm > 32 || n <= 0 || mode < 0 || mode > 1) return (int)cudaErrorInvalidValue;
-  WarpKernel kernel = warp_kernel(Wm, mode);
+  if (Wm > 32 || n <= 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  const void* kernel = any_kernel(Wm, mode);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
@@ -420,14 +558,14 @@ extern "C" int osd_cs_plan(int B, int m, int n, int lam, int mode, int* out) {
   cudaGetDevice(&dev);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const long long per_warp = 4 * (long long)warp_words(n, Wm, lam);
-  long long warps =
-      (kSmemLimit - 4LL * n * pair_words(Wm) - (long long)attr.sharedSizeBytes) / per_warp;
+  const long long h_bytes = 4 * (long long)block_words(n, Wm, lam, mode, 0);
+  const long long per_warp = 4 * (long long)block_words(n, Wm, lam, mode, 1) - h_bytes;
+  long long warps = (kSmemLimit - h_bytes - (long long)attr.sharedSizeBytes) / per_warp;
   if (warps > attr.maxThreadsPerBlock / 32) warps = attr.maxThreadsPerBlock / 32;
   const long long spread = ((long long)B + sms - 1) / sms;  // rows over every SM
   if (warps > spread) warps = spread;
   if (warps < 1) return (int)cudaErrorInvalidValue;
-  const int smem = (int)osd_cs_warp_smem_bytes(n, Wm, lam, (int)warps);
+  const int smem = (int)(4 * block_words(n, Wm, lam, mode, (int)warps));
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
@@ -479,4 +617,25 @@ extern "C" int osd_e_launch(const void* h_cols, const void* perm, const void* sy
                             int lam, void* stream) {
   if (lam < 1 || lam > 16) return (int)cudaErrorInvalidValue;
   return launch(1, h_cols, perm, synd, skip, nullptr, e0, ew, B, m, n, rank, lam, 0, 0, stream);
+}
+
+// K4's warp kernel: the elimination of B rows in the column orders `perm`
+// on `h_cols` as K2, the five outputs given at the chunk's first row
+// (h_work [B, m, ceil(n/32)] uint32, s_work [B, m] and pivot_ids /
+// pivot_rows [B, rank] int32, pivot_mask [B, n] bytes).  Launches on
+// `stream`; returns cudaGetLastError() of the launch, or the error of
+// osd_cs_plan.
+extern "C" int gf2_elim_warp_launch(const void* h_cols, const void* perm, const void* synd,
+                                    const void* skip, void* h_work, void* s_work,
+                                    void* pivot_ids, void* pivot_rows, void* pivot_mask, int B,
+                                    int m, int n, int rank, void* stream) {
+  int plan[5];
+  const int err = osd_cs_plan(B, m, n, 0, 2, plan);
+  if (err != 0) return err;
+  const int Wm = (m + 31) / 32;
+  elim_kernel(Wm)<<<plan[2], plan[0] * 32, plan[3], (cudaStream_t)stream>>>(
+      (const int32_t*)h_cols, (const int32_t*)perm, (const uint8_t*)synd, (const uint8_t*)skip,
+      (uint32_t*)h_work, (int32_t*)s_work, (int32_t*)pivot_ids, (int32_t*)pivot_rows,
+      (uint8_t*)pivot_mask, B, m, n, Wm, rank);
+  return (int)cudaGetLastError();
 }

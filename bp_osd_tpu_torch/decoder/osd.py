@@ -25,9 +25,10 @@ the same constant for every candidate and pick the same winner.
 
 :func:`osd_decode_plain` is the plain torch version of kernels K2 and K3
 (``csrc/osd_cs.cu``) and K5 (``csrc/osd_large.cu``); :func:`eliminate_plain`
-that of kernel K4 (``csrc/gf2_elim.cu``), with the JAX package's five
-elimination outputs, and :func:`osd_after_elimination` the torch steps that
-follow K4 (osd0 read-off, T-column extraction, exhaustive search).
+that of kernel K4 (``csrc/osd_cs.cu``'s warp kernel, ``csrc/gf2_elim.cu``
+for larger codes), with the JAX package's five elimination outputs, and
+:func:`osd_after_elimination` the torch steps that follow K4 (osd0
+read-off, T-column extraction, exhaustive search).
 ``osd_decode`` takes ``backend`` in ``{"auto", "cuda", "torch"}``; on the
 card :func:`osd_route` picks the kernel.  Skipped rows come back as zeros.
 """
@@ -216,7 +217,7 @@ def _eliminate(cols: torch.Tensor, r: int):
 def eliminate_plain(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor,
                     skip=None) -> Elimination:
     """Gauss-Jordan elimination of H in column order ``perm [B, n]``; the plain
-    torch version of kernel K4 (``csrc/gf2_elim.cu``) and the port of the
+    torch version of kernel K4 (``ops/cuda_gf2.py``) and the port of the
     JAX package's ``_eliminate``, whose five outputs it returns (zeros on
     skipped rows).  Runs the column-major :func:`_eliminate` and transposes
     the reduced matrix back to row-packed original column order."""
@@ -448,8 +449,8 @@ def osd_route(graph, method: str, osd_order: int) -> str:
     JAX package routes its Pallas backend (``bp_osd_tpu/decoder/osd.py:420-485``)
     with K2's shared-memory fit in the place of ``fused_osd_fits``:
     ``"k2"`` osd_cs, ``"k3"`` osd_e (``csrc/osd_cs.cu``), ``"k4"`` the
-    elimination (``csrc/gf2_elim.cu``) then torch, ``"k5"`` the large-code
-    osd_cs (``csrc/osd_large.cu``).  ``graph`` needs ``m n rank``."""
+    elimination (``ops/cuda_gf2.py:eliminate``) then torch, ``"k5"`` the
+    large-code osd_cs (``csrc/osd_large.cu``).  ``graph`` needs ``m n rank``."""
     from ..ops.cuda_osd import k2_fits, k3_fits
 
     method = normalize_osd_method(method)

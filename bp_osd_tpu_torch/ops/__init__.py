@@ -8,8 +8,9 @@ module, for CPU tensors:
 - :mod:`.cuda_bp` ``bp_flood``: K1, flooding BP (``csrc/bp_flood.cu``);
 - :mod:`.cuda_osd` ``osd_cs`` and ``osd_e``: K2 and K3, osd0/osd_cs and
   osd_e (``csrc/osd_cs.cu``);
-- :mod:`.cuda_gf2` ``eliminate``: K4, the GF(2) elimination
-  (``csrc/gf2_elim.cu``);
+- :mod:`.cuda_gf2` ``eliminate``: K4, the GF(2) elimination (a warp per
+  sample in ``csrc/osd_cs.cu``; a block per sample in ``csrc/gf2_elim.cu``
+  for codes above the warp layout);
 - :mod:`.cuda_osd_large` ``osd_large``: K5, osd0/osd_cs for codes above a
   block's shared memory (``csrc/osd_large.cu``).
 """

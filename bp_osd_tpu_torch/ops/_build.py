@@ -140,6 +140,10 @@ def load() -> ctypes.CDLL:
     lib.osd_cs_warp_smem_bytes.restype = SZ
     lib.osd_cs_plan.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
     lib.osd_cs_plan.restype = I
+    lib.gf2_elim_warp_launch.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+    lib.gf2_elim_warp_launch.restype = I
+    lib.gf2_elim_warp_smem_bytes.argtypes = [I, I, I]
+    lib.gf2_elim_warp_smem_bytes.restype = SZ
     lib.osd_large_launch.argtypes = [P, P, P, P, P, P, P, P,
                                      I, I, I, I, I, I, I, I, I, I, P]
     lib.osd_large_launch.restype = I

@@ -34,9 +34,15 @@ def osd_cs_warp_smem_bytes(m: int, n: int, lam: int, warps: int = 1) -> int:
     ``csrc/osd_cs.cu:osd_cs_warp_smem_bytes`` computes it.  A column takes
     ``Wm = ceil(m/32)`` words rounded up to even (it is XORed in 64-bit
     pairs)."""
+    return _block_bytes(m, n, lam, warps, inv=False)
+
+
+def _block_bytes(m: int, n: int, lam: int, warps: int, *, inv: bool) -> int:
+    """A warp kernel's block in ``csrc/osd_cs.cu:block_words``; ``inv`` adds
+    K4's inverse perm (n int16) to each warp's slice."""
     Wm = -(-m // 32)
     Wp = Wm + (Wm & 1)
-    per_warp = (n + 1) * Wp + (n + 1) // 2 + max(lam, 1) + Wm
+    per_warp = (n + 1) * Wp + (n + 1) // 2 + max(lam, 1) + Wm + ((n + 1) // 2 if inv else 0)
     per_warp += per_warp & 1  # even: the next warp's columns stay 8-byte aligned
     return 4 * (n * Wp + warps * per_warp)
 
@@ -67,8 +73,14 @@ def osd_cs_plan(graph: TannerGraph, B: int, osd_order: int, method: str = "osd_c
     if method not in ("osd_cs", "osd_e"):
         raise ValueError(f"osd_cs_plan: method {method!r} is neither osd_cs nor osd_e")
     lam = max(0, min(int(osd_order), graph.n - graph.rank))
+    return warp_plan(graph, B, lam, int(method == "osd_e"))
+
+
+def warp_plan(graph, B: int, lam: int, mode: int) -> dict:
+    """``csrc/osd_cs.cu:osd_cs_plan`` for ``mode`` 0 (K2), 1 (K3) or 2 (K4's
+    warp kernel), as :func:`osd_cs_plan` describes it."""
     plan = (ctypes.c_int * 5)()
-    err = _build.load().osd_cs_plan(int(B), graph.m, graph.n, lam, int(method == "osd_e"), plan)
+    err = _build.load().osd_cs_plan(int(B), graph.m, graph.n, lam, mode, plan)
     if err != 0:
         raise RuntimeError(f"osd_cs_plan failed: CUDA error {err}")
     out = dict(zip(("warps_per_block", "blocks_per_sm", "grid", "smem_bytes", "registers"),

@@ -47,11 +47,15 @@ Phases, one line each (any failed check exits non-zero):
    p = 0.028 where about a quarter of the rows fail BP; every osdw satisfies
    its syndrome, K5 is launched and K2 is not; the p = 0.028 batch is split
    into lifted BP, argsort, K5 and host glue;
-9. K4 (``gf2_elim.cu``): in shared and in device memory, all five outputs
-   equal ``eliminate_plain`` on the 512 corpus rows (skip rows zero); the
-   default decoder ``BpOsdDecoder(hx, error_rate=0.05)`` (osd_0, max_iter
-   400) on the 16384 fresh syndromes, timed: every osd0 satisfies its
-   syndrome, K4 is launched and K2 is not;
+9. K4: its warp kernel (``osd_cs.cu``, the flagship's placement) and its
+   block kernel (``gf2_elim.cu``) in shared and in device memory, all five
+   outputs equal ``eliminate_plain`` on the 512 corpus rows (skip rows
+   zero); the default decoder ``BpOsdDecoder(hx, error_rate=0.05)`` (osd_0,
+   max_iter 400) on the 16384 fresh syndromes, timed: every osd0 satisfies
+   its syndrome, K4's warp kernel is launched and K2 is not; on that
+   decode's OSD rows both K4 kernels bit-identical to the plain version and
+   timed beside the bound, the warp kernel's launch plan, and the decode's
+   wall split into staged BP, the OSD tail and host glue;
 10. K3 (mode "e" of ``osd_cs.cu``): equal to the plain osd_e on the corpus
    rows at orders 12 and 16; the aux corpus ``flagship_osd_e`` reproduced
    through ``BpOsdDecoder(..., osd_method="osd_e", osd_order=12,
@@ -60,9 +64,10 @@ Phases, one line each (any failed check exits non-zero):
    that decode's OSD rows at orders 12 and 16 and timed at both, each beside
    its bound, with its launch plan;
 11. the device-memory routes: osd_e order 8 on the lift-60 and lift-100
-   ``proto``/``lift`` decoders goes to K4 and the torch search (lift 60 in
-   shared memory, where K4 also runs forced to device memory; lift 100 above
-   K4's shared memory, in device memory), equal to ``osd_decode_plain`` on
+   ``proto``/``lift`` decoders goes to K4's block kernel (never its warp
+   kernel) and the torch search (lift 60 in shared memory, where K4 also
+   runs forced to device memory; lift 100 above K4's shared memory, in
+   device memory), equal to ``osd_decode_plain`` on
    the rows BP failed; the dense lift-400 ``BpDecoder`` (no ``proto``) runs
    K1 with its state in device memory, bit-identical to ``bp_decode_plain``
    on 64 rows at max_iter 100; the Python mirrors ``k1_fits``/``k4_fits``
@@ -501,7 +506,9 @@ def main() -> None:
     from bp_osd_tpu_torch.ops import _build, cuda_bp
     from bp_osd_tpu_torch.ops.cuda_bp import (bp_flood, bp_flood_plan, bp_flood_smem_bytes,
                                               bp_flood_table_bytes, bp_flood_team_bytes, k1_fits)
-    from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, gf2_elim_smem_bytes, k4_fits
+    from bp_osd_tpu_torch.decoder.pipeline import _staged_bp
+    from bp_osd_tpu_torch.ops.cuda_gf2 import (eliminate, gf2_elim_plan, gf2_elim_smem_bytes,
+                                               gf2_elim_warp_smem_bytes, k4_fits, k4_placement)
     from bp_osd_tpu_torch.ops.cuda_osd import (k2_fits, osd_cs, osd_cs_plan,
                                                osd_cs_warp_smem_bytes, osd_e)
     from bp_osd_tpu_torch.ops.cuda_osd_large import (osd_large, osd_large_panel, osd_large_plan,
@@ -892,9 +899,11 @@ def main() -> None:
     def reset_counts():
         for f in counters:
             f.launches = 0
+        eliminate.warp_launches = 0
 
-    def counts():
-        return {f.__name__: f.launches for f in counters}
+    def counts():  # eliminate: both K4 kernels; eliminate_warp: the warp kernel
+        return {**{f.__name__: f.launches for f in counters},
+                "eliminate_warp": eliminate.warp_launches}
 
     def max_err(xs, ys):
         return max(float((x.long() - y.long()).abs().max()) if x.numel() else 0.0
@@ -918,15 +927,16 @@ def main() -> None:
                 .to(torch.int32), batch[fail])
 
     # ---- phase 9: K4 vs plain; the default decoder (osd_0) on the card ----
+    check(k4_placement(graph) == "warp", "K4's auto placement is not the warp kernel")
     el_plain = eliminate_plain(graph, perm, synd)
-    for pl in ("shared", "global"):
+    el_plain_skip = eliminate_plain(graph, perm, synd, skip=skip)
+    for pl in ("warp", "shared", "global"):
         el = eliminate(graph, perm, synd, placement=pl)
         for name, a, b in zip(el._fields, el, el_plain):
-            check(same(a, b), f"K4 ({pl} memory) {name} differs from eliminate_plain")
-    k4_err = max_err(el, el_plain)
-    el_skip = eliminate(graph, perm, synd, skip=skip)
-    check(all(same(a[live], b[live]) and not bool(a[skip].any())
-              for a, b in zip(el_skip, el_plain)), "K4 skip rows")
+            check(same(a, b), f"K4 ({pl}) {name} differs from eliminate_plain")
+        el_skip = eliminate(graph, perm, synd, skip=skip, placement=pl)
+        check(all(same(a, b) and not bool(a[skip].any()) for a, b in zip(el_skip, el_plain_skip)),
+              f"K4 ({pl}) skip rows")
     dec0 = BpOsdDecoder(H, error_rate=0.05)
     check((dec0.osd_method, dec0.max_iter, dec0.bp_method) == ("osd0", n, "minimum_sum"),
           "BpOsdDecoder defaults moved")
@@ -934,35 +944,54 @@ def main() -> None:
     reset_counts()
     out0, walls0 = timed_decode(dec0, fresh)
     launches0 = counts()
-    check(launches0["eliminate"] > 0 and launches0["bp_flood"] > 0
-          and launches0["osd_cs"] == 0 and launches0["osd_e"] == 0,
+    check(launches0["eliminate_warp"] > 0
+          and launches0["eliminate"] == launches0["eliminate_warp"] and launches0["bp_flood"] > 0 and launches0["osd_cs"] == 0 and launches0["osd_e"] == 0,
           f"the default decoder's kernels: {launches0}")
     check(satisfies(dec0.osd0_decoding_batch, H_f, fresh) and satisfies(out0, H_f, fresh),
           "a default-decoder osd0 violates its syndrome")
     f_perm0, f_synd0 = failing_rows(dec0, fresh)
-    k4_ms = cuda_ms(lambda: eliminate(graph, f_perm0, f_synd0), 5)
     n4, W = f_perm0.shape[0], graph.num_words
+    want0 = eliminate_plain(graph, f_perm0, f_synd0)
+    for pl in ("warp", "shared"):  # the decode's OSD rows, bit for bit
+        got0 = eliminate(graph, f_perm0, f_synd0, placement=pl)
+        for name, a, b in zip(got0._fields, got0, want0):
+            check(same(a, b), f"K4 ({pl}) {name} differs from eliminate_plain on the default "
+                              f"decode's {n4} OSD rows")
+        if pl == "warp":
+            k4_err = max_err(got0, want0)
+    k4_ms = cuda_ms(lambda: eliminate(graph, f_perm0, f_synd0, placement="warp"), 5)
+    k4_block_ms = cuda_ms(lambda: eliminate(graph, f_perm0, f_synd0, placement="shared"), 5)
+    # K2 at order 0 runs the same warp elimination with no h_work to write
+    k2_0_ms = cuda_ms(lambda: osd_cs(graph, f_perm0, f_synd0, osd_order=0), 5)
+    k4_plan = gf2_elim_plan(graph, n4)
     k4_b = osd_bound(
         graph, f_perm0, f_synd0, search_ops_per_row=0,
-        in_bytes=n4 * (4 * n + m) + 4 * m * W,
+        in_bytes=n4 * (4 * n + m) + 4 * n * Wm,
         out_bytes=n4 * (4 * m * W + 4 * m + 8 * graph.rank + n))
     reset_counts()
     dec0.decode_batch(fresh, outputs="device")
-    k4_per_decode = counts()["eliminate"]
+    k4_per_decode = counts()["eliminate_warp"]
     k4_plain_ms = cuda_ms(lambda: eliminate_plain(graph, f_perm0, f_synd0), 3)
     f_llr0 = dec0.log_prob_ratios_batch[~dec0.converge_batch]
     tail0_ms = cuda_ms(lambda: osd_decode(graph, f_synd0, f_llr0, osd_method="osd0"), 5)
-    print(f"phase 9 K4 vs plain: {B} corpus rows, shared and device memory: the five "
-          f"outputs equal eliminate_plain, skip rows zero; default BpOsdDecoder(hx, "
-          f"error_rate=0.05) on {FRESH} fresh syndromes: all osd0 satisfied; "
-          f"{FRESH / float(np.median(walls0)):.1f} syndromes/s (median of walls "
+    l0_dec0 = dec0._llr0().expand(FRESH, n)
+    bp0_ms = cuda_ms(lambda: _staged_bp(graph, fresh, l0_dec0, dec0.bp_method, n,
+                                        dec0.ms_scaling_factor, "cuda"), 3)
+    wall0_ms = float(np.median(walls0)) * 1e3
+    print(f"phase 9 K4 vs plain: {B} corpus rows, the warp kernel and the block kernel in "
+          f"shared and device memory: the five outputs equal eliminate_plain, skip rows zero; "
+          f"default BpOsdDecoder(hx, error_rate=0.05) on {FRESH} fresh syndromes: all osd0 "
+          f"satisfied; {FRESH / float(np.median(walls0)):.1f} syndromes/s (median of walls "
           f"{[round(w, 4) for w in walls0]} s); converged fraction "
           f"{float(dec0.converge_batch.float().mean()):.4f}; launches {launches0}; "
-          f"K4 B={f_perm0.shape[0]}: {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, "
-          f"{bound_text(k4_b, k4_ms)}, "
-          f"{k4_per_decode} launch(es) per decode; the OSD "
-          f"tail (argsort + K4 + osd0 read-off) {tail0_ms:.3f} ms of the "
-          f"{float(np.median(walls0)) * 1e3:.3f} ms wall {tag}")
+          f"K4 B={n4} (the warp kernel and the block kernel both bit-identical to the plain "
+          f"version): warp {k4_ms:.3f} ms, block (shared memory) {k4_block_ms:.3f} ms, plain "
+          f"{k4_plain_ms:.3f} ms; warp {bound_text(k4_b, k4_ms)}; block "
+          f"{100 * k4_b[0].ms / k4_block_ms:.2f}% of the bound; K2 at order 0 on the same rows "
+          f"(the same elimination, no h_work) {k2_0_ms:.3f} ms; plan: {plan_line(k4_plan)}; "
+          f"{k4_per_decode} launch(es) per decode; split of the {wall0_ms:.3f} ms wall: staged "
+          f"BP {bp0_ms:.3f} + OSD tail (argsort + K4 + osd0 read-off) {tail0_ms:.3f} + host "
+          f"glue {wall0_ms - bp0_ms - tail0_ms:.3f} ms {tag}")
 
     # ---- phase 10: K3 vs plain; the osd_e decoder on the card ----
     for o in (12, 16):
@@ -1029,16 +1058,18 @@ def main() -> None:
                              ms_scaling_factor=0.625, osd_method="osd_e", osd_order=8,
                              proto=qL.hx_proto, lift=L)
         gL = dec_L.graph
-        check(osd_route(gL, "osd_e", 8) == "k4" and k4_fits(gL) == (L == 60),
-              f"lift {L} osd_e is not routed to K4 as expected")
+        check(osd_route(gL, "osd_e", 8) == "k4" and k4_fits(gL) == (L == 60)
+              and k4_placement(gL) == ("shared" if L == 60 else "global"),
+              f"lift {L} osd_e is not routed to K4's block kernel as expected")
         rng = np.random.default_rng(SEED + L)
         errL = torch.as_tensor((rng.random((32, gL.n)) < 0.05).astype(np.float32), device=dev)
         sL = torch.remainder(errL @ HL_f.T, 2).to(torch.uint8)
         reset_counts()
         outL = dec_L.decode_batch(sL, outputs="device")
         launchesL = counts()
-        check(launchesL["eliminate"] > 0 and launchesL["osd_e"] == 0
-              and launchesL["osd_large"] == 0, f"lift {L} osd_e kernels: {launchesL}")
+        check(launchesL["eliminate"] > 0 and launchesL["eliminate_warp"] == 0
+              and launchesL["osd_e"] == 0 and launchesL["osd_large"] == 0,
+              f"lift {L} osd_e kernels: {launchesL}")
         p_fL, s_fL = failing_rows(dec_L, sL)
         fail = ~dec_L.converge_batch
         ref0, refw = osd_decode_plain(gL, p_fL, s_fL, method="osd_e", osd_order=8)
@@ -1080,11 +1111,15 @@ def main() -> None:
             check(lib.gf2_elim_smem_bytes(mm, -(-nn // 32), g_)
                   == gf2_elim_smem_bytes(mm, nn, bool(g_)),
                   f"K4 shared-memory mirror differs from the library at m={mm} n={nn}")
+        for warps in (1, 19):
+            check(lib.gf2_elim_warp_smem_bytes(nn, -(-mm // 32), warps)
+                  == gf2_elim_warp_smem_bytes(mm, nn, warps),
+                  f"K4 warp shared-memory mirror differs from the library at m={mm} n={nn}")
     print(f"phase 11 device-memory routes: osd_e order 8: " + "; ".join(report)
           + f"; dense lift-{LIFT} BpDecoder (no proto): K1 state in device memory, 64 rows x "
           f"max_iter 100 bit-identical to bp_decode_plain ({int(pd[2].sum())} converged), "
-          f"K1 {k1g_ms:.3f} ms vs plain {k1g_plain_ms:.3f} ms; k1_fits/k4_fits mirrors == "
-          f"library {tag}")
+          f"K1 {k1g_ms:.3f} ms vs plain {k1g_plain_ms:.3f} ms; K1 and K4 (block and warp) "
+          f"shared-memory mirrors == library {tag}")
 
     phase12(dev, hgp(mkmn_16_4_6()), reset_counts, counts, tag)
     phase13(H, synd, dec, tag)
@@ -1111,8 +1146,13 @@ def main() -> None:
             k3_err, k3_ms, k3_plain_ms, k3_b, order16_ms=k3_16_ms, order16_bound_ms=k3_16_b[0].ms,
             design="a warp per sample, several a block sharing the column-packed H; "
                    "K2's elimination, then 2^lam / 32 Gray-code patterns a lane"),
-        row("gf2_elim", "gf2_elim.cu", "pallas_gf2.py:57", launches0["eliminate"],
-            k4_per_decode, k4_err, k4_ms, k4_plain_ms, k4_b),
+        row("gf2_elim", "osd_cs.cu", "pallas_gf2.py:57", launches0["eliminate_warp"],
+            k4_per_decode, k4_err, k4_ms, k4_plain_ms, k4_b, block_ms=k4_block_ms,
+            k2_order0_ms=k2_0_ms,
+            block_source="bp_osd_tpu_torch/csrc/gf2_elim.cu", plan=k4_plan,
+            design="a warp per sample, several a block sharing the column-packed H; K2's "
+                   "elimination, then h_work by 32 x 32 bit-tile shuffle transposes through "
+                   "an inverse perm; the block kernel (gf2_elim.cu) for codes above it"),
         row("osd_large", "osd_large.cu", "pallas_osd_large.py:62", launches_l["osd_large"],
             k5_per_decode, k5_err, k5_ms, k5_plain_ms, k5_b, lone_row_ms=k5_one_ms,
             lone_row_bound_ms=k5_one_b[0].ms, heavy_ms=k5_all_ms, heavy_rows=n_fail_h,

@@ -90,13 +90,15 @@ def test_eliminate_plain_equals_jax(code, with_skip):
 
 def test_eliminate_wrapper_takes_cpu_tensors_to_the_plain_version():
     """On CPU tensors the K4 wrapper returns ``eliminate_plain``'s five
-    outputs exactly, and an unknown placement raises."""
+    outputs exactly at every placement, and an unknown placement raises."""
     H = np.asarray(CODES["flagship"](), np.uint8)
     synd, perm = _inputs(H, 6, 3)
     g = TannerGraph(H)
     args = (g, torch.as_tensor(perm), torch.as_tensor(synd))
-    for a, b in zip(eliminate(*args, placement="global"), eliminate_plain(*args)):
-        assert torch.equal(a, b)
+    want = eliminate_plain(*args)
+    for placement in ("auto", "warp", "shared", "global"):
+        for a, b in zip(eliminate(*args, placement=placement), want):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError):
         eliminate(*args, placement="l2")
 

@@ -16,7 +16,8 @@ from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd
                                           osd_decode_plain)
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_plan, k1_fits
-from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, k4_fits
+from bp_osd_tpu_torch.ops.cuda_gf2 import (eliminate, gf2_elim_plan, k4_fits, k4_placement,
+                                           k4_warp_fits)
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_plan, osd_e
 from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
 
@@ -212,10 +213,11 @@ def test_osd_e_bit_identical(dev, code, order):
                osd_decode_plain(g, perm, synd, method="osd_e", osd_order=order, skip=sk))
 
 
-@pytest.mark.parametrize("code", ["surface", "flagship", "lift60", "lift100"])
+@pytest.mark.parametrize("code", ["surface", "flagship", "625", "weight1", "lift60", "lift100"])
 def test_eliminate_both_placements(dev, code, monkeypatch):
-    """K4 in shared and device memory against ``eliminate_plain`` in all five
-    outputs, skip rows included, and with the batch split over launches."""
+    """K4's warp kernel (where its layout fits) and its block kernel in shared
+    and device memory against ``eliminate_plain`` in all five outputs, skip
+    rows included, and with the batch split over launches."""
     import bp_osd_tpu_torch.ops.cuda_gf2 as k4
 
     H = (np.asarray(lifted_hgp(PROTO, lift=int(code[4:])).hx.toarray(), np.uint8)
@@ -224,22 +226,48 @@ def test_eliminate_both_placements(dev, code, monkeypatch):
     synd, perm = _osd_inputs(H, 20, 7, dev)
     skip = torch.zeros(20, dtype=torch.bool, device=dev)
     skip[1::4] = True
-    placements = ("shared", "global") if k4_fits(g) else ("global",)
+    placements = (("warp",) * k4_warp_fits(g) + ("shared",) * k4_fits(g) + ("global",))
     assert k4_fits(g) == (code != "lift100")
+    assert k4_warp_fits(g) == (not code.startswith("lift"))
+    assert k4_placement(g) == placements[0]
     for sk in (None, skip):
         want = eliminate_plain(g, perm, synd, skip=sk)
-        for pl in placements:
+        for pl in placements + ("auto",):
             _equal(eliminate(g, perm, synd, skip=sk, placement=pl), want)
     monkeypatch.setattr(k4, "_LAUNCH_BYTES", 6 * 4 * g.m * g.num_words)
-    before = eliminate.launches
-    _equal(eliminate(g, perm, synd, skip=skip, placement=placements[-1]),
-           eliminate_plain(g, perm, synd, skip=skip))
-    assert eliminate.launches == before + 4  # 20 rows, 6 per launch
+    for pl in {placements[0], placements[-1]}:
+        before, before_warp = eliminate.launches, eliminate.warp_launches
+        _equal(eliminate(g, perm, synd, skip=skip, placement=pl),
+               eliminate_plain(g, perm, synd, skip=skip))
+        assert eliminate.launches == before + 4  # 20 rows, 6 per launch
+        assert eliminate.warp_launches == before_warp + 4 * (pl == "warp")
+
+
+@pytest.mark.parametrize("B", [1, 33, 140, 1001])
+def test_eliminate_warp_batch_sizes(dev, B):
+    """K4's warp kernel on one row, on fewer rows than the card has SMs, on
+    two warps a block and on several warps a block with a ragged last block:
+    all five outputs equal ``eliminate_plain`` and the block kernel's, skip
+    rows zero."""
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    synd, perm = _osd_inputs(H, B, 80 + B, dev)
+    plan = gf2_elim_plan(g, B)
+    assert plan["grid"] * plan["warps_per_block"] >= B
+    assert plan["resident_per_sm"] >= plan["warps_per_block"] >= 1
+    if B == 1001:
+        assert plan["warps_per_block"] > 1 and B % plan["warps_per_block"]
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[2::3] = True
+    for sk in (None, skip):
+        want = eliminate_plain(g, perm, synd, skip=sk)
+        _equal(eliminate(g, perm, synd, skip=sk, placement="warp"), want)
+        _equal(eliminate(g, perm, synd, skip=sk, placement="shared"), want)
 
 
 def test_osd_decode_routes_to_k3_and_k4(dev):
-    """On the flagship, osd0 and order-0 decodes launch K4 and not K2, osd_e
-    launches K3, and both equal the plain OSD."""
+    """On the flagship, osd0 and order-0 decodes launch K4's warp kernel and
+    not K2, osd_e launches K3, and both equal the plain OSD."""
     H = np.asarray(CODES["flagship"](), np.uint8)
     g = TannerGraph(H, dev)
     synd, _ = _osd_inputs(H, 32, 11, dev)
@@ -249,8 +277,10 @@ def test_osd_decode_routes_to_k3_and_k4(dev):
     for method, order, counter in (("osd0", 0, eliminate), ("osd_cs", 0, eliminate),
                                    ("osd_e", 10, osd_e)):
         before, before_k2 = counter.launches, osd_cs.launches
+        before_warp = eliminate.warp_launches
         out = osd_decode(g, synd, llr, osd_method=method, osd_order=order, backend="cuda")
         assert counter.launches == before + 1 and osd_cs.launches == before_k2
+        assert eliminate.warp_launches == before_warp + (counter is eliminate)
         _equal(out, osd_decode_plain(g, perm, synd, method=method, osd_order=order))
 
 
