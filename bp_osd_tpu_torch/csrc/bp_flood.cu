@@ -670,33 +670,49 @@ extern "C" size_t bp_flood_scratch_words(int m, int n, int wr) {
 
 namespace {
 
-// Attributes of a team-kernel instance, read once; its dynamic shared memory
-// limit is raised to the block maximum on first use.
-cudaError_t team_attributes(int cpt, int product_sum, cudaFuncAttributes* attr) {
-  static cudaFuncAttributes cache[2][kMaxChecksPerThread + 1];
-  static bool have[2][kMaxChecksPerThread + 1];
+// Guards the per-card caches below (team_attributes, team_warps_of):
+// shards on several cards plan from several threads.  bp_flood_plan holds
+// it for the whole plan.
+std::mutex plan_mu;
+
+// Attributes of a team-kernel instance on card `dev`, read once a card; its
+// dynamic shared memory limit is raised to the block maximum on first use
+// there (the runtime keeps that limit per card).  The caller holds plan_mu
+// and has `dev` current.
+cudaError_t team_attributes(int dev, int cpt, int product_sum, cudaFuncAttributes* attr) {
+  struct Entry {
+    int dev, product_sum, key;
+    cudaFuncAttributes attr;
+  };
+  static std::vector<Entry> cache;
   const int key = cpt <= 1 ? 1 : cpt <= 2 ? 2 : cpt <= 4 ? 4 : 8;
-  if (!have[product_sum][key]) {
-    TeamKernel kernel = team_kernel(key, product_sum);
-    cudaError_t err = cudaFuncGetAttributes(&cache[product_sum][key], kernel);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (err != cudaSuccess) return err;
-    have[product_sum][key] = true;
+  for (const Entry& e : cache) {
+    if (e.dev == dev && e.product_sum == product_sum && e.key == key) {
+      *attr = e.attr;
+      return cudaSuccess;
+    }
   }
-  *attr = cache[product_sum][key];
+  TeamKernel kernel = team_kernel(key, product_sum);
+  Entry e{dev, product_sum, key, {}};
+  cudaError_t err = cudaFuncGetAttributes(&e.attr, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (err != cudaSuccess) return err;
+  cache.push_back(e);
+  *attr = e.attr;
   return cudaSuccess;
 }
 
 // Teams of `warps` warps: out = {team threads, teams a block, blocks an SM,
-// dynamic shared memory, registers}, with at most `cap` teams a block.
-cudaError_t team_shape(int warps, int m, int n, int wr, int wc, int product_sum, long long cap,
-                       int* out) {
+// dynamic shared memory, registers}, with at most `cap` teams a block, on
+// card `dev`.  The caller holds plan_mu.
+cudaError_t team_shape(int dev, int warps, int m, int n, int wr, int wc, int product_sum,
+                       long long cap, int* out) {
   const int T = 32 * warps;
   const int cpt = (m + T - 1) / T;
   if (T > 1024 || cpt > kMaxChecksPerThread) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t err = team_attributes(cpt, product_sum, &attr);
+  cudaError_t err = team_attributes(dev, cpt, product_sum, &attr);
   if (err != cudaSuccess) return err;
   const long long tables = (long long)bp_flood_table_bytes(m, n, wr, wc);
   const long long team = (long long)bp_flood_team_bytes(m, n, wr, product_sum);
@@ -725,16 +741,15 @@ cudaError_t team_shape(int warps, int m, int n, int wr, int wc, int product_sum,
 // barriers.  Among teams of 1 to 8 warps that keep a thread at <= 8 checks,
 // the one of most resident teams per path (the most sample-iterations an SM
 // runs at a time).  The batch size plays no part, so every batch runs the
-// kernel build that the checks of a small batch exercise.
+// kernel build that the checks of a small batch exercise.  Kept per card;
+// the caller holds plan_mu.
 cudaError_t team_warps_of(int dev, int m, int n, int wr, int wc, int product_sum, int* warps) {
   struct Choice {
     int key[6];
     int warps;
   };
-  static std::mutex mu;
   static std::vector<Choice> chosen;
   const int key[6] = {dev, m, n, wr, wc, product_sum};
-  std::lock_guard<std::mutex> lock(mu);
   for (const Choice& c : chosen) {
     if (std::equal(key, key + 6, c.key)) {
       *warps = c.warps;
@@ -748,7 +763,7 @@ cudaError_t team_warps_of(int dev, int m, int n, int wr, int wc, int product_sum
   double best_rate = -1.0;
   for (int w = lo; w <= hi; ++w) {
     int shape[5];
-    if (team_shape(w, m, n, wr, wc, product_sum, LLONG_MAX, shape) != cudaSuccess) continue;
+    if (team_shape(dev, w, m, n, wr, wc, product_sum, LLONG_MAX, shape) != cudaSuccess) continue;
     const int T = 32 * w;
     const long long path = (long long)((m + T - 1) / T) * wr + (long long)((n + T - 1) / T) * wc;
     const double rate = (double)shape[1] * shape[2] / (double)path;
@@ -772,13 +787,16 @@ cudaError_t team_warps_of(int dev, int m, int n, int wr, int wc, int product_sum
 // batch gets fewer teams a block (about B / SMs), so its rows spread over
 // the SMs.  Returns 0, or cudaErrorInvalidValue for a graph the team kernel
 // does not take (row weight above 27, more than 1024 threads a team, or a
-// team that does not fit a block), or the CUDA error of a query.
+// team that does not fit a block), or the CUDA error of a query.  Plans for
+// the current card.
 extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_sum,
                              int team_warps, int* out) {
   if (wr > kMaxRowWeight || m <= 0 || n <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(plan_mu);
   int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const long long need = ((long long)B + sms - 1) / sms;  // rows an SM when spread evenly
   if (team_warps <= 0) {
@@ -786,7 +804,7 @@ extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_su
     if (err != cudaSuccess) return (int)err;
   }
   int shape[5];
-  err = team_shape(team_warps, m, n, wr, wc, product_sum, need, shape);
+  err = team_shape(dev, team_warps, m, n, wr, wc, product_sum, need, shape);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = ((long long)B + shape[1] - 1) / shape[1];
   const long long resident = (long long)sms * shape[2];

@@ -2,8 +2,8 @@
 
 Each kernel lives in ``bp_osd_tpu_torch/csrc/`` and is built by
 :mod:`bp_osd_tpu_torch.ops._build` on first use.  Its wrapper launches it for
-CUDA tensors and uses the plain torch version, in the matching ``decoder``
-module, for CPU tensors:
+CUDA tensors, with their card made current for the launch, and uses the
+plain torch version, in the matching ``decoder`` module, for CPU tensors:
 
 - :mod:`.cuda_bp` ``bp_flood``: K1, flooding BP (``csrc/bp_flood.cu``);
 - :mod:`.cuda_osd` ``osd_cs`` and ``osd_e``: K2 and K3, osd0/osd_cs and
@@ -13,13 +13,23 @@ module, for CPU tensors:
   for codes above the warp layout);
 - :mod:`.cuda_osd_large` ``osd_large``: K5, osd0/osd_cs for codes above a
   block's shared memory (``csrc/osd_large.cu``).
+
+Each wrapper counts its launches in ``<wrapper>.launches`` and, by card
+index, in ``<wrapper>.launches_on`` (:func:`count_launch`).
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+
 import torch
 
-__all__ = ["BACKENDS", "resolve_backend"]
+__all__ = ["BACKENDS", "count_launch", "launch_counter", "resolve_backend"]
+
+# one lock for every wrapper's counts: shards on several cards launch from
+# several threads, and ``+= 1`` on an attribute is not atomic
+_COUNT_LOCK = threading.Lock()
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -46,3 +56,23 @@ def resolve_backend(backend: str, device) -> str:
             "tensors (call the plain *_plain function to run it on the card)"
         )
     return "cuda" if on_card else "torch"
+
+
+def launch_counter(wrapper):
+    """Give ``wrapper`` its launch counts at 0: ``launches`` and
+    ``launches_on``, a :class:`collections.Counter` by card index."""
+    wrapper.launches = 0
+    wrapper.launches_on = collections.Counter()
+    return wrapper
+
+
+def count_launch(wrapper, device: torch.device, *also: str) -> None:
+    """Add one launch on ``device`` to ``wrapper.launches``, to
+    ``wrapper.launches_on[device.index]`` and to each attribute named in
+    ``also``, under one lock, so the counts stay exact when shards launch
+    from several threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.launches_on[device.index] += 1
+        for name in also:
+            setattr(wrapper, name, getattr(wrapper, name) + 1)

@@ -19,12 +19,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 __all__ = ["KernelBuildError", "NVCC_FLAGS", "build", "find_nvcc", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# shards on several cards may ask for the library at once, and one process
+# compiles into one work directory
+_BUILD_LOCK = threading.Lock()
 
 # --fmad=false: no multiply-add contraction, so float results round exactly
 # as the plain torch versions' separate multiplies and adds do
@@ -66,6 +70,11 @@ def build() -> tuple[str, str]:
     shared library, compiler output)``; the output is empty when the cached
     library was reused.
     """
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> tuple[str, str]:
     nvcc = find_nvcc()
     sources = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())

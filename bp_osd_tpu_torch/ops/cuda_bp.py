@@ -7,8 +7,9 @@ per-sample state fits a block's shared memory (:func:`k1_fits`) runs in the
 team kernel: persistent blocks that hold the tables once and decode one
 sample per team of warps, rows handed out by a counter; a larger one keeps
 each sample's state in a device-memory scratch slice, one block per sample,
-launched in row chunks of at most ``_SCRATCH_BYTES``.  ``bp_flood.launches``
-counts kernel launches.
+launched in row chunks of at most ``_SCRATCH_BYTES``.  The plan queries and
+launches run with the tensors' card current.  ``bp_flood.launches`` counts
+kernel launches (``bp_flood.launches_on`` by card).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..decoder.bp import bp_decode_plain
 from ..decoder.tanner import TannerGraph
-from . import _build
+from . import _build, count_launch, launch_counter
 
 __all__ = ["bp_flood", "bp_flood_plan", "bp_flood_smem_bytes", "bp_flood_table_bytes",
            "bp_flood_team_bytes", "k1_fits", "team_shape"]
@@ -157,36 +158,38 @@ def bp_flood(
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     v2c = torch.empty(B, E, dtype=torch.float32, device=dev) if emit_state else None
     if B:
-        if k1_fits(graph, method == "product_sum"):
-            rows, scratch = B, None
-            counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        else:
-            per_row = lib.bp_flood_scratch_words(m, n, wr)
-            rows = max(1, min(B, _SCRATCH_BYTES // (4 * per_row)))
-            scratch = torch.empty(rows * per_row, dtype=torch.int32, device=dev)
-            counter = None
-        chk_var = graph.chk_var.contiguous()
-        var_edge = graph.var_edge.contiguous()
-        alpha = float(ms_scaling_factor) if method == "minimum_sum" else 1.0
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the plan reads the current card, and the launch runs in its context
+        with torch.cuda.device(dev):
+            if k1_fits(graph, method == "product_sum"):
+                rows, scratch = B, None
+                counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            else:
+                per_row = lib.bp_flood_scratch_words(m, n, wr)
+                rows = max(1, min(B, _SCRATCH_BYTES // (4 * per_row)))
+                scratch = torch.empty(rows * per_row, dtype=torch.int32, device=dev)
+                counter = None
+            chk_var = graph.chk_var.contiguous()
+            var_edge = graph.var_edge.contiguous()
+            alpha = float(ms_scaling_factor) if method == "minimum_sum" else 1.0
+            stream = torch.cuda.current_stream(dev).cuda_stream
 
-        def ptr(t, row0):  # the chunk's rows of a [B, ...] tensor, or None
-            return None if t is None else t[row0:].data_ptr()
+            def ptr(t, row0):  # the chunk's rows of a [B, ...] tensor, or None
+                return None if t is None else t[row0:].data_ptr()
 
-        for row0 in range(0, B, rows):
-            err = lib.bp_flood_launch(
-                ptr(synd, row0), llr0[row0:].data_ptr() if stride else llr0.data_ptr(),
-                stride, ptr(skip, row0), ptr(v2c_init, row0),
-                chk_var.data_ptr(), var_edge.data_ptr(), graph.chk_deg.data_ptr(),
-                ptr(hard, row0), ptr(llr, row0), ptr(conv, row0), ptr(iters, row0),
-                ptr(v2c, row0), ptr(scratch, 0), ptr(counter, 0),
-                min(rows, B - row0), m, n, wr, wc, int(max_iter), int(it0),
-                int(method == "product_sum"), alpha, int(_TEAM_WARPS), stream,
-            )
-            if err != 0:
-                raise RuntimeError(f"bp_flood launch failed: CUDA error {err}")
-            bp_flood.launches += 1
+            for row0 in range(0, B, rows):
+                err = lib.bp_flood_launch(
+                    ptr(synd, row0), llr0[row0:].data_ptr() if stride else llr0.data_ptr(),
+                    stride, ptr(skip, row0), ptr(v2c_init, row0),
+                    chk_var.data_ptr(), var_edge.data_ptr(), graph.chk_deg.data_ptr(),
+                    ptr(hard, row0), ptr(llr, row0), ptr(conv, row0), ptr(iters, row0),
+                    ptr(v2c, row0), ptr(scratch, 0), ptr(counter, 0),
+                    min(rows, B - row0), m, n, wr, wc, int(max_iter), int(it0),
+                    int(method == "product_sum"), alpha, int(_TEAM_WARPS), stream,
+                )
+                if err != 0:
+                    raise RuntimeError(f"bp_flood launch failed: CUDA error {err}")
+                count_launch(bp_flood, dev)
     return hard, llr, conv.to(torch.bool), iters, v2c
 
 
-bp_flood.launches = 0
+launch_counter(bp_flood)

@@ -13,9 +13,10 @@ picked by :func:`k4_placement`:
   row-packed matrix in shared memory when :func:`k4_fits`, else in place in
   its sample's slice of the ``h_work`` output.
 
-Rows are launched in chunks of at most ``_LAUNCH_BYTES`` of ``h_work``.
-``eliminate.launches`` counts the launches of both kernels,
-``eliminate.warp_launches`` those of the warp kernel.
+Rows are launched in chunks of at most ``_LAUNCH_BYTES`` of ``h_work``, with
+the tensors' card current.  ``eliminate.launches`` counts the launches of
+both kernels (``eliminate.launches_on`` by card), ``eliminate.warp_launches``
+those of the warp kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from ..decoder.osd import Elimination, eliminate_plain
 from ..decoder.tanner import TannerGraph
-from . import _build
+from . import _build, count_launch, launch_counter
 from .cuda_bp import _SMEM_LIMIT
 from .cuda_osd import _MAX_WORDS, _block_bytes, _check_inputs, warp_plan
 
@@ -120,24 +121,26 @@ def eliminate(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
         torch.empty(B, n, dtype=torch.bool, device=dev),
     )
     if B:
-        rows = max(1, min(B, _LAUNCH_BYTES // (4 * m * W)))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for row0 in range(0, B, rows):
-            ptrs = (h.data_ptr(), perm[row0:].data_ptr(), synd[row0:].data_ptr(),
-                    skip[row0:].data_ptr() if skip is not None else None,
-                    *(x[row0:].data_ptr() for x in out))
-            nb = min(rows, B - row0)
-            if place == "warp":
-                err = lib.gf2_elim_warp_launch(*ptrs, nb, m, n, r, stream)
-            else:
-                err = lib.gf2_elim_launch(*ptrs, nb, m, n, W, r, int(place == "global"), stream)
-            if err != 0:
-                raise RuntimeError(f"gf2_elim ({place}) launch failed: CUDA error {err}")
-            eliminate.launches += 1
-            if place == "warp":
-                eliminate.warp_launches += 1
+        with torch.cuda.device(dev):  # the plan and the launch use the current card
+            rows = max(1, min(B, _LAUNCH_BYTES // (4 * m * W)))
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for row0 in range(0, B, rows):
+                ptrs = (h.data_ptr(), perm[row0:].data_ptr(), synd[row0:].data_ptr(),
+                        skip[row0:].data_ptr() if skip is not None else None,
+                        *(x[row0:].data_ptr() for x in out))
+                nb = min(rows, B - row0)
+                if place == "warp":
+                    err = lib.gf2_elim_warp_launch(*ptrs, nb, m, n, r, stream)
+                else:
+                    err = lib.gf2_elim_launch(*ptrs, nb, m, n, W, r, int(place == "global"), stream)
+                if err != 0:
+                    raise RuntimeError(f"gf2_elim ({place}) launch failed: CUDA error {err}")
+                if place == "warp":
+                    count_launch(eliminate, dev, "warp_launches")
+                else:
+                    count_launch(eliminate, dev)
     return out
 
 
-eliminate.launches = 0
+launch_counter(eliminate)
 eliminate.warp_launches = 0

@@ -6,20 +6,20 @@ Replace ``bp_osd_tpu/ops/pallas_osd.py:osd_cs_pallas`` and ``osd_e_pallas``
 and their pre-pass ``_permuted_packed_h`` (the kernels build the permuted
 matrix themselves from ``perm`` and ``H_cols``).  CUDA tensors go to the
 kernel; CPU tensors to the plain torch version,
-:func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain`.  ``osd_cs.launches``
-and ``osd_e.launches`` count kernel launches.
+:func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain`.  A launch runs with
+its tensors' card current.  ``osd_cs.launches`` and ``osd_e.launches``
+count kernel launches (``launches_on`` by card).
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..decoder.osd import osd_decode_plain
 from ..decoder.tanner import TannerGraph
-from . import _build
+from . import _build, count_launch, launch_counter
 from .cuda_bp import _SMEM_LIMIT, _check
 
 __all__ = ["k2_fits", "k3_fits", "osd_cs", "osd_cs_plan", "osd_cs_warp_smem_bytes", "osd_e"]
@@ -89,6 +89,17 @@ def warp_plan(graph, B: int, lam: int, mode: int) -> dict:
     return out
 
 
+def pairs_on(pairs, n_pairs: int, dev: torch.device) -> torch.Tensor | None:
+    """``pairs [n_pairs, 2]`` (numpy, or a tensor already on ``dev``, which is
+    not copied) as flat int32 on ``dev``; None when ``n_pairs`` is 0."""
+    if not n_pairs:
+        return None
+    t = torch.as_tensor(pairs, dtype=torch.int32, device=dev)
+    if tuple(t.shape) != (n_pairs, 2):
+        raise ValueError(f"pairs: expected ({n_pairs}, 2), got {tuple(t.shape)}")
+    return t.reshape(-1).contiguous()
+
+
 def _check_inputs(perm, synd, skip, B, m, n, dev):
     _check(perm, "perm", torch.int32, (B, n), dev)
     _check(synd, "synd", torch.uint8, (B, m), dev)
@@ -118,33 +129,28 @@ def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
                          f"the card decodes it with K5")
     skip = _check_inputs(perm, synd, skip, B, m, n, dev)
     n_pairs = lam * (lam - 1) // 2
-    if n_pairs:
-        pairs = np.asarray(pairs, np.int32)
-        if pairs.shape != (n_pairs, 2):
-            raise ValueError(f"pairs: expected ({n_pairs}, 2), got {pairs.shape}")
-        pairs_t = torch.from_numpy(pairs.reshape(-1)).to(dev)
-    else:
-        pairs_t = None
+    pairs_t = pairs_on(pairs, n_pairs, dev)
 
     lib = _build.load()
     e0 = torch.empty(B, n, dtype=torch.uint8, device=dev)
     ew = torch.empty(B, n, dtype=torch.uint8, device=dev)
     if B:
-        err = lib.osd_cs_launch(
-            graph.H_cols.contiguous().data_ptr(), perm.data_ptr(), synd.data_ptr(),
-            skip.data_ptr() if skip is not None else None,
-            pairs_t.data_ptr() if pairs_t is not None else None,
-            e0.data_ptr(), ew.data_ptr(),
-            B, m, n, r, lam, n_pairs, int(lam > 0),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"osd_cs launch failed: CUDA error {err}")
-        osd_cs.launches += 1
+        with torch.cuda.device(dev):  # the plan and the launch use the current card
+            err = lib.osd_cs_launch(
+                graph.H_cols.contiguous().data_ptr(), perm.data_ptr(), synd.data_ptr(),
+                skip.data_ptr() if skip is not None else None,
+                pairs_t.data_ptr() if pairs_t is not None else None,
+                e0.data_ptr(), ew.data_ptr(),
+                B, m, n, r, lam, n_pairs, int(lam > 0),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"osd_cs launch failed: CUDA error {err}")
+            count_launch(osd_cs, dev)
     return e0, ew
 
 
-osd_cs.launches = 0
+launch_counter(osd_cs)
 
 
 def osd_e(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
@@ -170,15 +176,16 @@ def osd_e(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     e0 = torch.empty(B, n, dtype=torch.uint8, device=dev)
     ew = torch.empty(B, n, dtype=torch.uint8, device=dev)
     if B:
-        err = lib.osd_e_launch(
-            graph.H_cols.contiguous().data_ptr(), perm.data_ptr(), synd.data_ptr(),
-            skip.data_ptr() if skip is not None else None, e0.data_ptr(), ew.data_ptr(),
-            B, m, n, r, lam, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"osd_e launch failed: CUDA error {err}")
-        osd_e.launches += 1
+        with torch.cuda.device(dev):  # the plan and the launch use the current card
+            err = lib.osd_e_launch(
+                graph.H_cols.contiguous().data_ptr(), perm.data_ptr(), synd.data_ptr(),
+                skip.data_ptr() if skip is not None else None, e0.data_ptr(), ew.data_ptr(),
+                B, m, n, r, lam, torch.cuda.current_stream(dev).cuda_stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"osd_e launch failed: CUDA error {err}")
+            count_launch(osd_e, dev)
     return e0, ew
 
 
-osd_e.launches = 0
+launch_counter(osd_e)

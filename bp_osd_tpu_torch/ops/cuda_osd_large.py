@@ -8,20 +8,22 @@ Each sample's ``(n + 1) x ceil(m/32)`` matrix lives in a scratch buffer that
 this wrapper allocates, word-major (word ``w`` of every column contiguous);
 the kernel works on a window of two panels of :func:`osd_large_panel`
 columns in shared memory.  Rows are launched in chunks so the scratch stays
-within ``_SCRATCH_BYTES``.  ``osd_large.launches`` counts kernel launches.
+within ``_SCRATCH_BYTES``, with the tensors' card current.
+``osd_large.launches`` counts kernel launches (``osd_large.launches_on`` by
+card).
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..decoder.osd import osd_decode_plain
 from ..decoder.tanner import TannerGraph
-from . import _build
+from . import _build, count_launch, launch_counter
 from .cuda_bp import _SMEM_LIMIT, _check
+from .cuda_osd import pairs_on
 
 __all__ = ["osd_large", "osd_large_panel", "osd_large_plan", "osd_large_smem_bytes"]
 
@@ -94,12 +96,7 @@ def osd_large(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
         skip = skip.to(torch.uint8)
         _check(skip, "skip", torch.uint8, (B,), dev)
     n_pairs = lam * (lam - 1) // 2
-    pairs_t = None
-    if n_pairs:
-        pairs = np.asarray(pairs, np.int32)
-        if pairs.shape != (n_pairs, 2):
-            raise ValueError(f"pairs: expected ({n_pairs}, 2), got {pairs.shape}")
-        pairs_t = torch.from_numpy(pairs.reshape(-1)).to(dev)
+    pairs_t = pairs_on(pairs, n_pairs, dev)
     per_row = _row_words(m, n)
     if per_row >= 2**31 or max(m, n) > _MAX_INDEX:
         raise ValueError(f"a {m} x {n} matrix is beyond the kernel's indexing "
@@ -113,23 +110,24 @@ def osd_large(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     e0 = torch.empty(B, n, dtype=torch.uint8, device=dev)
     ew = torch.empty(B, n, dtype=torch.uint8, device=dev)
     if B:
-        rows = max(1, min(B, _SCRATCH_BYTES // (4 * per_row)))
-        scratch = torch.empty(rows * per_row, dtype=torch.int32, device=dev)
-        h_cols = graph.H_cols.contiguous()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for row0 in range(0, B, rows):
-            err = lib.osd_large_launch(
-                h_cols.data_ptr(), perm.data_ptr(), synd.data_ptr(),
-                skip.data_ptr() if skip is not None else None,
-                pairs_t.data_ptr() if pairs_t is not None else None,
-                scratch.data_ptr(), e0.data_ptr(), ew.data_ptr(),
-                row0, min(rows, B - row0), m, n, Wm, r, lam, n_pairs, int(lam > 0),
-                panel, stream,
-            )
-            if err != 0:
-                raise RuntimeError(f"osd_large launch failed: CUDA error {err}")
-            osd_large.launches += 1
+        with torch.cuda.device(dev):  # the plan and the launch use the current card
+            rows = max(1, min(B, _SCRATCH_BYTES // (4 * per_row)))
+            scratch = torch.empty(rows * per_row, dtype=torch.int32, device=dev)
+            h_cols = graph.H_cols.contiguous()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for row0 in range(0, B, rows):
+                err = lib.osd_large_launch(
+                    h_cols.data_ptr(), perm.data_ptr(), synd.data_ptr(),
+                    skip.data_ptr() if skip is not None else None,
+                    pairs_t.data_ptr() if pairs_t is not None else None,
+                    scratch.data_ptr(), e0.data_ptr(), ew.data_ptr(),
+                    row0, min(rows, B - row0), m, n, Wm, r, lam, n_pairs, int(lam > 0),
+                    panel, stream,
+                )
+                if err != 0:
+                    raise RuntimeError(f"osd_large launch failed: CUDA error {err}")
+                count_launch(osd_large, dev)
     return e0, ew
 
 
-osd_large.launches = 0
+launch_counter(osd_large)

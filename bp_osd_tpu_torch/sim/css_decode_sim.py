@@ -12,8 +12,27 @@ harness's per-sample outcomes.
 ``backend`` takes ``auto|cuda|torch`` as :func:`~bp_osd_tpu_torch.ops.resolve_backend`
 reads them: ``auto`` runs on the card when ``torch.cuda.is_available()``
 (every decode through the CUDA kernels), else on the CPU (their plain torch
-versions).  ``use_mesh=1`` (the batch sharded over several devices) belongs
-to the parallel layer, which is not ported yet.
+versions).
+
+``use_mesh=1`` shards each batch over a device mesh
+(:mod:`bp_osd_tpu_torch.parallel`): ``mesh``, else all the cards
+(``make_mesh()``) in one process, else the process's own device.  The batch
+size is rounded up to a multiple of the shard count, and the uniforms are
+those the ``use_mesh=0`` run draws, so every per-sample outcome and every
+counter equals the unsharded run's.  With several processes
+(:func:`bp_osd_tpu_torch.parallel.initialize`) each rank runs on its own
+card (:func:`~bp_osd_tpu_torch.parallel.distributed.local_card`, unless
+``mesh`` says otherwise), draws the whole batch from the same seed, decodes
+its ``host_batch_slice``, and the batch's counts are reduced over all ranks,
+so every rank holds the same totals; the last batch is not trimmed
+(``run_count`` may overshoot ``target_runs`` by less than ``batch_size``),
+and only rank 0 writes ``output_file``.
+
+``use_mesh=-1`` means 1 with more than one process, else 0.  The JAX
+harness also takes the mesh for one process with several devices; here the
+shards of one process share its interpreter and each pays the pipeline's
+host time, so such a mesh decodes the harness's batches slower than one
+card.
 """
 
 from __future__ import annotations
@@ -33,6 +52,10 @@ from ..decoder.osd import build_osd_consts, normalize_osd_method
 from ..decoder.pipeline import BpOsdBatch, decode_pipeline
 from ..decoder.tanner import TannerGraph, canonical_device
 from ..ops import BACKENDS, resolve_backend
+from ..parallel import Mesh, make_mesh, shard_batch_fn
+from ..parallel.distributed import (host_batch_slice, local_card, process_count,
+                                    process_index, reduce_batch_counts)
+from ..parallel.shard_pallas import replicate
 
 try:
     from tqdm import tqdm
@@ -61,7 +84,8 @@ _DEFAULT_INPUT = {
     "hadamard_rotate_sector1_length": 0,
     "error_bar_precision_cutoff": 1e-3,
     "batch_size": 0,  # 0 -> min(target_runs, 16384) on the card, 1024 on the CPU
-    "use_mesh": -1,  # -1 -> 0; 1 (sharding over devices) is not ported yet
+    "use_mesh": -1,  # -1 -> 1 with more than one process, else 0
+    "mesh": None,  # use_mesh's devices: None -> every card (one process), else this rank's
     "backend": "auto",  # auto | cuda | torch
 }
 
@@ -88,13 +112,14 @@ _OUTPUT_VALUES = {
     "min_logical_weight": 1e9,
 }
 
-# attributes never serialized (matrices, channel vectors)
+# attributes never serialized (matrices, channel vectors, the mesh)
 _NON_OUTPUT = {
     "channel_probs_x",
     "channel_probs_z",
     "channel_probs_y",
     "hx",
     "hz",
+    "mesh",
 }
 
 # per-sample outcomes summed into the counters, in the order of _COUNTERS
@@ -122,6 +147,106 @@ def _bayes_llrs(p_first, p_other, p_y):
     p_hit = torch.where(denom_hit > 0, p_y / torch.clamp(denom_hit, min=1e-30), 0.0)
     p_miss = p_other / torch.clamp(1.0 - p_first - p_y, min=1e-30)
     return llr_from_channel(p_hit), llr_from_channel(p_miss)
+
+
+class _OnDevice:
+    """The harness's code, channel and per-side decoders on one device, and
+    what it does with a batch of uniforms there.  :meth:`to` copies it to
+    another device (a mesh shard's)."""
+
+    def __init__(self, *, codes, bands, sides, decode_kw, chunk, channel_update):
+        self._codes = codes  # dense f32 (hx, hz, lx, lz)
+        self._bands = bands
+        self._sides = sides
+        self._decode_kw = decode_kw
+        self._chunk = chunk
+        self.channel_update = channel_update
+        self.device = bands[0].device
+
+    def to(self, device) -> "_OnDevice":
+        device = canonical_device(device)
+        if device == self.device:
+            return self
+        codes, bands, sides = replicate((self._codes, self._bands, self._sides), device)
+        return _OnDevice(codes=codes, bands=bands, sides=sides, decode_kw=self._decode_kw,
+                         chunk=self._chunk, channel_update=self.channel_update)
+
+    def sample(self, rand: torch.Tensor):
+        """Errors and syndromes of uniforms ``rand [B, N]``: ``(error_x,
+        error_z, synd_x, synd_z)``, X errors checked by hz, Z errors by hx."""
+        z_hi, x_hi, y_hi = self._bands
+        band_z = rand < z_hi
+        band_x = (rand >= z_hi) & (rand < x_hi)
+        band_y = (rand >= x_hi) & (rand < y_hi)
+        error_z = (band_z | band_y).to(torch.uint8)
+        error_x = (band_x | band_y).to(torch.uint8)
+        hx, hz = self._codes[:2]
+        return error_x, error_z, _mod2mul(error_x, hz), _mod2mul(error_z, hx)
+
+    def decode_side(self, side: str, synd: torch.Tensor,
+                    first_osdw: torch.Tensor | None = None) -> BpOsdBatch:
+        """BP+OSD of one side's syndromes, in chunks of the decoder's size.
+
+        ``first_osdw``, the osdw of the side decoded first, selects each
+        qubit's Bayes-updated prior.
+        """
+        graph, consts, llr0, bayes = self._sides[side]
+        if first_osdw is not None:
+            hit, miss = bayes
+            llr0 = torch.where(first_osdw == 1, hit, miss)
+        c = self._chunk
+        outs = [decode_pipeline(graph, synd[lo:lo + c],
+                                llr0 if llr0.dim() == 1 else llr0[lo:lo + c],
+                                consts=consts, **self._decode_kw)
+                for lo in range(0, synd.shape[0], c)]
+        if len(outs) == 1:
+            return outs[0]
+        return BpOsdBatch(*(torch.cat(xs) for xs in zip(*outs)))
+
+    def decode(self, synd_x: torch.Tensor, synd_z: torch.Tensor):
+        """Both sides in the order ``channel_update`` gives; ``(out_x, out_z)``."""
+        if self.channel_update == "x->z":
+            out_x = self.decode_side("x", synd_x)
+            return out_x, self.decode_side("z", synd_z, out_x.osdw)
+        out_z = self.decode_side("z", synd_z)
+        first = out_z.osdw if self.channel_update == "z->x" else None
+        return self.decode_side("x", synd_x, first), out_z
+
+    def outcomes(self, error_x, error_z, out_x: BpOsdBatch, out_z: BpOsdBatch) -> dict:
+        """Per-sample outcomes of one decoded batch."""
+        lx, lz = self._codes[2:]
+
+        def logical(corr_x, corr_z):
+            """(success, weight of the failing component) per sample: a
+            logical X error is checked first; 10^9 where none failed."""
+            res_x = error_x ^ corr_x
+            res_z = error_z ^ corr_z
+            log_x = (_mod2mul(res_x, lz) == 1).any(1)
+            log_z = (_mod2mul(res_z, lx) == 1).any(1)
+            weight = torch.where(log_x, res_x.sum(1, dtype=torch.int64),
+                                 torch.where(log_z, res_z.sum(1, dtype=torch.int64), 10**9))
+            return ~(log_x | log_z), weight
+
+        osdw_success, osdw_weight = logical(out_x.osdw, out_z.osdw)
+        osd0_success, osd0_weight = logical(out_x.osd0, out_z.osd0)
+        bp_logical, _ = logical(out_x.bp_hard, out_z.bp_hard)
+        return {
+            "osdw_success": osdw_success,
+            "osd0_success": osd0_success,
+            "bp_success": out_x.converged & out_z.converged & bp_logical,
+            "bp_converge_x": out_x.converged,
+            "bp_converge_z": out_z.converged,
+            "logical_weight": torch.minimum(osdw_weight, osd0_weight),
+        }
+
+    def batch_stats(self, rand: torch.Tensor) -> dict:
+        """Per-sample outcomes ``[B]`` of uniforms ``rand [B, N]``:
+        ``osdw_success``, ``osd0_success``, ``bp_success``,
+        ``bp_converge_x``, ``bp_converge_z`` (bool) and ``logical_weight``
+        (int64, 10^9 where neither decoding failed)."""
+        error_x, error_z, synd_x, synd_z = self.sample(rand)
+        out_x, out_z = self.decode(synd_x, synd_z)
+        return self.outcomes(error_x, error_z, out_x, out_z)
 
 
 class css_decode_sim:
@@ -217,25 +342,32 @@ class css_decode_sim:
                 f"channel_update must be None, 'x->z' or 'z->x', "
                 f"got {self.channel_update!r}"
             )
-        if self.use_mesh == -1:
-            self.use_mesh = 0
-        if self.use_mesh:
-            raise NotImplementedError(
-                "use_mesh=1 (the batch sharded over several devices) belongs to the "
-                "parallel layer, which is not ported to bp_osd_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 12); use use_mesh=0"
-            )
         on_card = self.backend == "cuda" or (
             self.backend == "auto" and torch.cuda.is_available())
         if on_card and not torch.cuda.is_available():
             raise RuntimeError("backend='cuda' needs a CUDA card; "
                                "torch.cuda.is_available() is false")
-        dev = canonical_device("cuda" if on_card else "cpu")
+        ranks = process_count() > 1
+        if self.use_mesh == -1:
+            self.use_mesh = 1 if ranks else 0
+        given = self.use_mesh and self.mesh is not None
+        dev = (canonical_device("cpu") if not on_card else self.mesh.devices[0] if given
+               else local_card() if ranks else canonical_device("cuda"))
         self._device = dev
         self.backend = resolve_backend(self.backend, dev)
         if self.batch_size == 0:
             cap = 16384 if on_card else 1024
             self.batch_size = int(min(max(self.target_runs, 1), cap))
+        if self.use_mesh:
+            mesh = (self.mesh if given else make_mesh() if on_card and not ranks
+                    else Mesh((dev,)))
+            if any(d.type != dev.type for d in mesh.devices):
+                raise ValueError(f"the mesh's devices {mesh.devices} are not the harness's "
+                                 f"{dev.type} (backend={self.backend!r})")
+            shards = process_count() * len(mesh)
+            # round up so the batch shards evenly over every rank's mesh
+            self.batch_size += -self.batch_size % shards
+            self._sharded = shard_batch_fn(lambda rand, on: on.batch_stats(rand), mesh)
         self._chunk = _CHUNK_CARD if on_card else _CHUNK_CPU
         self.ms_scaling_factor = float(self.ms_scaling_factor)
         osd_method = normalize_osd_method(self.osd_method)
@@ -248,17 +380,12 @@ class css_decode_sim:
         def dense(M):
             return torch.as_tensor(np.asarray(M.toarray(), np.float32), device=dev)
 
-        self._hx, self._hz = dense(self.hx), dense(self.hz)
-        self._lx, self._lz = dense(self.lx), dense(self.lz)
         p = {s: torch.as_tensor(np.asarray(v, np.float32)) for s, v in
              (("x", self.channel_probs_x), ("y", self.channel_probs_y),
               ("z", self.channel_probs_z))}
-        # band edges of one uniform: [0, pz) Z, [pz, pz+px) X, then Y
-        self._bands = tuple(b.to(dev) for b in
-                            (p["z"], p["z"] + p["x"], p["z"] + p["x"] + p["y"]))
         # per side (Z errors against hx, X errors against hz): the graph, the
         # OSD tables, the prior, and the Bayes pair when the other side goes first
-        self._sides = {}
+        sides = {}
         for side, other, H in (("z", "x", self.hx), ("x", "z", self.hz)):
             graph = TannerGraph(H.toarray(), dev)
             consts = build_osd_consts(graph, osd_method, int(self.osd_order))
@@ -266,7 +393,13 @@ class css_decode_sim:
             bayes = None
             if self.channel_update == f"{other}->{side}":
                 bayes = tuple(t.to(dev) for t in _bayes_llrs(p[other], p[side], p["y"]))
-            self._sides[side] = (graph, consts, prior, bayes)
+            sides[side] = (graph, consts, prior, bayes)
+        self._on = _OnDevice(
+            codes=(dense(self.hx), dense(self.hz), dense(self.lx), dense(self.lz)),
+            # band edges of one uniform: [0, pz) Z, [pz, pz+px) X, then Y
+            bands=tuple(b.to(dev) for b in (p["z"], p["z"] + p["x"], p["z"] + p["x"] + p["y"])),
+            sides=sides, decode_kw=self._decode_kw, chunk=self._chunk,
+            channel_update=self.channel_update)
 
     # -- one batch ----------------------------------------------------------
 
@@ -275,79 +408,23 @@ class css_decode_sim:
         return torch.rand(self.batch_size, self.N, generator=self._gen, device=self._device)
 
     def _sample(self, rand: torch.Tensor):
-        """Errors and syndromes of uniforms ``rand [B, N]``: ``(error_x,
-        error_z, synd_x, synd_z)``, X errors checked by hz, Z errors by hx."""
-        z_hi, x_hi, y_hi = self._bands
-        band_z = rand < z_hi
-        band_x = (rand >= z_hi) & (rand < x_hi)
-        band_y = (rand >= x_hi) & (rand < y_hi)
-        error_z = (band_z | band_y).to(torch.uint8)
-        error_x = (band_x | band_y).to(torch.uint8)
-        return error_x, error_z, _mod2mul(error_x, self._hz), _mod2mul(error_z, self._hx)
+        return self._on.sample(rand)
 
     def _decode_side(self, side: str, synd: torch.Tensor,
                      first_osdw: torch.Tensor | None = None) -> BpOsdBatch:
-        """BP+OSD of one side's syndromes, in chunks of the decoder's size.
-
-        ``first_osdw``, the osdw of the side decoded first, selects each
-        qubit's Bayes-updated prior.
-        """
-        graph, consts, llr0, bayes = self._sides[side]
-        if first_osdw is not None:
-            hit, miss = bayes
-            llr0 = torch.where(first_osdw == 1, hit, miss)
-        c = self._chunk
-        outs = [decode_pipeline(graph, synd[lo:lo + c],
-                                llr0 if llr0.dim() == 1 else llr0[lo:lo + c],
-                                consts=consts, **self._decode_kw)
-                for lo in range(0, synd.shape[0], c)]
-        if len(outs) == 1:
-            return outs[0]
-        return BpOsdBatch(*(torch.cat(xs) for xs in zip(*outs)))
-
-    def _decode(self, synd_x: torch.Tensor, synd_z: torch.Tensor):
-        """Both sides in the order ``channel_update`` gives; ``(out_x, out_z)``."""
-        if self.channel_update == "x->z":
-            out_x = self._decode_side("x", synd_x)
-            return out_x, self._decode_side("z", synd_z, out_x.osdw)
-        out_z = self._decode_side("z", synd_z)
-        first = out_z.osdw if self.channel_update == "z->x" else None
-        return self._decode_side("x", synd_x, first), out_z
+        return self._on.decode_side(side, synd, first_osdw)
 
     def _outcomes(self, error_x, error_z, out_x: BpOsdBatch, out_z: BpOsdBatch) -> dict:
-        """Per-sample outcomes of one decoded batch."""
-
-        def logical(corr_x, corr_z):
-            """(success, weight of the failing component) per sample: a
-            logical X error is checked first; 10^9 where none failed."""
-            res_x = error_x ^ corr_x
-            res_z = error_z ^ corr_z
-            log_x = (_mod2mul(res_x, self._lz) == 1).any(1)
-            log_z = (_mod2mul(res_z, self._lx) == 1).any(1)
-            weight = torch.where(log_x, res_x.sum(1, dtype=torch.int64),
-                                 torch.where(log_z, res_z.sum(1, dtype=torch.int64), 10**9))
-            return ~(log_x | log_z), weight
-
-        osdw_success, osdw_weight = logical(out_x.osdw, out_z.osdw)
-        osd0_success, osd0_weight = logical(out_x.osd0, out_z.osd0)
-        bp_logical, _ = logical(out_x.bp_hard, out_z.bp_hard)
-        return {
-            "osdw_success": osdw_success,
-            "osd0_success": osd0_success,
-            "bp_success": out_x.converged & out_z.converged & bp_logical,
-            "bp_converge_x": out_x.converged,
-            "bp_converge_z": out_z.converged,
-            "logical_weight": torch.minimum(osdw_weight, osd0_weight),
-        }
+        return self._on.outcomes(error_x, error_z, out_x, out_z)
 
     def _batch_stats(self, rand: torch.Tensor) -> dict:
-        """Per-sample outcomes ``[B]`` of uniforms ``rand [B, N]``:
-        ``osdw_success``, ``osd0_success``, ``bp_success``,
-        ``bp_converge_x``, ``bp_converge_z`` (bool) and ``logical_weight``
-        (int64, 10^9 where neither decoding failed)."""
-        error_x, error_z, synd_x, synd_z = self._sample(rand)
-        out_x, out_z = self._decode(synd_x, synd_z)
-        return self._outcomes(error_x, error_z, out_x, out_z)
+        """Per-sample outcomes of uniforms ``rand [B, N]`` on the harness's
+        device (:meth:`_OnDevice.batch_stats`)."""
+        return self._on.batch_stats(rand)
+
+    def _stats(self, rand: torch.Tensor) -> dict:
+        """:meth:`_batch_stats`, sharded over the mesh with ``use_mesh``."""
+        return self._sharded(rand, self._on) if self.use_mesh else self._on.batch_stats(rand)
 
     # -- statistics ---------------------------------------------------------
 
@@ -400,14 +477,25 @@ class css_decode_sim:
         if tqdm is not None and not self.tqdm_disable:
             pbar = tqdm(total=self.target_runs, initial=self.run_count, ncols=0)
 
+        # several processes: each decodes its slice of every batch, and the
+        # batch's counts are summed over all of them, so no batch is trimmed
+        ranks = bool(self.use_mesh) and process_count() > 1
         while self.run_count < self.target_runs:
-            take = min(self.batch_size, self.target_runs - self.run_count)
-            stats = self._batch_stats(self._draw())
+            rand = self._draw()
+            if ranks:
+                take = self.batch_size
+                start, keep = host_batch_slice(take)
+                stats = self._stats(rand[start:start + keep])
+            else:
+                take = keep = min(self.batch_size, self.target_runs - self.run_count)
+                stats = self._stats(rand)
             # one host transfer per batch: the five counts and the min weight
             *counts, batch_min_weight = torch.stack(
-                [stats[k][:take].sum() for k in _COUNTED]
-                + [stats["logical_weight"][:take].min()]
+                [stats[k][:keep].sum() for k in _COUNTED]
+                + [stats["logical_weight"][:keep].min()]
             ).tolist()
+            if ranks:
+                counts, batch_min_weight = reduce_batch_counts(counts, batch_min_weight)
             self.run_count += take
             for key, count in zip(_COUNTERS, counts):
                 self.__dict__[key] += count
@@ -436,7 +524,8 @@ class css_decode_sim:
                 self.runtime_readable = time.strftime(
                     "%H:%M:%S", time.gmtime(self.runtime)
                 )
-                if self.output_file is not None:
+                # every rank holds the same totals; rank 0 owns the file
+                if self.output_file is not None and process_index() == 0:
                     with open(self.output_file, "w+") as f:
                         print(self.output_dict(), file=f)
                 if (

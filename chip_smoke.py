@@ -90,7 +90,28 @@ Phases, one line each (any failed check exits non-zero):
 14. the lifted-product example (``examples/lifted_product_ler.py``'s
    experiment through ``BpOsdDecoder(hx, proto=hx_proto, lift=400)``) at
    p = 0.03, 4096 runs: OSDW LER within 4 sigma of
-   ``examples/lifted_product_decode_results.json``, K5 launched.
+   ``examples/lifted_product_decode_results.json``, K5 launched;
+15. the data-parallel layer (``bp_osd_tpu_torch.parallel``): (a)
+   ``sharded_decode_fn`` over ``make_mesh()`` (every card) on the 16384
+   fresh flagship syndromes (adaptive min-sum, max_iter 400, osd_cs 42):
+   the four outputs equal ``bp_decode`` + ``osd_decode`` on one card bit for
+   bit, every osdw satisfies its syndrome, K1 and K2 launched, median walls
+   and syndromes/s beside the unsharded call's; then with the default osd0
+   (K4's warp kernel launched, K2 not), bit-identical too; (b) the harness at the
+   flagship example's options, 100000 runs, ``use_mesh=1`` against
+   ``use_mesh=0``: every counter equal, runs/s of both; (c) two ranks on the
+   first card (``mesh=make_mesh(1)``), subprocesses of this script
+   (``--rank``) joined by gloo on a free port, at (b)'s configuration: both
+   ranks' reduced counters equal the one-process run, every launch on the
+   first card, only rank 0's output file exists, each rank's runs/s; (d)
+   with two or more cards, (a) over all of them, each shard's tensors on its
+   own card while ``cuda:0`` stays current: the outputs equal, every card
+   launched K1 and K2, each shard's wall; the sharded decode against one
+   card at 512, 4096 and 16384 rows a card; the harness over every card
+   against one card at batches 2000 (also with a 1e-4 s thread switch
+   interval) and 16384; one rank a card (``use_mesh=-1``): counters equal,
+   each rank's launches on its own card, the ranks' runs/s together (with
+   one card, a line says that (d) does not apply).
 
 It prints the card's name and power limit and a JSON line of per-kernel
 results before the last line, ``{"ok": true, "device": {...}}``.  Each kernel
@@ -114,8 +135,10 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -131,6 +154,8 @@ FRESH = 16384
 PROTO = [[(0,), (0,), (0,), (0,)], [(0,), (1,), (2,), (3,)], [(0,), (2,), (4,), (6,)]]
 LIFT, LIFT_P, LIFT_HEAVY_P, LIFT_B, LIFT_ORDER = 400, 0.005, 0.028, 512, 15
 SIM_ROWS, SIM_RUNS, LIFT_RUNS = 512, 100000, 4096  # phases 12-14
+BIG_RUNS = 6 * 16384  # phase 15d's harness at batch 16384
+RANK_TIMEOUT = 300  # seconds the phase-15c ranks may take, start-up included
 
 
 def check(ok, what: str) -> None:
@@ -159,6 +184,24 @@ def cuda_ms(fn, reps: int) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn()`` with every card synchronised
+    before and after, after a warm-up."""
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
 
@@ -490,6 +533,359 @@ def phase14(qcode, reset_counts, counts, tag, runs=LIFT_RUNS) -> None:
           f"({z:.2f} sigma from the artifact's OSDW LER); every field but the runtime equal to "
           f"the artifact: {all(point[k] == art[k] for k in keys)}; {wall:.3f} s, "
           f"{point['runs'] / wall:.1f} runs/s; launches {launched} {tag}")
+
+
+def phase15(H, fresh, reset_counts, counts, tag) -> None:
+    """The data-parallel layer: (a) the sharded decode over every card
+    against the unsharded decode; (b) the harness with and without the mesh;
+    (c) two gloo ranks on one card; (d) the shards on several cards."""
+    from bp_osd_tpu_torch.decoder import TannerGraph, bp_decode, osd_decode
+    from bp_osd_tpu_torch.decoder.bp import llr_from_channel
+    from bp_osd_tpu_torch.examples.qldpc_decode_example import OSD_OPTIONS
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
+    from bp_osd_tpu_torch.ops.cuda_osd import osd_cs
+    from bp_osd_tpu_torch.parallel import (make_mesh, shard_batch_fn, shard_decode_fn,
+                                           sharded_decode_fn)
+
+    dev = fresh.device
+    B, n = fresh.shape[0], H.shape[1]
+    graph = TannerGraph(H, dev)
+    H_f = torch.as_tensor(H, dtype=torch.float32, device=dev)
+    llr0 = llr_from_channel(np.full(n, 0.05)).to(dev).expand(B, n).contiguous()
+    kw = dict(bp_method="minimum_sum", max_iter=0, ms_scaling_factor=0.0)
+    osd_kw = dict(osd_method="osd_cs", osd_order=42)
+
+    def unsharded(g, synd, l0, **osd):
+        bp = bp_decode(g, synd, l0, **kw)
+        osd = osd_decode(g, synd, bp.llr, **(osd or osd_kw))
+        keep = bp.converged[:, None]
+        return (torch.where(keep, bp.hard, osd.osdw), torch.where(keep, bp.hard, osd.osd0),
+                bp.hard, bp.converged)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    mesh = make_mesh()
+    sharded = sharded_decode_fn(graph, mesh, **kw, **osd_kw)
+    want = unsharded(graph, fresh, llr0)
+    reset_counts()
+    got = sharded(fresh, llr0)
+    launched = counts()
+    for name, a, b in zip(("osdw", "osd0", "bp_hard", "converged"), got, want):
+        check(same(a, b), f"15a sharded {name} != the unsharded decode")
+    check(satisfies(got[0], H_f, fresh), "15a: a sharded osdw violates its syndrome")
+    check(launched["bp_flood"] > 0 and launched["osd_cs"] > 0, f"15a kernels {launched}")
+    walls = {"unsharded": [], "sharded": []}
+    for name in ("unsharded", "sharded", "sharded", "unsharded", "unsharded", "sharded"):
+        fn = sharded if name == "sharded" else lambda s, l: unsharded(graph, s, l)
+        walls[name].append(wall(lambda: fn(fresh, llr0))[1])
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    # the JAX function's default OSD, osd0: K4's warp kernel on every shard
+    reset_counts()
+    got0 = sharded_decode_fn(graph, mesh, **kw)(fresh, llr0)
+    launched0 = counts()
+    want0 = unsharded(graph, fresh, llr0, osd_method="osd0", osd_order=0)
+    check(all(same(a, b) for a, b in zip(got0, want0)), "15a sharded osd0 != unsharded")
+    check(satisfies(got0[1], H_f, fresh), "15a: a sharded osd0 violates its syndrome")
+    check(launched0["eliminate_warp"] > 0 and launched0["osd_cs"] == 0,
+          f"15a osd0 kernels {launched0}")
+    print(f"phase 15a sharded_decode_fn over make_mesh() ({len(mesh)} card(s)) on {B} fresh "
+          f"flagship syndromes (adaptive min-sum, max_iter {n}, osd_cs 42): osdw/osd0/bp_hard/"
+          f"converged bit-identical to bp_decode + osd_decode on one card, all satisfied, "
+          f"{int((~want[3]).sum())} OSD rows; launches {launched}; the default osd0 sharded "
+          f"the same way bit-identical too, launches {launched0}; median wall sharded "
+          f"{med['sharded'] * 1e3:.3f} ms ({B / med['sharded']:.1f} syndromes/s) vs unsharded "
+          f"{med['unsharded'] * 1e3:.3f} ms ({B / med['unsharded']:.1f} syndromes/s); walls "
+          f"{ {k: [round(w * 1e3, 3) for w in v] for k, v in walls.items()} } ms {tag}")
+
+    # (b) the harness with and without the mesh, same seed and batch size
+    from bp_osd_tpu_torch.codes import hgp, mkmn_16_4_6
+    from bp_osd_tpu_torch.sim import css_decode_sim
+
+    qcode = hgp(mkmn_16_4_6())
+    opts = dict(OSD_OPTIONS, target_runs=SIM_RUNS, run_sim=0, tqdm_disable=1, check_code=0)
+    runs = {}
+    for use_mesh in (0, 1, 1, 0, 0, 1):
+        sim = css_decode_sim(hx=qcode.hx, hz=qcode.hz, use_mesh=use_mesh, **opts)
+        check(sim.use_mesh == use_mesh and sim.backend == "cuda", "15b harness settings")
+        reset_counts()
+        _, w = wall(sim.run_decode_sim)
+        launched = counts()
+        check(launched["bp_flood"] > 0 and launched["osd_cs"] > 0, f"15b kernels {launched}")
+        c = {k: getattr(sim, k) for k in _SIM_COUNTERS}
+        check(runs.setdefault("counters", c) == c,
+              f"15b use_mesh={use_mesh} counters {c} != {runs['counters']}")
+        runs.setdefault(use_mesh, []).append(sim.run_count / w)
+    print(f"phase 15b flagship example harness, {SIM_RUNS} runs in batches of "
+          f"{OSD_OPTIONS['batch_size']}: use_mesh=1 == use_mesh=0 in every counter "
+          f"{runs['counters']}; runs/s use_mesh=0 {[round(r, 1) for r in runs[0]]}, use_mesh=1 "
+          f"{[round(r, 1) for r in runs[1]]} {tag}")
+
+    # (c) two ranks sharing the first card, at (b)'s configuration
+    ranks, files, total = run_ranks(2, "first", OSD_OPTIONS["batch_size"], SIM_RUNS)
+    for r, rank in enumerate(ranks):
+        check(rank["counters"] == runs["counters"],
+              f"15c rank {r} counters {rank['counters']} != one process {runs['counters']}")
+        check(rank["launches"]["bp_flood"] > 0 and rank["launches"]["osd_cs"] > 0,
+              f"15c rank {r} kernels {rank['launches']}")
+        check(all(set(on) == {"0"} for on in rank["launches_on"].values()),
+              f"15c rank {r} launched off the first card: {rank['launches_on']}")
+    check(files == ["rank0.json"], f"15c output files {files}")
+    print(f"phase 15c two gloo ranks on {torch.cuda.get_device_name(0)} (cuda:0, {SIM_RUNS} "
+          f"runs, {OSD_OPTIONS['batch_size'] // 2} rows of each batch a rank): both ranks' "
+          f"reduced counters == one process, only rank 0's output file; runs/s of each rank's "
+          f"run {[round(SIM_RUNS / k['wall'], 1) for k in ranks]} (walls "
+          f"{[round(k['wall'], 3) for k in ranks]} s; {total:.1f} s with start-up); "
+          f"{rank_split(ranks)}; launches {[k['launches'] for k in ranks]} {tag}")
+
+    # (d) shards on several cards, cuda:0 current in every worker thread
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase 15d did not run: it needs two or more cards, this machine has {cards}")
+        return
+    shard_walls = {}
+
+    def timed_shard(synd, l0):
+        g = graph.to(synd.device)
+        check(torch.cuda.current_device() == 0, "15d: a worker thread changed the current card")
+        out, shard_walls[synd.device.index] = wall(lambda: unsharded(g, synd, l0))
+        return out
+
+    for f in (bp_flood, osd_cs):
+        f.launches_on.clear()
+    got = sharded(fresh, llr0)
+    per_card = {f.__name__: dict(f.launches_on) for f in (bp_flood, osd_cs)}
+    for name, a, b in zip(("osdw", "osd0", "bp_hard", "converged"), got, want):
+        check(same(a, b), f"15d sharded {name} over {cards} cards != the unsharded decode")
+    check(all(per_card[f][i] > 0 for f in per_card for i in range(cards)),
+          f"15d: a card did not run its own launches: {per_card}")
+    timed = shard_decode_fn(timed_shard, mesh)
+    out, w = wall(lambda: timed(fresh, llr0))
+    check(all(same(a, b) for a, b in zip(out, want)), "15d timed shards != unsharded")
+    print(f"phase 15d {cards} cards, cuda:0 current while shard k's tensors sit on cuda:k: "
+          f"outputs bit-identical, launches by card {per_card}; shard walls "
+          f"{ {k: round(v * 1e3, 3) for k, v in sorted(shard_walls.items())} } ms in a "
+          f"{w * 1e3:.3f} ms sharded call {tag}")
+
+    # (d) where the mesh starts to pay: the sharded decode over every card
+    # against one card, by rows a card
+    g = torch.Generator(dev).manual_seed(SEED + 15)
+    scan = []
+    for per in (512, 4096, 16384):
+        rows = per * cards
+        synd = torch.remainder((torch.rand(rows, n, generator=g, device=dev) < 0.05).float()
+                               @ H_f.T, 2).to(torch.uint8)
+        l0 = llr0[:1].expand(rows, n).contiguous()
+        check(all(same(a, b) for a, b in zip(sharded(synd, l0), unsharded(graph, synd, l0))),
+              f"15d sharded != unsharded at {rows} rows")
+        ws = {"unsharded": [], "sharded": []}
+        for name in ("unsharded", "sharded", "sharded", "unsharded", "unsharded", "sharded"):
+            fn = sharded if name == "sharded" else lambda s, l: unsharded(graph, s, l)
+            ws[name].append(wall(lambda: fn(synd, l0))[1])
+        one, many = (float(np.median(ws[k])) for k in ("unsharded", "sharded"))
+        scan.append(f"{per} rows a card (B {rows}): one card {one * 1e3:.3f} ms "
+                    f"({rows / one:.1f} syndromes/s), {cards} cards {many * 1e3:.3f} ms "
+                    f"({rows / many:.1f} syndromes/s), {one / many:.3f}x")
+    print(f"phase 15d sharded decode over {cards} cards against one card, medians of 3, "
+          f"bit-identical: " + "; ".join(scan) + f" {tag}")
+
+    # (d) the harness over every card: at (b)'s batch with the interpreter's
+    # default thread switch interval and a short one, and at batch 16384
+    # (BIG_RUNS, whole batches, so that ranks, which trim no batch, match)
+    def harness(use_mesh, **kw):
+        sim = css_decode_sim(hx=qcode.hx, hz=qcode.hz, use_mesh=use_mesh, **dict(opts, **kw))
+        _, w = wall(sim.run_decode_sim)
+        return {k: getattr(sim, k) for k in _SIM_COUNTERS}, sim.run_count / w
+
+    rates, big = {}, {}
+    default_interval = sys.getswitchinterval()
+    for name, interval, use_mesh, batch in (
+            ("batch 2000, one card", default_interval, 0, 2000),
+            ("batch 2000, mesh", default_interval, 1, 2000),
+            ("batch 2000, mesh, switch interval 1e-4 s", 1e-4, 1, 2000),
+            ("batch 16384, one card", default_interval, 0, 16384),
+            ("batch 16384, mesh", default_interval, 1, 16384)):
+        sys.setswitchinterval(interval)
+        try:
+            c, rates[name] = harness(use_mesh, batch_size=batch,
+                                     target_runs=SIM_RUNS if batch == 2000 else BIG_RUNS)
+        finally:
+            sys.setswitchinterval(default_interval)
+        ref = runs["counters"] if batch == 2000 else big.setdefault("counters", c)
+        check(c == ref, f"15d harness {name} counters {c} != {ref}")
+    print(f"phase 15d flagship example harness over {cards} cards, {SIM_RUNS} runs at batch "
+          f"2000 and {BIG_RUNS} at 16384, counters equal to one card at each batch; runs/s "
+          f"{ {k: round(v, 1) for k, v in rates.items()} } {tag}")
+
+    # (d) one harness batch of (b)'s size over the mesh: each shard's wall on
+    # its worker thread, against the shards in turn on this thread and the
+    # whole batch on one card
+    sim0 = css_decode_sim(hx=qcode.hx, hz=qcode.hz, use_mesh=0, **opts)
+    rand = torch.rand(sim0.batch_size, sim0.N, generator=g, device=dev)
+    stats_walls = {}
+
+    def timed_stats(part, on):
+        t0 = time.perf_counter()
+        out = on.batch_stats(part)
+        torch.cuda.synchronize(part.device)
+        stats_walls.setdefault(part.device.index, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ons = [sim0._on.to(d) for d in mesh.devices]
+    parts = rand.chunk(len(mesh))
+    timed_batch = shard_batch_fn(timed_stats, mesh)
+    mesh_ms = host_ms(lambda: timed_batch(rand, sim0._on), 5)
+    turn_ms = host_ms(lambda: [on.batch_stats(p.to(on.device)) for on, p in zip(ons, parts)], 5)
+    one_ms = host_ms(lambda: sim0._on.batch_stats(rand), 5)
+    print(f"phase 15d one harness batch of {sim0.batch_size} (medians of 5): one card "
+          f"{one_ms:.3f} ms; {cards} cards, a worker thread each {mesh_ms:.3f} ms (shard walls "
+          f"{ {k: round(float(np.median(v)), 3) for k, v in sorted(stats_walls.items())} } ms); "
+          f"the shards in turn on one thread {turn_ms:.3f} ms {tag}")
+
+    # (d) one rank a card, each on its own card by default, at (b)'s
+    # configuration and at batch 16384
+    for batch, total_runs, ref in ((2000, SIM_RUNS, runs["counters"]),
+                                   (16384, BIG_RUNS, big["counters"])):
+        ranks, files, total = run_ranks(cards, "own", batch, total_runs)
+        for r, rank in enumerate(ranks):
+            check(rank["counters"] == ref,
+                  f"15d rank {r} at batch {batch}: counters {rank['counters']} != one process {ref}")
+            check(all(set(on) == {str(r)} for on in rank["launches_on"].values())
+                  and rank["launches"]["bp_flood"] > 0,
+                  f"15d rank {r} did not launch on its own card only: {rank['launches_on']}")
+        check(files == ["rank0.json"], f"15d output files {files}")
+        slowest = max(k["wall"] for k in ranks)
+        print(f"phase 15d {cards} gloo ranks, one a card (use_mesh=-1, LOCAL_RANK's card), "
+              f"{total_runs} runs in batches of {batch}: reduced counters == one process on "
+              f"every rank, each rank's launches on its own card; {total_runs / slowest:.1f} "
+              f"runs/s together (slowest rank {slowest:.3f} s; walls "
+              f"{[round(k['wall'], 3) for k in ranks]} s; {total:.1f} s with start-up); "
+              f"{rank_split(ranks)} {tag}")
+
+
+def rank_split(ranks: list[dict]) -> str:
+    """Each rank's ms a batch, beside one reduction's and one slice's decode."""
+    return ("each rank's first batch of one (a fresh process, before the timed run) "
+            + str([round(k["first_batch_s"], 3) for k in ranks]) + " s; ms a batch by rank "
+            + str([round(k["batch_ms"], 3) for k in ranks])
+            + ", one gloo reduction of the counts " + str([round(k["reduce_ms"], 3) for k in ranks])
+            + ", one batch slice's stats " + str([round(k["stats_ms"], 3) for k in ranks]))
+
+
+def run_ranks(world: int, placement: str, batch: int,
+              runs: int) -> tuple[list[dict], list[str], float]:
+    """``world`` ranks of :func:`rank_main`, subprocesses of this script
+    joined by gloo on a free port, any still running after
+    ``RANK_TIMEOUT`` killed; each rank's last line, the output files and
+    the seconds taken with start-up.  Fails if a rank fails, hangs or exits
+    non-zero."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as out_dir, tempfile.TemporaryDirectory() as log_dir:
+        logs = [open(os.path.join(log_dir, f"rank{r}.log"), "w+") for r in range(world)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                                   str(world), str(port), out_dir, placement, str(batch),
+                                   str(runs)],
+                                  stdout=logs[r], stderr=subprocess.STDOUT, text=True,
+                                  env=dict(os.environ, LOCAL_RANK=str(r)))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        try:  # a rank that fails stops the others, which would wait for it
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.perf_counter() - t0 < RANK_TIMEOUT):
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        total = time.perf_counter() - t0
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+        files = sorted(os.listdir(out_dir))
+    check(total < RANK_TIMEOUT, f"ranks ran past {RANK_TIMEOUT} s: {[o[-2000:] for o in outs]}")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} of {world} exited {p.returncode}:\n{out[-3000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out in outs], files, total
+
+
+_SIM_COUNTERS = ("run_count", "bp_converge_count_x", "bp_converge_count_z", "bp_success_count",
+                 "osd0_success_count", "osdw_success_count", "min_logical_weight")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_main(rank: int, world: int, port: int, out_dir: str, placement: str, batch: int,
+              runs: int) -> None:
+    """One rank of :func:`run_ranks`: the flagship example harness at batch
+    ``batch``, ``runs`` runs, in a gloo group of ``world`` ranks, on the
+    first card (``placement`` "first",
+    ``use_mesh=1`` over ``make_mesh(1)``) or on its own (``"own"``,
+    ``use_mesh=-1``); prints its counters, the wall of its run and its
+    launches, in total and by card, as the last line."""
+    sys.path.insert(0, ROOT)
+    from bp_osd_tpu_torch.codes import hgp, mkmn_16_4_6
+    from bp_osd_tpu_torch.examples.qldpc_decode_example import OSD_OPTIONS
+    from bp_osd_tpu_torch.ops import launch_counter
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
+    from bp_osd_tpu_torch.ops.cuda_osd import osd_cs
+    from bp_osd_tpu_torch.parallel import host_batch_slice, initialize, make_mesh
+    from bp_osd_tpu_torch.parallel.distributed import reduce_batch_counts
+
+    check(initialize(f"127.0.0.1:{port}", world, rank), "initialize returned False")
+    qcode = hgp(mkmn_16_4_6())
+    from bp_osd_tpu_torch.sim import css_decode_sim
+
+    mesh = dict(use_mesh=1, mesh=make_mesh(1)) if placement == "first" else dict(use_mesh=-1)
+    opts = dict(OSD_OPTIONS, run_sim=0, tqdm_disable=1, check_code=0, batch_size=batch, **mesh)
+    # a fresh process's first batch loads kernels and libraries: one batch
+    # first, so the timed run is as warm as the one-process run it is set beside
+    t0 = time.perf_counter()
+    css_decode_sim(hx=qcode.hx, hz=qcode.hz, **dict(opts, target_runs=1)).run_decode_sim()
+    first = time.perf_counter() - t0
+    sim = css_decode_sim(hx=qcode.hx, hz=qcode.hz, **dict(
+        opts, target_runs=runs, output_file=os.path.join(out_dir, f"rank{rank}.json")))
+    check(sim.use_mesh == 1, f"rank {rank}: use_mesh {sim.use_mesh}")
+    for f in (bp_flood, osd_cs):
+        launch_counter(f)
+    torch.cuda.synchronize(sim._device)
+    t0 = time.perf_counter()
+    sim.run_decode_sim()
+    torch.cuda.synchronize(sim._device)
+    wall = time.perf_counter() - t0
+    launches = {"bp_flood": bp_flood.launches, "osd_cs": osd_cs.launches}
+    launches_on = {f.__name__: dict(f.launches_on) for f in (bp_flood, osd_cs)}
+    # the pieces of a batch: one reduction of the counts, one slice's stats
+    t0 = time.perf_counter()
+    for _ in range(50):
+        reduce_batch_counts([0] * 5, 0)
+    reduce_ms = (time.perf_counter() - t0) * 1e3 / 50
+    start, keep = host_batch_slice(sim.batch_size)
+    part = torch.rand(sim.batch_size, sim.N, device=sim._device)[start:start + keep]
+    stats = []
+    for _ in range(6):
+        torch.cuda.synchronize(sim._device)
+        t0 = time.perf_counter()
+        sim._stats(part)
+        torch.cuda.synchronize(sim._device)
+        stats.append((time.perf_counter() - t0) * 1e3)
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"counters": {k: getattr(sim, k) for k in _SIM_COUNTERS}, "wall": wall,
+                      "batch_ms": wall * 1e3 * sim.batch_size / sim.run_count,
+                      "reduce_ms": reduce_ms, "stats_ms": float(np.median(stats[1:])),
+                      "first_batch_s": first,
+                      "launches": launches, "launches_on": launches_on}))
 
 
 def main() -> None:
@@ -1124,6 +1520,7 @@ def main() -> None:
     phase12(dev, hgp(mkmn_16_4_6()), reset_counts, counts, tag)
     phase13(H, synd, dec, tag)
     phase14(qcode, reset_counts, counts, tag)
+    phase15(H, fresh, reset_counts, counts, tag)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)
@@ -1167,4 +1564,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                  sys.argv[6], int(sys.argv[7]), int(sys.argv[8]))
+    else:
+        main()

@@ -503,3 +503,54 @@ def test_osd_e_and_osd_cs_share_the_elimination(dev, code):
         pairs = build_osd_consts(g, "osd_cs", order).pairs
         assert torch.equal(osd_e(g, perm, synd, osd_order=order)[0],
                            osd_cs(g, perm, synd, osd_order=order, pairs=pairs)[0])
+
+
+def test_sharded_decode_on_the_cards_equals_unsharded(dev):
+    """sharded_decode_fn over make_mesh() (every card) equals bp_decode +
+    osd_decode on one card, and each card launched K1 and K2."""
+    from bp_osd_tpu_torch.parallel import make_mesh, sharded_decode_fn
+
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, dev)
+    mesh = make_mesh()
+    synd, llr0 = _batch(H, 64 * len(mesh), 0.05, 12, dev)
+    kw = dict(bp_method="minimum_sum", max_iter=400, ms_scaling_factor=0.0)
+    before = {f: dict(f.launches_on) for f in (bp_flood, osd_cs)}
+    got = sharded_decode_fn(g, mesh, osd_method="osd_cs", osd_order=42, **kw)(synd, llr0)
+    for f in (bp_flood, osd_cs):
+        assert all(f.launches_on[d.index] > before[f].get(d.index, 0) for d in mesh.devices)
+    bp = bp_decode(g, synd, llr0, **kw)
+    osd = osd_decode(g, synd, bp.llr, osd_method="osd_cs", osd_order=42)
+    keep = bp.converged[:, None]
+    want = (torch.where(keep, bp.hard, osd.osdw), torch.where(keep, bp.hard, osd.osd0),
+            bp.hard, bp.converged)
+    _equal(got, want)
+
+
+def test_kernels_on_a_second_card_while_the_first_is_current(dev):
+    """K1-K5 on tensors on cuda:1 while cuda:0 is current: each wrapper makes
+    its tensors' card current, and equals its plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA cards, found {torch.cuda.device_count()}")
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    H = np.asarray(CODES["flagship"](), np.uint8)
+    g = TannerGraph(H, d1)
+    synd, llr0 = _batch(H, 96, 0.05, 13, d1)
+    kw = dict(method="minimum_sum", max_iter=60, ms_scaling_factor=0.0)
+    before = bp_flood.launches_on[1]
+    _equal(bp_flood(g, synd, llr0, **kw), bp_decode_plain(g, synd, llr0, **kw))
+    assert bp_flood.launches_on[1] == before + 1 and torch.cuda.current_device() == 0
+    synd, perm = _osd_inputs(H, 64, 14, d1)
+    pairs = build_osd_consts(g, "osd_cs", 42).pairs
+    _equal(osd_cs(g, perm, synd, osd_order=42, pairs=pairs),
+           osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=42, pairs=pairs))
+    _equal(osd_e(g, perm, synd, osd_order=12),
+           osd_decode_plain(g, perm, synd, method="osd_e", osd_order=12))
+    for pl in ("warp", "shared", "global"):
+        _equal(eliminate(g, perm, synd, placement=pl), eliminate_plain(g, perm, synd))
+    _equal(osd_large(g, perm, synd, osd_order=42, pairs=pairs),
+           osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=42, pairs=pairs))
+    for f in (osd_cs, osd_e, eliminate, osd_large):
+        assert f.launches_on[1] > 0, f.__name__
+    assert torch.cuda.current_device() == 0

@@ -20,6 +20,7 @@ from bp_osd_tpu.codes import rep_code as jrep_code
 from bp_osd_tpu.sim import css_decode_sim as jcss_decode_sim
 
 from bp_osd_tpu_torch.codes import hgp, rep_code
+from bp_osd_tpu_torch.parallel import Mesh, cpu_mesh
 from bp_osd_tpu_torch.sim import css_decode_sim
 from bp_osd_tpu_torch.utils import profiling
 
@@ -151,6 +152,37 @@ def test_whole_run_counters_equal_jax(surface, batch_size, tmp_path):
         assert json.load(f)["run_count"] == 300
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_whole_run_counters_equal_jax_on_a_mesh(surface, shards, tmp_path):
+    """use_mesh=1 on both sides: JAX over its 8 virtual devices, the port over
+    a CPU mesh of 2 and 4 shards, each rounding a batch of 103 up to 104; fed
+    JAX's uniforms, the port counts what JAX counts, and what its own
+    unsharded run counts."""
+    opts = dict(SURFACE_OPTS, error_rate=0.08, target_runs=300, batch_size=103,
+                channel_update="x->z")
+    j = jcss_decode_sim(hx=surface.hx, hz=surface.hz, use_mesh=1, backend="xla", **opts)
+    t = css_decode_sim(hx=surface.hx, hz=surface.hz, backend="torch", use_mesh=1,
+                       mesh=cpu_mesh(shards), **opts)
+    plain = css_decode_sim(hx=surface.hx, hz=surface.hz, backend="torch", use_mesh=0,
+                           **dict(opts, batch_size=104))
+    assert (j.use_mesh, t.use_mesh, j.batch_size, t.batch_size) == (1, 1, 104, 104)
+    rand = [torch.from_numpy(r) for _, r in _jax_uniforms(t.seed, 104, t.N, 3)]
+    t._draw, plain._draw = iter(rand).__next__, iter(rand).__next__
+    t.output_file = str(tmp_path / "out.json")
+    want = json.loads(j.run_decode_sim())
+    got = json.loads(t.run_decode_sim())
+    unsharded = json.loads(plain.run_decode_sim())
+    assert got["run_count"] == 300
+    for key in ("run_count", "bp_converge_count_x", "bp_converge_count_z", "bp_success_count",
+                "osd0_success_count", "osdw_success_count", "min_logical_weight",
+                "osdw_logical_error_rate", "osdw_logical_error_rate_eb",
+                "osd0_logical_error_rate", "bp_logical_error_rate", "osdw_word_error_rate"):
+        assert got[key] == want[key] == unsharded[key], key
+    assert got["osdw_success_count"] < 300
+    with open(t.output_file) as f:
+        assert json.load(f)["run_count"] == 300
+
+
 def test_output_dict_keys_equal_jax(surface):
     j, t = _pair(surface, target_runs=50, batch_size=50, **SURFACE_OPTS)
     want = json.loads(j.run_decode_sim())
@@ -191,8 +223,18 @@ def test_sim_options():
     sim = css_decode_sim(target_runs=5000, **kw)
     assert (sim.batch_size, sim.use_mesh, sim.backend) == (1024, 0, "torch")
     assert css_decode_sim(target_runs=7, **kw).batch_size == 7
-    with pytest.raises(NotImplementedError, match="item 12"):
-        css_decode_sim(use_mesh=1, **kw)
+    # use_mesh: one CPU shard by default, the batch rounded up to the shards
+    one = css_decode_sim(use_mesh=1, target_runs=7, **kw)
+    assert (one.use_mesh, one.batch_size) == (1, 7)
+    four = css_decode_sim(use_mesh=1, mesh=cpu_mesh(4), target_runs=7, **kw)
+    assert (four.use_mesh, four.batch_size) == (1, 8)
+    assert "mesh" not in json.loads(four.output_dict())
+    # -1 takes the mesh only with several processes, whatever the mesh
+    for mesh in (None, cpu_mesh(1), cpu_mesh(4)):
+        auto = css_decode_sim(use_mesh=-1, mesh=mesh, target_runs=7, **kw)
+        assert (auto.use_mesh, auto.batch_size) == (0, 7)
+    with pytest.raises(ValueError, match="mesh"):
+        css_decode_sim(use_mesh=1, mesh=Mesh((torch.device("cuda", 0),)), **kw)
     for bad in ("xla", "pallas"):
         with pytest.raises(ValueError, match="backend"):
             css_decode_sim(backend=bad, **kw)
