@@ -151,9 +151,27 @@ def _min_sum_factors(v2c, chk_mask, syn, alpha: float):
     return torch.where(chk_mask, torch.where(out_neg, -alpha, alpha), 0.0), excl
 
 
+def _elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn`` whose value at an element does not
+    depend on the tensor's length.  On the CPU, ATen evaluates a unary op in
+    vector registers (SLEEF) and the last ``numel % (2 * lanes)`` elements
+    with the scalar libm function, which for ``atanh`` can differ in the
+    last ulp; padding to a multiple of 64 elements puts every element on the
+    vector path (in one thread; ATen splits a tensor of 32768 elements or
+    more between threads).  A card evaluates every element alike."""
+    if x.device.type != "cpu":
+        return fn(x)
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % 64
+    return fn(torch.cat([flat, flat.new_zeros(pad)]))[: flat.numel()].view(x.shape)
+
+
 def _check_update_product_sum(v2c, chk_mask, syn):
-    """Tanh-rule c2v of ``v2c [B, m, wr]``; zero on pad slots."""
-    t = torch.where(chk_mask, torch.tanh(0.5 * v2c), 1.0)
+    """Tanh-rule c2v of ``v2c [B, m, wr]``; zero on pad slots.  A check's
+    messages do not depend on the other checks in the tensor, also on the
+    CPU (:func:`_elementwise`), so a row block of checks gives the rows of
+    the whole."""
+    t = torch.where(chk_mask, _elementwise(torch.tanh, 0.5 * v2c), 1.0)
     wr = t.shape[-1]
     fwd = [torch.ones_like(t[..., 0])]
     for s in range(wr - 1):
@@ -165,7 +183,7 @@ def _check_update_product_sum(v2c, chk_mask, syn):
     sign = (1.0 - 2.0 * syn.float())
     excl = torch.stack([sign * fwd[s] * bwd[s] for s in range(wr)], -1)
     excl = torch.clamp(excl, -_TANH_CLIP, _TANH_CLIP)
-    return torch.where(chk_mask, 2.0 * torch.atanh(excl), 0.0)
+    return torch.where(chk_mask, 2.0 * _elementwise(torch.atanh, excl), 0.0)
 
 
 def _lane_tables(graph: TannerGraph):

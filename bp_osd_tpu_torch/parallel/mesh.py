@@ -5,7 +5,13 @@ of devices along one named axis, the counterpart of a 1D
 ``jax.sharding.Mesh``: :func:`make_mesh` takes the first cards,
 :func:`cpu_mesh` builds ``n`` shards on the CPU (the counterpart of the
 virtual CPU devices the JAX tests run on; nothing picks it in place of a
-card).  :func:`sharded_decode_fn` splits the syndrome batch over the mesh:
+card).  :class:`Mesh2D` is a ``data x model`` grid of devices with named
+axes, the counterpart of ``Mesh(devices.reshape(data, model), ("data",
+"model"))``: the model-parallel decoders (``edge_shard.py``,
+``lifted_shard.py``, ``large_code.py``) split the checks over its model
+axis and the batch over its data axis; :func:`make_mesh_2d` takes the first
+``data * model`` cards, :func:`cpu_mesh_2d` builds CPU shards.
+:func:`sharded_decode_fn` splits the syndrome batch over the mesh:
 each shard runs BP and OSD on its own device with no traffic between
 devices, through the CUDA kernels on a card (K1, then the OSD kernel
 ``osd_route`` picks) and their plain torch versions on the CPU.
@@ -23,7 +29,8 @@ from ..decoder.osd import build_osd_consts, osd_decode
 from ..decoder.tanner import TannerGraph, canonical_device
 from .shard_pallas import replicate, shard_decode_fn
 
-__all__ = ["Mesh", "cpu_mesh", "make_mesh", "pad_batch", "sharded_decode_fn"]
+__all__ = ["Mesh", "Mesh2D", "cpu_mesh", "cpu_mesh_2d", "make_mesh", "make_mesh_2d", "pad_batch",
+           "sharded_decode_fn"]
 
 
 @dataclass(frozen=True)
@@ -35,16 +42,67 @@ class Mesh:
     axis_name: str = "data"
 
     def __post_init__(self):
-        devices = tuple(canonical_device(d) for d in self.devices)
-        if not devices:
-            raise ValueError("a mesh needs at least one device")
-        bad = [d for d in devices if d.type not in ("cpu", "cuda")]
-        if bad:
-            raise ValueError(f"a mesh holds CPU and CUDA devices, got {bad}")
-        object.__setattr__(self, "devices", devices)
+        object.__setattr__(self, "devices", _checked(self.devices))
 
     def __len__(self) -> int:
         return len(self.devices)
+
+
+def _checked(devices) -> tuple:
+    devices = tuple(canonical_device(d) for d in devices)
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    bad = [d for d in devices if d.type not in ("cpu", "cuda")]
+    if bad:
+        raise ValueError(f"a mesh holds CPU and CUDA devices, got {bad}")
+    return devices
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """A ``data x model`` grid of devices with named axes, row-major: the
+    device of index ``(i, j)`` along ``axis_names`` is ``devices[i *
+    shape[1] + j]``.  A device may repeat (two model shards on one card run
+    in turn); nothing puts a shard on the CPU that was asked for a card."""
+
+    devices: tuple
+    shape: tuple
+    axis_names: tuple = ("data", "model")
+
+    def __post_init__(self):
+        devices = _checked(self.devices)
+        shape = tuple(int(k) for k in self.shape)
+        names = tuple(self.axis_names)
+        if len(shape) != 2 or min(shape) < 1 or shape[0] * shape[1] != len(devices):
+            raise ValueError(f"a {shape} mesh needs {shape[0] * shape[1]} devices, "
+                             f"got {len(devices)}")
+        if len(names) != 2 or names[0] == names[1]:
+            raise ValueError(f"a 2D mesh needs two distinct axis names, got {names}")
+        object.__setattr__(self, "devices", devices)
+        object.__setattr__(self, "shape", shape)
+        object.__setattr__(self, "axis_names", names)
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def size(self, axis: str) -> int:
+        """The length of the axis named ``axis``."""
+        if axis not in self.axis_names:
+            raise ValueError(f"axis {axis!r} is not one of the mesh's {self.axis_names}")
+        return self.shape[self.axis_names.index(axis)]
+
+    def groups(self, axis: str) -> list[tuple]:
+        """The devices along the other axis, one tuple for each index of
+        ``axis``: with ``axis`` the data axis, each data group's model
+        shards in order."""
+        self.size(axis)
+        rows, cols = self.shape
+        grid = [self.devices[i * cols:(i + 1) * cols] for i in range(rows)]
+        return grid if axis == self.axis_names[0] else [tuple(c) for c in zip(*grid)]
+
+    def flat(self) -> Mesh:
+        """Every device in order along one axis, named by both."""
+        return Mesh(self.devices, ",".join(self.axis_names))
 
 
 def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
@@ -63,6 +121,24 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
 def cpu_mesh(n_shards: int, axis_name: str = "data") -> Mesh:
     """A mesh of ``n_shards`` shards on the CPU, run in turn."""
     return Mesh((torch.device("cpu"),) * int(n_shards), axis_name)
+
+
+def make_mesh_2d(data: int, model: int, axis_names=("data", "model")) -> Mesh2D:
+    """A ``data x model`` mesh over the first ``data * model`` CUDA cards,
+    row-major.  Raises ``ValueError`` when fewer cards exist; a mesh of CPU
+    shards is :func:`cpu_mesh_2d`, built explicitly, and a mesh that puts
+    several shards on one card is a :class:`Mesh2D` of repeated devices."""
+    want, count = int(data) * int(model), torch.cuda.device_count()
+    if want < 1 or want > count:
+        raise ValueError(f"requested a {data} x {model} mesh of {want} CUDA devices but "
+                         f"{count} available (a mesh of CPU shards is cpu_mesh_2d)")
+    return Mesh2D(tuple(torch.device("cuda", i) for i in range(want)), (data, model),
+                  axis_names)
+
+
+def cpu_mesh_2d(data: int, model: int, axis_names=("data", "model")) -> Mesh2D:
+    """A ``data x model`` mesh of shards on the CPU, run in turn."""
+    return Mesh2D((torch.device("cpu"),) * (int(data) * int(model)), (data, model), axis_names)
 
 
 def pad_batch(arr: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:

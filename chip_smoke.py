@@ -111,12 +111,28 @@ Phases, one line each (any failed check exits non-zero):
    against one card at batches 2000 (also with a 1e-4 s thread switch
    interval) and 16384; one rank a card (``use_mesh=-1``): counters equal,
    each rank's launches on its own card, the ranks' runs/s together (with
-   one card, a line says that (d) does not apply).
+   one card, a line says that (d) does not apply);
+16. the model-parallel layer (``parallel/edge_shard.py``, ``lifted_shard.py``,
+   ``large_code.py``) on a 1 x 2 mesh (both model shards on ``cuda:0``; with
+   two cards, one each): (a) ``edge_sharded_bposd_fn`` on 16384 fresh
+   flagship syndromes (adaptive min-sum, max_iter 400, osd_cs 42): the
+   sharded BP equal to K1 bit for bit (hard, llr, converged, iterations),
+   osdw equal to ``bp_decode`` + ``osd_decode``, all satisfied, K2 launched
+   on every card of the mesh and K1 not; (b) the [[10000,420]] lift-400 code
+   at p = 0.028, 512 rows (min-sum 0.625, max_iter 100, osd_cs 15):
+   ``lifted_sharded_bposd_fn`` (its BP equal to ``bp_decode_lifted``) and
+   ``edge_sharded_bposd_fn`` (its BP equal to K1), osdw equal to the
+   unsharded BP + OSD, K5 launched on every card and K1/K2 not; for each
+   decode the median of 3 walls and syndromes/s beside the unsharded
+   decode's, BP's ms per iteration, the bytes the chain hands between shards
+   and the launches by card; (c) with four cards, (b) on 2 x 2 and 1 x 4
+   meshes, equal to one card (with fewer, a line says that (c) did not run).
 
 It prints the card's name and power limit and a JSON line of per-kernel
 results before the last line, ``{"ok": true, "device": {...}}``.  Each kernel
-there has its launches on the main path's run and per decode of the path
-that uses it, its time, its plain version's time, its bound and what sets
+there has its launches on the main path's run, per decode of the path
+that uses it and in phase 16's model-sharded decodes
+(``launches_model_parallel``), its time, its plain version's time, its bound and what sets
 the bound (no single PyTorch call computes any of them: ``library_ms`` is
 null).  A bound is the larger of the bytes the call must move (each input
 read once, each output written once) over 3.35 TB/s and its operations over
@@ -765,6 +781,261 @@ def phase15(H, fresh, reset_counts, counts, tag) -> None:
               f"runs/s together (slowest rank {slowest:.3f} s; walls "
               f"{[round(k['wall'], 3) for k in ranks]} s; {total:.1f} s with start-up); "
               f"{rank_split(ranks)} {tag}")
+
+
+def interleaved_walls(fns: dict, reps: int = 3) -> dict:
+    """Median host seconds of each ``fns[name]()``, every card synchronised
+    before and after, the calls taken in turn ``reps`` times."""
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    walls = {k: [] for k in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls[name].append(time.perf_counter() - t0)
+    return {k: float(np.median(v)) for k, v in walls.items()}
+
+
+def chain_bytes(shards: int, lanes: int, n: int, iters: torch.Tensor) -> tuple[int, int]:
+    """Bytes a model-sharded BP hands between shards: each iteration, each
+    hop of the chain carries ``lanes`` running sums ``[rows, n]`` f32, the
+    totals go back to every other shard (``[rows, n]`` f32) and each other
+    shard's parity verdict comes home (``[rows]`` bool), for the rows still
+    live (a row is live in iterations ``1 .. iters[row]``).  Returns the
+    first iteration's bytes and the whole run's."""
+    per_row = (shards - 1) * ((lanes + 1) * 4 * n + 1)
+    return per_row * iters.numel(), per_row * int(iters.long().sum())
+
+
+def phase16(tag, qcode=None) -> dict:
+    """The model-parallel layer (``edge_shard``, ``lifted_shard``,
+    ``large_code``): (a) the flagship on a 1 x 2 mesh, (b) [[10000,420]] on a
+    1 x 2 mesh, (c) with four cards, (b) on 2 x 2 and 1 x 4 meshes.  Returns
+    each kernel's launches in the model-sharded decodes."""
+    from bp_osd_tpu_torch.codes import hgp, lifted_hgp, mkmn_16_4_6
+    from bp_osd_tpu_torch.decoder import TannerGraph, bp_decode, osd_decode
+    from bp_osd_tpu_torch.decoder.bp import bp_decode_plain, llr_from_channel
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
+    from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate
+    from bp_osd_tpu_torch.ops.cuda_osd import osd_cs, osd_e
+    from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
+    from bp_osd_tpu_torch.parallel import Mesh2D, ShardedTannerGraph, edge_sharded_bp_fn
+    from bp_osd_tpu_torch.parallel.large_code import (edge_sharded_bposd_fn,
+                                                      lifted_sharded_bposd_fn)
+    from bp_osd_tpu_torch.parallel.lifted_shard import ShardedLiftedGraph, lifted_sharded_bp_fn
+    from bp_osd_tpu_torch.parallel.mesh import make_mesh_2d
+
+    dev = torch.device("cuda", 0)
+    cards = torch.cuda.device_count()
+    wrappers = (bp_flood, osd_cs, osd_e, eliminate, osd_large)
+    model_parallel = {f.__name__: 0 for f in wrappers}
+
+    def reset():
+        for f in wrappers:
+            f.launches = 0
+            f.launches_on.clear()
+
+    def launched():
+        out = {f.__name__: dict(f.launches_on) for f in wrappers if f.launches}
+        for f in wrappers:
+            model_parallel[f.__name__] += f.launches
+        return out
+
+    def pair_mesh():
+        """Two model shards: on cuda:0 and cuda:1 where there are two cards,
+        else both on cuda:0."""
+        return make_mesh_2d(1, 2) if cards >= 2 else Mesh2D((dev, dev), (1, 2))
+
+    def mesh_name(mesh):
+        return f"{mesh.shape[0]} x {mesh.shape[1]} ({', '.join(map(str, mesh.devices))})"
+
+    def bp_equal(got, want, what):
+        for name, a, b in zip(("hard", "llr", "converged", "iterations"), got, want):
+            check(same(a, b), f"{what}: {name} differs")
+
+    def syndromes(H_f, B, p, seed):
+        g = torch.Generator(dev).manual_seed(seed)
+        err = (torch.rand(B, H_f.shape[1], generator=g, device=dev) < p).float()
+        return torch.remainder(err @ H_f.T, 2).to(torch.uint8)
+
+    def ms_per_it(wall, iters):
+        return wall * 1e3 / max(int(iters.max()), 1)
+
+    # (a) the flagship, full width, on a 1 x 2 mesh
+    H = np.asarray(hgp(mkmn_16_4_6()).hx.toarray(), np.uint8)
+    m, n = H.shape
+    graph = TannerGraph(H, dev)
+    H_f = torch.as_tensor(H, dtype=torch.float32, device=dev)
+    B = FRESH
+    synd = syndromes(H_f, B, 0.05, SEED + 16)
+    llr0 = llr_from_channel(np.full(n, 0.05)).to(dev).expand(B, n).contiguous()
+    kw = dict(bp_method="minimum_sum", max_iter=0, ms_scaling_factor=0.0)
+    osd_kw = dict(osd_method="osd_cs", osd_order=42)
+    mesh = pair_mesh()
+    sg = ShardedTannerGraph(H, 2)
+    synd_pad = torch.cat([synd, synd.new_zeros(B, 2 * sg.m_chunk - m)], 1)
+    bp_sh = edge_sharded_bp_fn(sg, mesh, **kw)
+    bposd = edge_sharded_bposd_fn(sg, mesh, **kw, **osd_kw)
+    reset()
+    got = bp_sh.decode(synd_pad, llr0)
+    check(bp_flood.launches == 0, "16a: the model-sharded BP launched K1")
+    want = bp_decode(graph, synd, llr0, **kw)  # K1
+    bp_equal(got, want, "16a edge-sharded BP against K1")
+    reset()
+    osdw, conv = bposd(synd_pad, llr0)
+    on = launched()
+    want_osd = osd_decode(graph, synd, want.llr, skip=want.converged, **osd_kw).osdw
+    check(same(osdw, torch.where(want.converged[:, None], want.hard, want_osd)),
+          "16a: sharded osdw != bp_decode + osd_decode")
+    check(same(conv, want.converged), "16a: sharded converged != K1's")
+    check(satisfies(osdw, H_f, synd), "16a: a sharded osdw violates its syndrome")
+    check(on.get("osd_cs") and all(on["osd_cs"].get(d.index, 0) > 0 for d in mesh.devices)
+          and "bp_flood" not in on, f"16a: K2 not launched on every card of the mesh: {on}")
+    its = want.iterations
+
+    def unsharded():
+        bp = bp_decode(graph, synd, llr0, **kw)
+        return osd_decode(graph, synd, bp.llr, skip=bp.converged, **osd_kw)
+
+    def plain():
+        bp = bp_decode_plain(graph, synd, llr0, method="minimum_sum", max_iter=n,
+                             ms_scaling_factor=0.0)
+        return osd_decode(graph, synd, bp[1], skip=bp[2], **osd_kw)
+
+    bp_w = interleaved_walls({
+        "K1": lambda: bp_decode(graph, synd, llr0, **kw),
+        "plain": lambda: bp_decode_plain(graph, synd, llr0, method="minimum_sum", max_iter=n,
+                                         ms_scaling_factor=0.0),
+        "sharded": lambda: bp_sh.decode(synd_pad, llr0)})
+    dec_w = interleaved_walls({"unsharded": unsharded, "plain": plain,
+                               "sharded": lambda: bposd(synd_pad, llr0)})
+    first, total = chain_bytes(2, 4, n, its)
+    print(f"phase 16a edge_sharded_bposd_fn on a {mesh_name(mesh)} mesh, flagship [[400,16,6]] "
+          f"at full width, {B} fresh syndromes (adaptive min-sum, max_iter {n}, osd_cs 42): "
+          f"BP bit-identical to K1 (hard/llr/converged/iterations, {int((~conv).sum())} OSD "
+          f"rows), osdw bit-identical to bp_decode + osd_decode, all satisfied; launches by "
+          f"card {on}; medians of 3: decode sharded {dec_w['sharded'] * 1e3:.3f} ms "
+          f"({B / dec_w['sharded']:.1f} syndromes/s), unsharded K1 + K2 "
+          f"{dec_w['unsharded'] * 1e3:.3f} ms ({B / dec_w['unsharded']:.1f} syndromes/s), "
+          f"unsharded plain torch BP + K2 {dec_w['plain'] * 1e3:.3f} ms "
+          f"({B / dec_w['plain']:.1f} syndromes/s); BP alone sharded "
+          f"{bp_w['sharded'] * 1e3:.3f} ms ({ms_per_it(bp_w['sharded'], its):.3f} ms per "
+          f"iteration over {int(its.max())}), plain {bp_w['plain'] * 1e3:.3f} ms "
+          f"({ms_per_it(bp_w['plain'], its):.3f}), K1 {bp_w['K1'] * 1e3:.3f} ms; chain "
+          f"{first} bytes at iteration 1, {total / max(int(its.max()), 1):.1f} a iteration "
+          f"on average ({total} in all; a hop within one card copies nothing) {tag}")
+
+    # (b) the [[10000,420]] lifted product, full width, on a 1 x 2 mesh
+    if qcode is None:
+        qcode = lifted_hgp(PROTO, lift=LIFT)
+    Hl = np.asarray(qcode.hx.toarray(), np.uint8)
+    ml, nl = Hl.shape
+    gl = TannerGraph(Hl, dev)
+    lg = LiftedGraph(qcode.hx_proto, LIFT, dev)
+    Hl_f = torch.as_tensor(Hl, dtype=torch.float32, device=dev)
+    Bl = LIFT_B
+    synd_l = syndromes(Hl_f, Bl, LIFT_HEAVY_P, SEED + 17)
+    l0 = llr_from_channel(np.full(nl, LIFT_HEAVY_P)).to(dev).expand(Bl, nl).contiguous()
+    kw_l = dict(bp_method="minimum_sum", max_iter=100, ms_scaling_factor=0.625)
+    osd_l = dict(osd_method="osd_cs", osd_order=LIFT_ORDER)
+    want_l = bp_decode_lifted(lg, synd_l, l0, **kw_l)
+    want_k1 = bp_decode(gl, synd_l, l0, **kw_l)  # K1, its state in device memory
+    want_l_osdw = torch.where(want_l.converged[:, None], want_l.hard, osd_decode(
+        gl, synd_l, want_l.llr, skip=want_l.converged, **osd_l).osdw)
+    want_k1_osdw = torch.where(want_k1.converged[:, None], want_k1.hard, osd_decode(
+        gl, synd_l, want_k1.llr, skip=want_k1.converged, **osd_l).osdw)
+    for w in (want_l_osdw, want_k1_osdw):
+        check(satisfies(w, Hl_f, synd_l), "16b: an unsharded osdw violates its syndrome")
+
+    def lifted_run(mesh, shards, what):
+        """Both model-sharded decodes of (b) on ``mesh``: the BPs against the
+        unsharded ones, osdw against the unsharded BP + OSD, K5 launched on
+        every card of the mesh and K1/K2 never."""
+        slg = ShardedLiftedGraph(lg, shards)
+        sgl = ShardedTannerGraph(Hl, shards)
+        pad_l = torch.cat([synd_l, synd_l.new_zeros(Bl, shards * slg.mp_chunk * LIFT - ml)], 1)
+        pad_e = torch.cat([synd_l, synd_l.new_zeros(Bl, shards * sgl.m_chunk - ml)], 1)
+        lbp = lifted_sharded_bp_fn(slg, mesh, **kw_l)
+        ebp = edge_sharded_bp_fn(sgl, mesh, **kw_l)
+        lbposd = lifted_sharded_bposd_fn(lg, Hl, mesh, n_shards=shards, **kw_l, **osd_l)
+        ebposd = edge_sharded_bposd_fn(sgl, mesh, **kw_l, **osd_l)
+        reset()
+        bp_equal(lbp(pad_l, l0), want_l, f"{what} block-row-sharded BP against bp_decode_lifted")
+        bp_equal(ebp.decode(pad_e, l0), want_k1, f"{what} edge-sharded BP against K1")
+        check(bp_flood.launches == 0, f"{what}: a model-sharded BP launched K1")
+        ons = {}
+        for name, fn, pad, w in (("lifted", lbposd, pad_l, want_l_osdw),
+                                 ("edge", ebposd, pad_e, want_k1_osdw)):
+            reset()
+            osdw, conv = fn(pad, l0)
+            ons[name] = on = launched()
+            check(same(osdw, w), f"{what} {name}-sharded osdw != the unsharded BP + OSD")
+            check(on.get("osd_large") and all(on["osd_large"].get(d.index, 0) > 0
+                                               for d in mesh.devices)
+                  and "osd_cs" not in on and "bp_flood" not in on,
+                  f"{what} {name}: K5 not launched on every card, or K1/K2 launched: {on}")
+        check(torch.cuda.current_device() == 0, f"{what}: the current card changed")
+        return lbp, ebp, lbposd, ebposd, pad_l, pad_e, ons
+
+    mesh = pair_mesh()
+    lbp, ebp, lbposd, ebposd, pad_l, pad_e, ons = lifted_run(mesh, 2, "16b")
+
+    def unsharded_l():
+        bp = bp_decode_lifted(lg, synd_l, l0, **kw_l)
+        return osd_decode(gl, synd_l, bp.llr, skip=bp.converged, **osd_l)
+
+    def unsharded_k1():
+        bp = bp_decode(gl, synd_l, l0, **kw_l)
+        return osd_decode(gl, synd_l, bp.llr, skip=bp.converged, **osd_l)
+
+    bp_w = interleaved_walls({
+        "lifted": lambda: bp_decode_lifted(lg, synd_l, l0, **kw_l),
+        "lifted sharded": lambda: lbp(pad_l, l0),
+        "K1": lambda: bp_decode(gl, synd_l, l0, **kw_l),
+        "edge sharded": lambda: ebp.decode(pad_e, l0)})
+    dec_w = interleaved_walls({
+        "lifted": unsharded_l, "lifted sharded": lambda: lbposd(pad_l, l0),
+        "K1": unsharded_k1, "edge sharded": lambda: ebposd(pad_e, l0)})
+    lf, lt = chain_bytes(2, 1, nl, want_l.iterations)
+    ef, et = chain_bytes(2, 4, nl, want_k1.iterations)
+    n_it = int(want_l.iterations.max())
+    print(f"phase 16b [[{nl},{qcode.K}]] lift {LIFT} at full width on a {mesh_name(mesh)} mesh, "
+          f"B={Bl} at p={LIFT_HEAVY_P} (min-sum 0.625, max_iter 100, osd_cs {LIFT_ORDER}): "
+          f"block-row-sharded BP bit-identical to bp_decode_lifted "
+          f"({int((~want_l.converged).sum())} rows failed), edge-sharded BP bit-identical to "
+          f"K1 ({int((~want_k1.converged).sum())} failed); both osdw bit-identical to the "
+          f"unsharded BP + OSD, all satisfied; launches by card {ons}; medians of 3, decode "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms ({Bl / v:.1f} syndromes/s)"
+                      for k, v in dec_w.items())
+          + "; BP alone " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in bp_w.items())
+          + f" (ms per iteration over {n_it}: lifted "
+          f"{ms_per_it(bp_w['lifted'], want_l.iterations):.3f}, lifted sharded "
+          f"{ms_per_it(bp_w['lifted sharded'], want_l.iterations):.3f}, edge sharded "
+          f"{ms_per_it(bp_w['edge sharded'], want_k1.iterations):.3f}); chain bytes at "
+          f"iteration 1 / a iteration on average: lifted {lf} / {lt / n_it:.1f}, edge {ef} / "
+          f"{et / max(int(want_k1.iterations.max()), 1):.1f} (a hop within one card copies "
+          f"nothing) {tag}")
+
+    # (c) four cards: (b) on 2 x 2 and 1 x 4 meshes
+    if cards < 4:
+        print(f"phase 16c did not run: it needs four cards, this machine has {cards}")
+        return model_parallel
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_mesh_2d(*shape)
+        _, _, lbposd, ebposd, pad_l, pad_e, ons = lifted_run(mesh, shape[1], "16c")
+        w = interleaved_walls({"lifted sharded": lambda: lbposd(pad_l, l0),
+                               "edge sharded": lambda: ebposd(pad_e, l0)})
+        print(f"phase 16c {mesh_name(mesh)} mesh, cuda:0 current, (b)'s decodes: BPs and osdw "
+              f"bit-identical to one card; launches by card {ons}; medians of 3 "
+              + ", ".join(f"{k} {v * 1e3:.3f} ms ({Bl / v:.1f} syndromes/s)"
+                          for k, v in w.items()) + f" {tag}")
+    return model_parallel
 
 
 def rank_split(ranks: list[dict]) -> str:
@@ -1521,16 +1792,19 @@ def main() -> None:
     phase13(H, synd, dec, tag)
     phase14(qcode, reset_counts, counts, tag)
     phase15(H, fresh, reset_counts, counts, tag)
+    model_parallel = phase16(tag, qcode)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)
             b, extra["bound_ms_all_columns"] = b[0], b[1].ms
+        launcher = {"gf2_elim": "eliminate"}.get(name, name)  # the wrapper's name
         return {"name": name, "route": "cuda", "source": f"bp_osd_tpu_torch/csrc/{source}",
                 "replaces": f"bp_osd_tpu/ops/{replaces}", "launches": launches,
                 "launches_per_decode": per_decode, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b.ms, "bound_by": b.by, "library_ms": None,
                 "bound_bytes": b.nbytes, "bound_int_ops": b.int_ops,
-                "bound_float_ops": b.float_ops, **extra}
+                "bound_float_ops": b.float_ops,
+                "launches_model_parallel": model_parallel[launcher], **extra}
 
     kernels = [
         row("bp_flood", "bp_flood.cu", "pallas_bp.py:140", launches["bp_flood"],

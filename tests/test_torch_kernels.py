@@ -554,3 +554,46 @@ def test_kernels_on_a_second_card_while_the_first_is_current(dev):
     for f in (osd_cs, osd_e, eliminate, osd_large):
         assert f.launches_on[1] > 0, f.__name__
     assert torch.cuda.current_device() == 0
+
+
+
+@pytest.mark.parametrize("osd_order", [3, 15])
+def test_model_sharded_bposd_on_the_card(dev, osd_order):
+    """Edge-sharded and block-row-sharded BP on a 1 x 2 mesh (both shards on
+    the card; with two cards, one each) equal the unsharded BP bit for bit
+    (K1; ``bp_decode_lifted``), and their gather-to-DP OSD the unsharded OSD,
+    through the kernel ``osd_route`` picks, launched on every card of the
+    mesh."""
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
+    from bp_osd_tpu_torch.decoder.osd import osd_route
+    from bp_osd_tpu_torch.parallel import Mesh2D, ShardedTannerGraph, edge_sharded_bp_fn
+    from bp_osd_tpu_torch.parallel.large_code import (edge_sharded_bposd_fn,
+                                                      lifted_sharded_bposd_fn)
+    from bp_osd_tpu_torch.parallel.lifted_shard import ShardedLiftedGraph, lifted_sharded_bp_fn
+
+    last = min(torch.cuda.device_count(), 2) - 1
+    mesh = Mesh2D((torch.device("cuda", 0), torch.device("cuda", last)), (1, 2))
+    q = lifted_hgp(PROTO, lift=40)
+    H = np.asarray(q.hx.toarray(), np.uint8)
+    g, lg = TannerGraph(H, dev), LiftedGraph(q.hx_proto, 40, dev)
+    synd, llr0 = _batch(H, 64, 0.03, 21, dev)
+    kw = dict(bp_method="minimum_sum", max_iter=60, ms_scaling_factor=0.625)
+    osd_kw = dict(osd_method="osd_cs", osd_order=osd_order)
+    kernel = {"k2": osd_cs, "k5": osd_large}[osd_route(g, "osd_cs", osd_order)]
+    sg = ShardedTannerGraph(H, 2)
+    assert sg.m_chunk * 2 == g.m  # 12 block rows of 40: no pad rows
+    runs = (
+        (edge_sharded_bp_fn(sg, mesh, **kw).decode, bp_decode(g, synd, llr0, **kw),
+         edge_sharded_bposd_fn(sg, mesh, **kw, **osd_kw)),
+        (lifted_sharded_bp_fn(ShardedLiftedGraph(lg, 2), mesh, **kw),
+         bp_decode_lifted(lg, synd, llr0, **kw),
+         lifted_sharded_bposd_fn(lg, H, mesh, n_shards=2, **kw, **osd_kw)))
+    for bp_fn, want, bposd in runs:
+        assert 0 < int(want.converged.sum()) < 64
+        _equal(bp_fn(synd, llr0), want)
+        before = dict(kernel.launches_on)
+        osdw, conv = bposd(synd, llr0)
+        osd = osd_decode(g, synd, want.llr, skip=want.converged, **osd_kw)
+        _equal((osdw, conv), (torch.where(want.converged[:, None], want.hard, osd.osdw),
+                              want.converged))
+        assert all(kernel.launches_on[d.index] > before.get(d.index, 0) for d in mesh.devices)
