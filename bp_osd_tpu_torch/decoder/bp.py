@@ -151,18 +151,45 @@ def _min_sum_factors(v2c, chk_mask, syn, alpha: float):
     return torch.where(chk_mask, torch.where(out_neg, -alpha, alpha), 0.0), excl
 
 
+_GRAIN = 32768  # ATen's intra-op grain size (at::internal::GRAIN_SIZE)
+_BLOCK = 64  # a multiple of every CPU vector loop's step (2 x 16 f32 lanes)
+
+
+def _aligned_length(numel: int, threads: int) -> int:
+    """The least length ``L >= numel`` that ATen cuts into whole
+    ``_BLOCK``-element pieces with ``threads`` intra-op threads.
+
+    ATen's rule (``at::parallel_for`` over OpenMP): a tensor of at most
+    ``_GRAIN`` elements runs in one piece; a longer one runs on
+    ``T = min(threads, ceil(L / _GRAIN))`` threads, thread ``i`` taking
+    elements ``[i * c, (i + 1) * c)`` with ``c = ceil(L / T)``.  So ``L``
+    qualifies when it is a multiple of ``_BLOCK * T`` for the ``T`` that
+    applies at ``L`` itself; this walks ``T`` up from the one at ``numel``,
+    taking in each range of lengths that run on ``T`` threads the least
+    multiple of ``_BLOCK * T``."""
+    t = 1 if numel <= _GRAIN else min(threads, -(-numel // _GRAIN))
+    while True:
+        lo = numel if t == 1 else max(numel, (t - 1) * _GRAIN + 1)
+        size = -(-lo // (_BLOCK * t)) * _BLOCK * t
+        if t >= threads or size <= t * _GRAIN:
+            return size
+        t += 1
+
+
 def _elementwise(fn, x):
-    """``fn(x)`` for an elementwise ``fn`` whose value at an element does not
-    depend on the tensor's length.  On the CPU, ATen evaluates a unary op in
-    vector registers (SLEEF) and the last ``numel % (2 * lanes)`` elements
-    with the scalar libm function, which for ``atanh`` can differ in the
-    last ulp; padding to a multiple of 64 elements puts every element on the
-    vector path (in one thread; ATen splits a tensor of 32768 elements or
-    more between threads).  A card evaluates every element alike."""
+    """``fn(x)`` for an elementwise ``fn``, each element's value depending on
+    that element alone: not on the tensor's length, the element's position
+    or the thread count.  On the CPU, ATen evaluates a unary op in vector
+    registers (SLEEF) and the last ``numel % (2 * lanes)`` elements of each
+    thread's piece with the scalar libm function, which for ``atanh`` can
+    differ in the last ulp.  Zero-padding to :func:`_aligned_length` leaves
+    no thread a scalar tail, so every element takes the vector path (at one
+    thread that is a multiple of 64).  A card evaluates every element
+    alike."""
     if x.device.type != "cpu":
         return fn(x)
     flat = x.reshape(-1)
-    pad = (-flat.numel()) % 64
+    pad = _aligned_length(flat.numel(), torch.get_num_threads()) - flat.numel()
     return fn(torch.cat([flat, flat.new_zeros(pad)]))[: flat.numel()].view(x.shape)
 
 

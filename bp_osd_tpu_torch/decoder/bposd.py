@@ -39,7 +39,7 @@ from .layered import LayeredTannerGraph, bp_decode_layered
 from .lifted_bp import LiftedGraph, bp_decode_lifted
 from .osd import build_osd_consts, normalize_osd_method
 from .pipeline import decode_pipeline
-from .tanner import TannerGraph, canonical_device
+from .tanner import TannerGraph, resolve_device
 
 __all__ = ["BpDecoder", "BpOsdDecoder", "bp_decoder", "bposd_decoder"]
 
@@ -113,15 +113,7 @@ class BpDecoder:
             )
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-        if device is None:
-            on_card = backend == "cuda" or (
-                backend == "auto" and torch.cuda.is_available())
-            device = "cuda" if on_card else "cpu"
-        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "a decoder on 'cuda' needs a CUDA card; "
-                "torch.cuda.is_available() is false")
-        self.device = canonical_device(device)
+        self.device = resolve_device(device, backend)
         self.backend = resolve_backend(backend, self.device)
         self._lifted = None
         if proto is not None:

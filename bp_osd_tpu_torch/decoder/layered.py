@@ -84,10 +84,11 @@ class LayeredTannerGraph(TannerGraph):
     (``bp_decode_layered`` permutes syndromes with it); layer ``l`` holds the
     rows ``layer_bounds[l]``.  ``layer_edges[l]`` are the flat edges of its
     valid slots, counted from the layer's first edge, and ``layer_vars[l]``
-    their variables.
+    their variables.  ``device`` defaults as :class:`TannerGraph`'s does:
+    the card when there is one.
     """
 
-    def __init__(self, H, device="cpu"):
+    def __init__(self, H, device=None):
         Hd = gf2.to_dense(H)
         layers = color_checks(Hd)
         row_perm = np.concatenate(layers)

@@ -46,7 +46,7 @@ from .bp import (
     as_syndromes,
     normalize_bp_method,
 )
-from .tanner import canonical_device
+from .tanner import canonical_device, resolve_device
 
 __all__ = ["LiftedGraph", "bp_decode_lifted"]
 
@@ -62,11 +62,13 @@ class LiftedGraph:
     ``codes.lifted_product.lifted_hgp`` in ``.hx_proto`` / ``.hz_proto``.
     ``edges[I]`` lists ``(J, e mod L)`` per slot of block row ``I``;
     ``chk_mask [wr, mp, 1, 1]`` (numpy) is the JAX package's slot mask.
+    ``device`` defaults as :class:`TannerGraph`'s does: the card when there
+    is one.
     """
 
     _TENSORS = ("chk_var", "edge_mask", "var_edge")
 
-    def __init__(self, proto, lift: int, device="cpu"):
+    def __init__(self, proto, lift: int, device=None):
         self.proto = [[tuple(int(e) for e in ent) for ent in row] for row in proto]
         self.L = L = int(lift)
         self.mp = len(proto)
@@ -79,7 +81,7 @@ class LiftedGraph:
         for I, row in enumerate(self.edges):
             mask[: len(row), I] = True
         self.chk_mask = mask
-        self.device = canonical_device(device)
+        self.device = resolve_device(device)
 
         m, n, wr = self.m, self.n, self.wr
         ar = torch.arange(L)
@@ -114,7 +116,7 @@ class LiftedGraph:
         return g
 
     @classmethod
-    def from_reference(cls, fields: dict, device="cpu") -> "LiftedGraph":
+    def from_reference(cls, fields: dict, device=None) -> "LiftedGraph":
         """Build the graph from a JAX ``LiftedGraph``'s fields.
 
         ``fields`` holds ``proto`` (the protograph the JAX graph was built

@@ -29,7 +29,7 @@ import torch
 
 from .. import gf2
 
-__all__ = ["TannerGraph", "canonical_device"]
+__all__ = ["TannerGraph", "canonical_device", "resolve_device"]
 
 
 def canonical_device(device) -> torch.device:
@@ -41,14 +41,32 @@ def canonical_device(device) -> torch.device:
     return device
 
 
+def resolve_device(device=None, backend: str = "auto") -> torch.device:
+    """The device a graph or decoder is placed on, canonical.
+
+    An explicit ``device`` is taken as given.  With ``device=None``, backend
+    ``"cuda"`` asks for the card and ``"torch"`` for the CPU; ``"auto"``
+    takes the card when ``torch.cuda.is_available()``, else the CPU.  A
+    ``cuda`` device without a card raises ``RuntimeError``: nothing falls
+    back to the CPU."""
+    if device is None:
+        on_card = backend == "cuda" or (backend == "auto" and torch.cuda.is_available())
+        device = "cuda" if on_card else "cpu"
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} needs a CUDA card; "
+                           "torch.cuda.is_available() is false")
+    return canonical_device(device)
+
+
 class TannerGraph:
-    """Static decode-time layout of a parity-check matrix on ``device``."""
+    """Static decode-time layout of a parity-check matrix on ``device``
+    (default: :func:`resolve_device`, the card when there is one)."""
 
     _FIELDS = ("chk_var", "chk_mask", "var_edge", "var_mask", "H_packed")
     _INTS = ("m", "n", "wr", "wc", "num_words", "rank")
     _DERIVED = ("H_cols", "chk_deg")
 
-    def __init__(self, H, device="cpu"):
+    def __init__(self, H, device=None):
         Hd = gf2.to_dense(H)
         m, n = Hd.shape
         if m == 0 or n == 0:
@@ -56,7 +74,7 @@ class TannerGraph:
         self.H = Hd
         self.m = m
         self.n = n
-        self.device = canonical_device(device)
+        self.device = resolve_device(device)
 
         rows, cols = np.nonzero(Hd)  # row-major: sorted by (row, col)
         self.num_edges = int(rows.size)
@@ -118,7 +136,7 @@ class TannerGraph:
         return out
 
     @classmethod
-    def from_reference(cls, fields: dict, device="cpu") -> "TannerGraph":
+    def from_reference(cls, fields: dict, device=None) -> "TannerGraph":
         """Build the graph from a JAX ``TannerGraph``'s numpy leaves and ints.
 
         ``fields`` holds ``chk_var chk_mask var_edge var_mask H_packed`` (numpy,

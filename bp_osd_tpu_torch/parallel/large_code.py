@@ -84,7 +84,7 @@ def edge_sharded_bposd_fn(
     BP is :func:`edge_sharded_bp_fn`; OSD reads the first ``m`` syndrome
     columns, split over every device of the mesh, so ``B`` must divide by
     ``len(mesh)``.  Converged rows keep BP's decision."""
-    graph = TannerGraph(sgraph.H)
+    graph = TannerGraph(sgraph.H, "cpu")  # copied to each device by the OSD stage
     consts = build_osd_consts(graph, osd_method, osd_order)
     bp = edge_sharded_bp_fn(sgraph, mesh, bp_method=bp_method, max_iter=max_iter,
                             ms_scaling_factor=ms_scaling_factor, data_axis=data_axis,
@@ -114,7 +114,7 @@ def lifted_sharded_bposd_fn(
     gather-to-DP OSD.  ``H`` is the binary lift of ``lgraph``, read only by
     the OSD stage.  Returns ``decode(syndromes_pad [B, n_shards * mp_chunk *
     L], llr0 [B, n]) -> (osdw [B, n] uint8, converged [B] bool)``."""
-    graph = TannerGraph(H)
+    graph = TannerGraph(H, "cpu")  # copied to each device by the OSD stage
     consts = build_osd_consts(graph, osd_method, osd_order)
     bp = lifted_sharded_bp_fn(ShardedLiftedGraph(lgraph, n_shards), mesh, bp_method=bp_method,
                               max_iter=max_iter, ms_scaling_factor=ms_scaling_factor,

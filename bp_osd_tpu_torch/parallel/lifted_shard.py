@@ -63,7 +63,7 @@ class ShardedLiftedGraph:
         return route, mask
 
     @classmethod
-    def from_reference(cls, fields: dict, device="cpu") -> "ShardedLiftedGraph":
+    def from_reference(cls, fields: dict, device=None) -> "ShardedLiftedGraph":
         """The partition of a JAX ``ShardedLiftedGraph``: ``fields`` holds
         ``lg`` (a JAX ``LiftedGraph``'s fields, see
         :meth:`LiftedGraph.from_reference`), ``n_shards``, ``mp_chunk``,

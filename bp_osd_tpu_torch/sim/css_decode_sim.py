@@ -50,7 +50,7 @@ from ..decoder.bp import llr_from_channel
 from ..decoder.bposd import _CHUNK_CARD, _CHUNK_CPU
 from ..decoder.osd import build_osd_consts, normalize_osd_method
 from ..decoder.pipeline import BpOsdBatch, decode_pipeline
-from ..decoder.tanner import TannerGraph, canonical_device
+from ..decoder.tanner import TannerGraph, canonical_device, resolve_device
 from ..ops import BACKENDS, resolve_backend
 from ..parallel import Mesh, make_mesh, shard_batch_fn
 from ..parallel.distributed import (host_batch_slice, local_card, process_count,
@@ -342,17 +342,16 @@ class css_decode_sim:
                 f"channel_update must be None, 'x->z' or 'z->x', "
                 f"got {self.channel_update!r}"
             )
-        on_card = self.backend == "cuda" or (
-            self.backend == "auto" and torch.cuda.is_available())
-        if on_card and not torch.cuda.is_available():
-            raise RuntimeError("backend='cuda' needs a CUDA card; "
-                               "torch.cuda.is_available() is false")
+        dev = resolve_device(None, self.backend)
+        on_card = dev.type == "cuda"
         ranks = process_count() > 1
         if self.use_mesh == -1:
             self.use_mesh = 1 if ranks else 0
         given = self.use_mesh and self.mesh is not None
-        dev = (canonical_device("cpu") if not on_card else self.mesh.devices[0] if given
-               else local_card() if ranks else canonical_device("cuda"))
+        if on_card and given:
+            dev = self.mesh.devices[0]
+        elif on_card and ranks:
+            dev = local_card()
         self._device = dev
         self.backend = resolve_backend(self.backend, dev)
         if self.batch_size == 0:

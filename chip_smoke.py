@@ -127,6 +127,15 @@ Phases, one line each (any failed check exits non-zero):
    decode's, BP's ms per iteration, the bytes the chain hands between shards
    and the launches by card; (c) with four cards, (b) on 2 x 2 and 1 x 4
    meshes, equal to one card (with fewer, a line says that (c) did not run).
+17. the functional API on graphs built with no ``device`` (the card by
+   default): (a) ``decode_pipeline(TannerGraph(H), ...)`` on the 512 corpus
+   rows as numpy (adaptive min-sum, max_iter 400, osd_cs 42): osdw, weights,
+   converged and iterations equal the corpus, every output on the card, K1
+   and K2 launched and no other OSD kernel; (b)
+   ``bp_decode_lifted(LiftedGraph(hx_proto, 400), ...)`` on 512 numpy
+   syndromes at p = 0.005 (min-sum 0.625, max_iter 100): plain torch on the
+   card, no kernel launched, equal bit for bit to the same call on a graph
+   built with ``device="cuda"``; each call's walls (3 calls).
 
 It prints the card's name and power limit and a JSON line of per-kernel
 results before the last line, ``{"ok": true, "device": {...}}``.  Each kernel
@@ -1038,6 +1047,105 @@ def phase16(tag, qcode=None) -> dict:
     return model_parallel
 
 
+def phase17(tag, qcode) -> None:
+    """The functional API on graphs built with no ``device``: (a)
+    ``decode_pipeline(TannerGraph(H), ...)`` on the corpus's numpy
+    syndromes, through K1 and K2; (b) ``bp_decode_lifted(LiftedGraph(proto,
+    400), ...)`` on one numpy lift-400 batch, plain torch on the card."""
+    from bp_osd_tpu_torch.codes import hgp, mkmn_16_4_6
+    from bp_osd_tpu_torch.decoder import TannerGraph, decode_pipeline
+    from bp_osd_tpu_torch.decoder.bp import llr_from_channel
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
+    from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate
+    from bp_osd_tpu_torch.ops.cuda_osd import osd_cs, osd_e
+    from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
+
+    wrappers = (bp_flood, osd_cs, osd_e, eliminate, osd_large)
+
+    def reset():
+        for f in wrappers:
+            f.launches = 0
+
+    def counts():
+        return {f.__name__: f.launches for f in wrappers}
+
+    def walls(fn, reps=3):
+        """The host walls of ``reps`` calls, each synchronised, and the last
+        output."""
+        out, ws = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ws.append(time.perf_counter() - t0)
+        return out, ws
+
+    def on_card(*xs):
+        return all(x.device.type == "cuda" for x in xs)
+
+    # (a) the main path's decode on a default graph, numpy in
+    data = np.load(CORPUS)
+    B, m, n, max_iter, osd_order, _ = (int(x) for x in data["meta"])
+    H = np.asarray(hgp(mkmn_16_4_6()).hx.toarray(), np.uint8)
+    graph = TannerGraph(H)
+    check(graph.device.type == "cuda", f"TannerGraph(H) is on {graph.device}, not the card")
+    synd = np.unpackbits(data["synd_packed"], axis=1)[:, :m]
+    ref_osdw = np.unpackbits(data["osdw_packed"], axis=1)[:, :n]
+    llr0 = llr_from_channel(np.full(n, 0.05)).numpy()
+    kw = dict(bp_method="minimum_sum", ms_scaling_factor=0.0, max_iter=max_iter,
+              osd_method="osd_cs", osd_order=osd_order)
+    reset()
+    out, ws = walls(lambda: decode_pipeline(graph, synd, llr0, **kw))
+    got = counts()
+    check(got["bp_flood"] > 0 and got["osd_cs"] > 0,
+          f"decode_pipeline on a default graph did not launch K1 and K2: {got}")
+    check(got["osd_e"] == got["eliminate"] == got["osd_large"] == 0,
+          f"decode_pipeline at osd_cs launched another OSD kernel: {got}")
+    check(on_card(*out), "decode_pipeline's outputs are not all on the card")
+    check(np.array_equal(out.osdw.cpu().numpy(), ref_osdw), "decode_pipeline osdw != corpus")
+    check(np.array_equal(out.osdw.sum(1).cpu().numpy(), data["weights"])
+          and np.array_equal(out.converged.cpu().numpy(), data["converged"])
+          and np.array_equal(out.iterations.cpu().numpy(), data["iterations"]),
+          "decode_pipeline weights/converged/iterations != corpus")
+
+    # (b) the functional lifted BP on a default graph, numpy in
+    hl = np.asarray(qcode.hx.toarray(), np.uint8)
+    ml, nl = hl.shape
+    t0 = time.perf_counter()
+    lg = LiftedGraph(qcode.hx_proto, LIFT)
+    build_s = time.perf_counter() - t0
+    check(lg.device.type == "cuda", f"LiftedGraph(proto, {LIFT}) is on {lg.device}")
+    lg_cuda = LiftedGraph(qcode.hx_proto, LIFT, device="cuda")
+    rng = np.random.default_rng(SEED + 17)
+    synd_l = ((rng.random((LIFT_B, nl)) < LIFT_P).astype(np.uint8) @ hl.T % 2).astype(np.uint8)
+    l0 = llr_from_channel(np.full(nl, LIFT_P)).numpy()
+    kw_l = dict(bp_method="minimum_sum", max_iter=100, ms_scaling_factor=0.625)
+    reset()
+    res, ws_l = walls(lambda: bp_decode_lifted(lg, synd_l, l0, **kw_l))
+    got_l = counts()
+    check(not any(got_l.values()), f"the functional lifted BP launched a kernel: {got_l}")
+    check(on_card(*res), "bp_decode_lifted's outputs are not all on the card")
+    want = bp_decode_lifted(lg_cuda, synd_l, l0, **kw_l)
+    for name, a, b in zip(res._fields, res, want):
+        check(same(a, b), f"bp_decode_lifted on a default graph: {name} differs from "
+                          "device='cuda'")
+    check(same(res.llr.view(torch.int32), want.llr.view(torch.int32)),
+          "bp_decode_lifted llr bits differ from device='cuda'")
+    n_conv = int(res.converged.sum())
+    check(0 < n_conv, "no lift-400 row converged")
+    print(f"phase 17 default graphs on {graph.device}: (a) decode_pipeline(TannerGraph(H), "
+          f"numpy syndromes) on the {B} corpus rows (adaptive min-sum, max_iter {max_iter}, "
+          f"osd_cs {osd_order}): osdw/weights/converged/iterations == corpus, outputs on the "
+          f"card, launches {got}, walls {[round(w * 1e3, 3) for w in ws]} ms (median "
+          f"{np.median(ws) * 1e3:.3f}); (b) bp_decode_lifted(LiftedGraph(hx_proto, {LIFT}), "
+          f"numpy syndromes) on {LIFT_B} rows at p={LIFT_P} (min-sum 0.625, max_iter 100; "
+          f"graph built in {build_s:.2f} s): == device='cuda' bit for bit, {n_conv}/{LIFT_B} "
+          f"converged, outputs on the card, no kernel launched, walls "
+          f"{[round(w * 1e3, 3) for w in ws_l]} ms (median {np.median(ws_l) * 1e3:.3f}) {tag}")
+
+
 def rank_split(ranks: list[dict]) -> str:
     """Each rank's ms a batch, beside one reduction's and one slice's decode."""
     return ("each rank's first batch of one (a fresh process, before the timed run) "
@@ -1793,6 +1901,7 @@ def main() -> None:
     phase14(qcode, reset_counts, counts, tag)
     phase15(H, fresh, reset_counts, counts, tag)
     model_parallel = phase16(tag, qcode)
+    phase17(tag, qcode)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)

@@ -43,7 +43,7 @@ def _inputs(H, B, p, seed):
 def _both(H, synd, llr0, **kw):
     ref = jbp_decode(JTannerGraph(H), synd, np.broadcast_to(llr0, (len(synd), H.shape[1])),
                      **kw)
-    mine = bp_decode(TannerGraph(H), synd, llr0, **kw)
+    mine = bp_decode(TannerGraph(H, device="cpu"), synd, llr0, **kw)
     return ({k: np.asarray(v) for k, v in ref._asdict().items()},
             {k: v.numpy() for k, v in mine._asdict().items()})
 
@@ -105,7 +105,7 @@ def test_product_sum():
 
 def test_resume_chain_equals_straight_run():
     H = np.asarray(CODES["flagship"](), np.uint8)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     synd, llr0 = _inputs(H, 96, 0.05, 3)
     kw = dict(bp_method="ms", ms_scaling_factor=0.0)
     straight = bp_decode(g, synd, llr0, max_iter=400, **kw)
@@ -126,7 +126,7 @@ def test_resume_chain_equals_straight_run():
 
 def test_skip_rows_born_converged():
     H = np.asarray(CODES["surface"](), np.uint8)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     synd, llr0 = _inputs(H, 32, 0.08, 4)
     skip = np.zeros(32, bool)
     skip[::3] = True

@@ -79,7 +79,7 @@ def _jax_fields(jg):
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_tanner_fields_equal_jax(name):
     H = _dense(PAIRS[name][0]().hx)
-    mine, ref = TannerGraph(H).fields(), _jax_fields(JTannerGraph(H))
+    mine, ref = TannerGraph(H, device="cpu").fields(), _jax_fields(JTannerGraph(H))
     assert mine.keys() == ref.keys()
     for k in mine:
         r = ref[k].view(np.int32) if k == "H_packed" else ref[k]
@@ -89,7 +89,7 @@ def test_tanner_fields_equal_jax(name):
 def test_from_reference_round_trips():
     H = _dense(hgp(mkmn_16_4_6()).hx)
     ref = _jax_fields(JTannerGraph(H))
-    g = TannerGraph.from_reference(ref)
+    g = TannerGraph.from_reference(ref, device="cpu")
     assert np.array_equal(g.H, H)
     back = g.fields()
     for k in ref:
@@ -97,7 +97,7 @@ def test_from_reference_round_trips():
         assert np.array_equal(back[k], r), k
     bad = dict(ref, rank=ref["rank"] - 1)
     with pytest.raises(ValueError, match="rank"):
-        TannerGraph.from_reference(bad)
+        TannerGraph.from_reference(bad, device="cpu")
     bad = dict(ref, var_edge=np.roll(ref["var_edge"], 1, axis=1))
     with pytest.raises(ValueError, match="var_edge"):
-        TannerGraph.from_reference(bad)
+        TannerGraph.from_reference(bad, device="cpu")

@@ -55,7 +55,7 @@ def _inputs(H, sg, B, p, seed):
 
 
 def _unsharded(H, synd, llr0, method, msf, max_iter):
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     return bp_decode_plain(g, torch.as_tensor(synd), torch.as_tensor(llr0), method=method,
                            max_iter=max_iter, ms_scaling_factor=msf)[:4]
 

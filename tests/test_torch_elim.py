@@ -75,7 +75,8 @@ def test_eliminate_plain_equals_jax(code, with_skip):
         eliminate_pallas(jg, perm, synd.astype(np.int32), skip=jskip, block=16 if with_skip else 8,
                          interpret=True),
     )
-    mine = eliminate_plain(TannerGraph(H), torch.as_tensor(perm), torch.as_tensor(synd),
+    mine = eliminate_plain(TannerGraph(H, device="cpu"), torch.as_tensor(perm),
+                           torch.as_tensor(synd),
                            skip=None if skip is None else torch.as_tensor(skip))
     assert mine.h_work.dtype == torch.int32 and mine.pivot_mask.dtype == torch.bool
     live = np.ones(B, bool) if skip is None else ~skip
@@ -93,7 +94,7 @@ def test_eliminate_wrapper_takes_cpu_tensors_to_the_plain_version():
     outputs exactly at every placement, and an unknown placement raises."""
     H = np.asarray(CODES["flagship"](), np.uint8)
     synd, perm = _inputs(H, 6, 3)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     args = (g, torch.as_tensor(perm), torch.as_tensor(synd))
     want = eliminate_plain(*args)
     for placement in ("auto", "warp", "shared", "global"):
@@ -112,7 +113,7 @@ def test_osd_after_elimination_equals_plain_osd(code, method, order):
     osd0 and osdw, with zeros on skipped rows."""
     H = np.asarray(CODES[code](), np.uint8)
     synd, perm = _inputs(H, 16, 9)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     perm_t, synd_t = torch.as_tensor(perm), torch.as_tensor(synd)
     skip = torch.as_tensor(np.arange(16) % 4 == 0)
     for sk in (None, skip):
@@ -145,7 +146,7 @@ def test_plain_osd_e_equals_pallas_kernel_interpreted(rep4_case, order):
     H, synd, perm = rep4_case
     e0, ew = osd_e_pallas(JTannerGraph(H), jnp.asarray(perm), jnp.asarray(synd, jnp.int32),
                           osd_order=order, interpret=True)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     args = (g, torch.as_tensor(perm), torch.as_tensor(synd))
     plain = osd_decode_plain(*args, method="osd_e", osd_order=order)
     for got in (plain, osd_e(*args, osd_order=order)):
@@ -157,9 +158,10 @@ def test_osd_route_table():
     """The card's kernel for each (method, order) at the surface, flagship,
     lift-60 and lift-400 shapes, as the JAX package routes its Pallas
     backend with K2's fit in the place of ``fused_osd_fits``."""
-    surface = TannerGraph(np.asarray(CODES["surface"](), np.uint8))
-    flagship = TannerGraph(np.asarray(CODES["flagship"](), np.uint8))
-    lift60 = TannerGraph(np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8))
+    surface = TannerGraph(np.asarray(CODES["surface"](), np.uint8), device="cpu")
+    flagship = TannerGraph(np.asarray(CODES["flagship"](), np.uint8), device="cpu")
+    lift60 = TannerGraph(np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8),
+                         device="cpu")
     lift400 = _lifted_shape(400, rank=4790)
     cases = [("osd0", 0), ("osd_cs", 0), ("osd_cs", 7), ("osd_cs", 42), ("osd_e", 0),
              ("osd_e", 4), ("osd_e", 12)]
@@ -184,10 +186,10 @@ def test_osd_route_table():
 def test_k1_fits_at_lifts():
     """K1's shared memory (mirror of ``csrc/bp_flood.cu:bp_flood_smem_bytes``)
     fits the dense lifted product up to lift 140 and not from lift 141."""
-    real = TannerGraph(np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8))
+    real = TannerGraph(np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8), device="cpu")
     shape = _lifted_shape(60)
     assert (real.m, real.n, real.wr, real.wc) == (shape.m, shape.n, shape.wr, shape.wc)
     assert [k1_fits(_lifted_shape(L)) for L in (60, 140, 141, 400)] == [True, True, False, False]
     assert bp_flood_smem_bytes(1680, 3500, 7, 4) == 231_840
     assert bp_flood_smem_bytes(4800, 10000, 7, 4) == 662_400
-    assert k1_fits(TannerGraph(np.asarray(CODES["flagship"](), np.uint8)))
+    assert k1_fits(TannerGraph(np.asarray(CODES["flagship"](), np.uint8), device="cpu"))

@@ -70,7 +70,7 @@ def test_resolve_backend(backend, device, want):
 
 def test_backend_cuda_without_card_raises(monkeypatch):
     H = hgp(rep_code(3), rep_code(3)).hz.toarray()
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     synd = np.zeros((2, g.m), np.uint8)
     llr0 = llr_from_channel(np.full(g.n, 0.05))
     with pytest.raises(RuntimeError, match="cuda"):

@@ -170,7 +170,7 @@ def test_k4_warp_emulation_equals_plain_and_jax(code, B):
     JAX ``_eliminate`` and ``eliminate_pallas(interpret=True)`` on every live
     row, and zeros on skipped rows (every third, as the kernel writes them)."""
     H, synd, perm = _case(code, B)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     m, r = g.m, g.rank
     if code == "rank_deficient":
         assert r == 21 < m
@@ -202,7 +202,7 @@ def test_k4_warp_emulation_catches_a_shifted_inverse_perm(code):
     emulated ``h_work`` differs from ``eliminate_plain``'s (the four other
     outputs do not read the inverse)."""
     H, synd, perm = _case(code, 2)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     h_cols = g.H_cols.numpy().view(np.uint32)
     plain = eliminate_plain(g, torch.as_tensor(perm), torch.as_tensor(synd))
     for b in range(2):
@@ -225,7 +225,7 @@ def _graph(name):
          "900": lambda: hgp(mkmn_24_6_10()).hx,
          "lift60": lambda: lifted_hgp(PROTO, lift=60).hx,
          "lift100": lambda: lifted_hgp(PROTO, lift=100).hx}[name]()
-    return TannerGraph(np.asarray(H.toarray(), np.uint8))
+    return TannerGraph(np.asarray(H.toarray(), np.uint8), device="cpu")
 
 
 def test_k4_warp_shared_memory_mirror():

@@ -214,7 +214,7 @@ def test_k5_panel_emulation_equals_plain_and_jax(code, P):
     ``osd_decode_plain``, on flagship corpus rows, lift-60 rows and a
     rank-deficient code."""
     H, synd, perm, order = _case(code)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     m, n, r = g.m, g.n, g.rank
     if code == "rank_deficient":
         assert r == 21 < m
@@ -290,7 +290,7 @@ def test_chip_smoke_elim_work_counts(code):
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     H, synd, perm, _ = _case(code)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     work = chip_smoke.elim_work(g, torch.as_tensor(perm), torch.as_tensor(synd))
     h_cols = g.H_cols.numpy().view(np.uint32)
     Wm = h_cols.shape[1]
@@ -329,9 +329,11 @@ def test_k3_fits_is_k2s_fit_and_routes_hold():
     not lift 60 (291,248 bytes at order 15 for one warp and the shared H),
     whose osd_e goes to K4; the routes of the flagship and lift-60/100 osd_e
     decoders are unchanged."""
-    flagship = TannerGraph(np.asarray(hgp(mkmn_16_4_6()).hx.toarray(), np.uint8))
-    lift60 = TannerGraph(np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8))
-    lift100 = TannerGraph(np.asarray(lifted_hgp(PROTO, lift=100).hx.toarray(), np.uint8))
+    flagship = TannerGraph(np.asarray(hgp(mkmn_16_4_6()).hx.toarray(), np.uint8), device="cpu")
+    lift60 = TannerGraph(np.asarray(lifted_hgp(PROTO, lift=60).hx.toarray(), np.uint8),
+                         device="cpu")
+    lift100 = TannerGraph(np.asarray(lifted_hgp(PROTO, lift=100).hx.toarray(), np.uint8),
+                          device="cpu")
     for g in (flagship, lift60, lift100):
         for order in (1, 2, 8, 12, 16):
             assert k3_fits(g, order) == k2_fits(g, order)

@@ -47,7 +47,7 @@ def _case(lift, B, p, seed, n_shards=2):
 
 
 def _unsharded(H, synd, llr0, kw, osd_kw):
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     bp = bp_decode(g, synd, llr0, **kw)
     osd = osd_decode(g, synd, bp.llr, consts=build_osd_consts(g, **osd_kw), skip=bp.converged,
                      **osd_kw)
@@ -85,13 +85,13 @@ def test_osd_route_of_the_large_codes():
     """The counterpart of JAX's streamed-route test: on the card, osd_cs 15
     on the [[10000,420]] lift-400 code goes to K5 (its m, n and rank, the
     code itself is not built here), the lift-40 test code to K2."""
-    lg = LiftedGraph(lifted_hgp(BENCH_PROTO, lift=8).hx_proto, 400)
+    lg = LiftedGraph(lifted_hgp(BENCH_PROTO, lift=8).hx_proto, 400, device="cpu")
     big = SimpleNamespace(m=lg.m, n=lg.n, rank=4790)  # K = 10000 - 2 * 4790 = 420
     assert (big.m, big.n) == (4800, 10000)
     assert osd_route(big, "osd_cs", 15) == "k5"
     assert osd_route(big, "osd0", 0) == "k5"
     H, *_ = _case(40, 1, 0.0, 0)
-    assert osd_route(TannerGraph(H), "osd_cs", 3) == "k2"
+    assert osd_route(TannerGraph(H, device="cpu"), "osd_cs", 3) == "k2"
 
 
 def test_osd_backend_and_batch_checks():

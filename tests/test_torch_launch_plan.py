@@ -48,7 +48,7 @@ CODES = {
 
 
 def _graph(code):
-    return TannerGraph(np.asarray(CODES[code](), np.uint8))
+    return TannerGraph(np.asarray(CODES[code](), np.uint8), device="cpu")
 
 
 @pytest.mark.parametrize("code", sorted(CODES))
@@ -234,7 +234,7 @@ def test_fused_order_equals_jax_bp_decode(code, p, max_iter, scale):
     synd, l0 = _inputs(H, 64, p, 11)
     ref = jbp_decode(JTannerGraph(H), synd, np.broadcast_to(l0, (64, H.shape[1])),
                      bp_method="ms", max_iter=max_iter, ms_scaling_factor=scale)
-    got = fused_min_sum(TannerGraph(H), synd, l0, max_iter=max_iter, scale=scale)
+    got = fused_min_sum(TannerGraph(H, device="cpu"), synd, l0, max_iter=max_iter, scale=scale)
     for name, a, b in zip(("hard", "llr", "converged", "iterations"), got, ref):
         assert np.array_equal(a, np.asarray(b).astype(a.dtype)), name
 

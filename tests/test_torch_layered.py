@@ -58,7 +58,7 @@ def test_coloring_and_row_perm_equal_jax(name):
     want = jcolor_checks(H)
     assert len(layers) == len(want)
     assert all(np.array_equal(a, b) for a, b in zip(layers, want))
-    g, jg = LayeredTannerGraph(H), JLayeredTannerGraph(H)
+    g, jg = LayeredTannerGraph(H, device="cpu"), JLayeredTannerGraph(H)
     assert np.array_equal(g.row_perm, jg.row_perm)
     assert g.layer_bounds == jg.layer_bounds
     assert np.array_equal(g.H, H[g.row_perm])
@@ -104,7 +104,7 @@ def test_layered_min_sum_bit_exact(name, scale):
     H, synd, llr0 = _case(name, 64)
     kw = dict(bp_method="minimum_sum", max_iter=60, ms_scaling_factor=scale)
     ref = jbp_decode_layered(JLayeredTannerGraph(H), synd, llr0, **kw)
-    got = bp_decode_layered(LayeredTannerGraph(H), synd, llr0, **kw)
+    got = bp_decode_layered(LayeredTannerGraph(H, device="cpu"), synd, llr0, **kw)
     for k in ("hard", "llr", "converged", "iterations"):
         assert np.array_equal(getattr(got, k).numpy(), np.asarray(getattr(ref, k))), k
     assert 0 < int(got.converged.sum()) < 64 or name.startswith("surface")
@@ -118,7 +118,7 @@ def test_layered_product_sum_rows_agree(name):
     H, synd, llr0 = _case(name, 128)
     kw = dict(bp_method="product_sum", max_iter=20)
     ref = jbp_decode_layered(JLayeredTannerGraph(H), synd, llr0, **kw)
-    got = bp_decode_layered(LayeredTannerGraph(H), synd, llr0, **kw)
+    got = bp_decode_layered(LayeredTannerGraph(H, device="cpu"), synd, llr0, **kw)
     rows = ((got.hard.numpy() == np.asarray(ref.hard)).all(1)
             & (got.converged.numpy() == np.asarray(ref.converged))
             & (got.iterations.numpy() == np.asarray(ref.iterations)))
@@ -161,7 +161,7 @@ def test_layered_osd_step_runs_on_unpermuted_graph():
     dec.decode_batch(synd)
     fail = ~dec.converge_batch
     assert fail.any()
-    ref = osd_decode(TannerGraph(H), synd[fail], dec.log_prob_ratios_batch[fail],
+    ref = osd_decode(TannerGraph(H, device="cpu"), synd[fail], dec.log_prob_ratios_batch[fail],
                      osd_method="osd_cs", osd_order=8)
     assert np.array_equal(dec.osdw_decoding_batch[fail], ref.osdw.numpy())
     assert np.array_equal(dec.osd0_decoding_batch[fail], ref.osd0.numpy())
@@ -174,7 +174,8 @@ def test_layered_bp_decoder_equals_bp_decode_layered():
     dec = BpDecoder(H, error_rate=P["surface5_hx"], max_iter=20, bp_method="ps",
                     schedule="serial")
     hard = dec.decode_batch(synd)
-    ref = bp_decode_layered(LayeredTannerGraph(H), synd, llr0, bp_method="ps", max_iter=20)
+    ref = bp_decode_layered(LayeredTannerGraph(H, device="cpu"), synd, llr0, bp_method="ps",
+                            max_iter=20)
     assert np.array_equal(hard, ref.hard.numpy())
     assert np.array_equal(dec.iter_batch, ref.iterations.numpy())
     conv = dec.converge_batch

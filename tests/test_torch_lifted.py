@@ -76,7 +76,7 @@ def test_lifted_hgp_equals_jax(proto, lift):
 @pytest.mark.parametrize("proto,lift", [(PROTO, 8), (MULTI, 6)])
 def test_lifted_graph_from_reference(proto, lift):
     jg = JLiftedGraph(proto, lift)
-    g = LiftedGraph.from_reference(_jax_fields(jg, proto))
+    g = LiftedGraph.from_reference(_jax_fields(jg, proto), device="cpu")
     assert (g.m, g.n, g.wr, g.edges) == (jg.m, jg.n, jg.wr, jg.edges)
     # every edge routes to the variable the binary lift has there
     H = _dense(protograph_to_binary(proto, lift))
@@ -85,10 +85,10 @@ def test_lifted_graph_from_reference(proto, lift):
         assert sorted(cv[c][g.edge_mask[c].numpy()]) == list(np.flatnonzero(H[c]))
     bad = dict(_jax_fields(jg, proto), wr=jg.wr + 1)
     with pytest.raises(ValueError, match="wr"):
-        LiftedGraph.from_reference(bad)
+        LiftedGraph.from_reference(bad, device="cpu")
     bad = dict(_jax_fields(jg, proto), edges=jg.edges[::-1])
     with pytest.raises(ValueError, match="edges"):
-        LiftedGraph.from_reference(bad)
+        LiftedGraph.from_reference(bad, device="cpu")
 
 
 @pytest.mark.parametrize("bp_method,msf", [("minimum_sum", 0.625), ("minimum_sum", 0.0),
@@ -102,7 +102,7 @@ def test_bp_decode_lifted_equals_jax(bp_method, msf):
     q = jlifted_hgp(PROTO, lift=L)
     H = _dense(q.hx)
     jg = JLiftedGraph(q.hx_proto, L)
-    g = LiftedGraph.from_reference(_jax_fields(jg, q.hx_proto))
+    g = LiftedGraph.from_reference(_jax_fields(jg, q.hx_proto), device="cpu")
     synd = _syndromes(H, 12, 0.06, 5)
     llr0 = np.asarray(jllr_from_channel(np.full(H.shape[1], 0.06)))
     kw = dict(bp_method=bp_method, max_iter=25, ms_scaling_factor=msf)
@@ -127,8 +127,8 @@ def test_lifted_min_sum_equals_dense_bp(proto, lift, msf):
     synd = _syndromes(H, 12, 0.05, 23)
     llr0 = np.full(H.shape[1], np.log(0.95 / 0.05), np.float32)
     kw = dict(bp_method="ms", max_iter=25, ms_scaling_factor=msf)
-    mine = bp_decode_lifted(LiftedGraph(proto, lift), synd, llr0, **kw)
-    dense = bp_decode(TannerGraph(H), synd, llr0, **kw)
+    mine = bp_decode_lifted(LiftedGraph(proto, lift, device="cpu"), synd, llr0, **kw)
+    dense = bp_decode(TannerGraph(H, device="cpu"), synd, llr0, **kw)
     for k in ("hard", "converged", "iterations"):
         assert np.array_equal(getattr(mine, k).numpy(), getattr(dense, k).numpy()), k
     np.testing.assert_allclose(mine.llr.numpy(), dense.llr.numpy(), atol=2e-4)
@@ -158,7 +158,7 @@ def test_plain_osd_equals_jax_large_kernel(order, with_skip):
     e0, ew = osd_cs_large_pallas(JTannerGraph(H), perm, synd, osd_order=order,
                                  skip=None if skip is None else skip.astype(np.int32),
                                  interpret=True)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     pairs = build_osd_consts(g, "osd_cs", order).pairs
     args = (g, torch.as_tensor(np.array(perm)), torch.as_tensor(synd))
     kw = dict(osd_order=order, pairs=pairs,
@@ -181,9 +181,9 @@ def test_k2_k5_routing_by_shared_memory():
     assert osd_cs_warp_smem_bytes(720, 1500, 15) == 291_248  # lift 60 does not
     assert osd_cs_warp_smem_bytes(4800, 10000, 15) > 12_000_000
     assert _SMEM_LIMIT == 232_448
-    flagship = TannerGraph(_dense(hgp(_dense(protograph_to_binary(PROTO, 1))).hx))
+    flagship = TannerGraph(_dense(hgp(_dense(protograph_to_binary(PROTO, 1))).hx), device="cpu")
     assert k2_fits(flagship, 42)
-    lift60 = TannerGraph(_dense(lifted_hgp(PROTO, lift=60).hx))
+    lift60 = TannerGraph(_dense(lifted_hgp(PROTO, lift=60).hx), device="cpu")
     assert not k2_fits(lift60, 15) and not k2_fits(lift60, 0)
     assert not k2_fits(SimpleNamespace(m=4800, n=10000, rank=4790), 15)
 

@@ -48,7 +48,7 @@ def _case(proto, lift, n_shards, B, p, seed):
     H = np.asarray(q.hx.toarray(), np.uint8)
     m, n = H.shape
     jg = JLiftedGraph(q.hx_proto, lift)
-    lg = LiftedGraph.from_reference(_jfields(jg, q.hx_proto))
+    lg = LiftedGraph.from_reference(_jfields(jg, q.hx_proto), device="cpu")
     rng = np.random.default_rng(seed)
     synd = ((rng.random((B, n)) < p).astype(np.uint8) @ H.T % 2).astype(np.uint8)
     mpc = -(-lg.mp // n_shards)
@@ -90,7 +90,7 @@ def test_lifted_sharded_bposd_end_to_end():
         synd_pad, llr0)
 
     bp = bp_decode_lifted(lg, synd, llr0, max_iter=12, ms_scaling_factor=0.0)
-    graph = TannerGraph(H)
+    graph = TannerGraph(H, device="cpu")
     osd = osd_decode(graph, synd, bp.llr, osd_method="osd_cs", osd_order=4,
                      consts=build_osd_consts(graph, "osd_cs", 4), skip=bp.converged)
     want = torch.where(bp.converged[:, None], bp.hard, osd.osdw)
@@ -147,11 +147,11 @@ def test_from_reference_checks_the_jax_partition(proto, lift, n_shards):
     js = JShardedLiftedGraph(jg, n_shards)
     fields = dict(lg=_jfields(jg, q.hx_proto), n_shards=js.n_shards, mp_chunk=js.mp_chunk,
                   pairs=js.pairs, route=js.route, chk_mask=js.chk_mask)
-    sg = ShardedLiftedGraph.from_reference(fields)
+    sg = ShardedLiftedGraph.from_reference(fields, device="cpu")
     assert (sg.mp_chunk, sg.pairs) == (js.mp_chunk, js.pairs)
     route = js.route.copy()
     route[0, 0, 0, 0] = 1 - route[0, 0, 0, 0]
     with pytest.raises(ValueError, match="route"):
-        ShardedLiftedGraph.from_reference(dict(fields, route=route))
+        ShardedLiftedGraph.from_reference(dict(fields, route=route), device="cpu")
     with pytest.raises(ValueError, match="pairs"):
-        ShardedLiftedGraph.from_reference(dict(fields, pairs=js.pairs[1:]))
+        ShardedLiftedGraph.from_reference(dict(fields, pairs=js.pairs[1:]), device="cpu")

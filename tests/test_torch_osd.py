@@ -49,7 +49,7 @@ def test_osd_exact_vs_jax(code, method, order):
     jg = JTannerGraph(H)
     ref = josd_decode(jg, synd, llr, osd_method=method, osd_order=order,
                       consts=jbuild_osd_consts(jg, method, order))
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     mine = osd_decode(g, synd, llr, osd_method=method, osd_order=order,
                       consts=build_osd_consts(g, method, order))
     assert np.array_equal(mine.osd0.numpy(), np.asarray(ref.osd0))
@@ -62,7 +62,7 @@ def test_osd_cs_matches_the_pallas_kernel_interpreted():
     perm = jnp.argsort(jnp.asarray(llr), axis=1, stable=True).astype(jnp.int32)
     e0, ew = osd_cs_pallas(JTannerGraph(H), perm, jnp.asarray(synd, jnp.int32),
                            osd_order=4, interpret=True)
-    mine = osd_decode(TannerGraph(H), synd, llr, osd_method="osd_cs", osd_order=4)
+    mine = osd_decode(TannerGraph(H, device="cpu"), synd, llr, osd_method="osd_cs", osd_order=4)
     assert np.array_equal(mine.osd0.numpy(), np.asarray(e0).astype(np.uint8))
     assert np.array_equal(mine.osdw.numpy(), np.asarray(ew).astype(np.uint8))
 
@@ -84,7 +84,7 @@ def test_osd_e_full_order_is_maximum_likelihood():
     rng = np.random.default_rng(7)
     synd = rng.integers(0, 2, (8, 3)).astype(np.uint8)
     llr = rng.normal(0, 1, (8, 7)).astype(np.float32)
-    res = osd_decode(TannerGraph(H), synd, llr, osd_method="osd_e", osd_order=4)
+    res = osd_decode(TannerGraph(H, device="cpu"), synd, llr, osd_method="osd_e", osd_order=4)
     for b in range(8):
         sol = res.osdw[b].numpy()
         assert np.array_equal(H @ sol % 2, synd[b])
@@ -100,7 +100,7 @@ def test_skip_rows_masked(method, order):
     jg = JTannerGraph(H)
     ref = josd_decode(jg, synd, llr, osd_method=method, osd_order=order,
                       consts=jbuild_osd_consts(jg, method, order))
-    mine = osd_decode(TannerGraph(H), synd, llr, osd_method=method, osd_order=order,
+    mine = osd_decode(TannerGraph(H, device="cpu"), synd, llr, osd_method=method, osd_order=order,
                       skip=skip)
     for got, want in ((mine.osd0, ref.osd0), (mine.osdw, ref.osdw)):
         got = got.numpy()
@@ -113,7 +113,7 @@ def test_skip_rows_masked(method, order):
                                           ("osd0", 5)])
 def test_candidate_tables_equal_jax(method, order):
     H = np.asarray(CODES["flagship"](), np.uint8)
-    mine = build_osd_consts(TannerGraph(H), method, order)
+    mine = build_osd_consts(TannerGraph(H, device="cpu"), method, order)
     ref = jbuild_osd_consts(JTannerGraph(H), method, order)
     for field in ref._fields:
         a, b = getattr(mine, field), getattr(ref, field)

@@ -83,7 +83,7 @@ def test_sharded_decode_equals_jax_and_unsharded(case):
     B, n = synd.shape[0], H.shape[1]
     llr0 = np.broadcast_to(np.asarray(jllr_from_channel(np.full(n, p))), (B, n)).copy()
     assert np.array_equal(llr0[0], llr_from_channel(np.full(n, p)).numpy())
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     want = [x.numpy() for x in _unsharded(g, synd, llr0, osd_method, osd_order, kw)]
     assert 0 < want[3].sum() < B  # rows of both kinds
     jg = JTannerGraph(H)
@@ -106,7 +106,7 @@ def test_shards_of_one_row():
     OSD of a row does not depend on its offset in the batch."""
     H, synd, p, kw = _flagship_case()
     n = H.shape[1]
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     llr0 = llr_from_channel(np.full(n, p)).expand(8, n)
     rows = synd[:8]
     want = _unsharded(g, rows, llr0, "osd_cs", 42, kw)
@@ -128,7 +128,7 @@ def test_pad_batch_matches_jax():
 
 def test_indivisible_batch_raises():
     H, synd, p, kw = _surface_case()
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     llr0 = llr_from_channel(np.full(H.shape[1], p)).expand(30, H.shape[1])
     decode = sharded_decode_fn(g, cpu_mesh(4), **kw)
     with pytest.raises(ValueError, match="does not split evenly"):
@@ -188,7 +188,7 @@ def test_shard_fns_keep_batch_order_and_replicate_constants():
 
 def test_replicate_walks_containers():
     H, *_ = _surface_case()
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     tree = {"g": g, "t": (np.zeros(3, np.int32), torch.ones(2), None, 7, "s")}
     out = replicate(tree, torch.device("cpu"))
     assert out["g"] is g  # already on the device: no copy

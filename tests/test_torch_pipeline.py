@@ -48,7 +48,7 @@ def _dense(M):
 def test_staged_pipeline_reproduces_corpus():
     data, synd, ref_osdw, max_iter, order = _corpus()
     H = _dense(hgp(mkmn_16_4_6()).hx)
-    g = TannerGraph(H)
+    g = TannerGraph(H, device="cpu")
     out = decode_pipeline(g, synd, np.asarray(jllr_from_channel(np.full(g.n, 0.05))),
                           max_iter=max_iter, osd_method="osd_cs", osd_order=order,
                           consts=build_osd_consts(g, "osd_cs", order), **FLAGSHIP_KW)
@@ -80,8 +80,8 @@ def test_pipeline_equals_jax_on_fresh_rows():
     ref = jdecode_pipeline(jg, synd, llr0, max_iter=400, osd_method="osd_cs", osd_order=42,
                            consts=jbuild_osd_consts(jg, "osd_cs", 42), backend="xla",
                            **FLAGSHIP_KW)
-    mine = decode_pipeline(TannerGraph(H), synd, llr0, max_iter=400, osd_method="osd_cs",
-                           osd_order=42, backend="torch", **FLAGSHIP_KW)
+    mine = decode_pipeline(TannerGraph(H, device="cpu"), synd, llr0, max_iter=400,
+                           osd_method="osd_cs", osd_order=42, backend="torch", **FLAGSHIP_KW)
     for k in ("osdw", "osd0", "bp_hard", "converged", "iterations", "llr"):
         assert np.array_equal(getattr(mine, k).numpy(), np.asarray(getattr(ref, k))), k
 

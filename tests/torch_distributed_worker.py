@@ -41,7 +41,7 @@ def main():
 
     qcode = hgp(rep_code(3), rep_code(3))
     H = np.asarray(qcode.hx.toarray(), np.uint8)
-    graph = TannerGraph(H)
+    graph = TannerGraph(H, device="cpu")
     n, B, p = graph.n, 32, 0.1
     # the same seed on every rank: the same global batch
     rng = np.random.default_rng(7)
