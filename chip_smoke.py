@@ -135,9 +135,14 @@ Phases, one line each (any failed check exits non-zero):
    ``bp_decode_lifted(LiftedGraph(hx_proto, 400), ...)`` on 512 numpy
    syndromes at p = 0.005 (min-sum 0.625, max_iter 100): plain torch on the
    card, no kernel launched, equal bit for bit to the same call on a graph
-   built with ``device="cuda"``; each call's walls (3 calls).
+   built with ``device="cuda"``; each call's walls (3 calls);
+18. ``bench_torch.py``'s five modes (flagship, api, large, lifted_shard,
+   harness) in this process at their default options with 3 timed steps,
+   gates included: each mode's JSON line, and the seconds each took.
 
-It prints the card's name and power limit and a JSON line of per-kernel
+The helpers for timing, bounds and gates are those of
+``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
+prints the card's name and power limit and a JSON line of per-kernel
 results before the last line, ``{"ok": true, "device": {...}}``.  Each kernel
 there has its launches on the main path's run, per decode of the path
 that uses it and in phase 16's model-sharded decodes
@@ -165,10 +170,17 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from bp_osd_tpu_torch.utils.measure import (Bound, ElimWork, artifact, artifact_sigmas,
+                                           bound_sum, bound_text, card_line, check,
+                                           corpus_check, cuda_ms, elim_bound, elim_work, host_ms,
+                                           k1_bound, k1_equal, k1_stages, osd_cs_bound,
+                                           osd_e_bound, reset_launches, same, satisfies, sigmas,
+                                           sync)
+from bp_osd_tpu_torch.utils.measure import launches as launch_counts
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(ROOT, "tests", "data", "flagship_corpus.npz")
@@ -183,231 +195,11 @@ BIG_RUNS = 6 * 16384  # phase 15d's harness at batch 16384
 RANK_TIMEOUT = 300  # seconds the phase-15c ranks may take, start-up included
 
 
-def check(ok, what: str) -> None:
-    if not ok:
-        raise SystemExit(f"FAILED: {what}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn()`` between CUDA events, after a warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def host_ms(fn, reps: int) -> float:
-    """Median host milliseconds of ``fn()`` with every card synchronised
-    before and after, after a warm-up."""
-    def sync():
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
-
-    fn()
-    times = []
-    for _ in range(reps):
-        sync()
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
-
-
-def same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.shape == b.shape and bool(torch.equal(a, b))
-
-
-def satisfies(err: torch.Tensor, H_f: torch.Tensor, synd: torch.Tensor) -> bool:
-    return same(torch.remainder(err.float() @ H_f.T, 2).to(torch.uint8), synd)
-
-
-def artifact(name: str) -> dict:
-    with open(os.path.join(ROOT, "examples", name)) as f:
-        return json.load(f)
-
-
-def sigmas(ler: float, eb: float, ref_ler: float, ref_eb: float) -> float:
-    """Distance of two binomial estimates in combined standard errors."""
-    return abs(ler - ref_ler) / float(np.hypot(eb, ref_eb))
-
-
-HBM_BYTES_S = 3.35e12  # H100 SXM device memory
-F32_OPS_S = 67e12  # float32 outside the tensor cores
-INT_OPS_S = 64 * 132 * 1.98e9  # INT32 lanes x SMs x boost clock
-
-
-class Bound(NamedTuple):
-    """The least time of a call on the H100 SXM: the larger of its bytes over
-    the memory rate and its operations over their type's peak (float and
-    integer work may overlap, so the larger of those two)."""
-
-    ms: float
-    by: str  # "bytes" or "operations"
-    nbytes: float
-    float_ops: float
-    int_ops: float
-
-    def detail(self) -> str:
-        return (f"{self.ms:.4f} ms ({self.by}: {self.int_ops:.4g} integer + "
-                f"{self.float_ops:.4g} float operations, {self.nbytes:.4g} bytes)")
-
-
-def bound_ms(nbytes: float, float_ops: float = 0.0, int_ops: float = 0.0) -> Bound:
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(float_ops / F32_OPS_S, int_ops / INT_OPS_S)
-    return Bound(1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-                 float(nbytes), float(float_ops), float(int_ops))
-
-
-def k1_bound(graph, rows: int, sample_its: int, *, prior_rows: int, v2c_in: bool, emit: bool):
-    """K1's bound for ``rows`` rows that ran ``sample_its`` iterations in
-    all.  A sample-iteration is 2E + n + m float operations (v2c subtract,
-    variable add, prior add, scale) and 7E + n integer ones (sign,
-    magnitude, the two-minimum update, sign apply, parity; hard decision)."""
-    m, n, E = graph.m, graph.n, graph.m * graph.wr
-    nbytes = (rows * m + 4 * prior_rows * n + 4 * (E + n * graph.wc + m)
-              + rows * (n + 4 * n + 1 + 4) + 4 * rows * E * (int(v2c_in) + int(emit)))
-    return bound_ms(nbytes, sample_its * (2 * E + n + m), sample_its * (7 * E + n))
-
-
-class ElimWork(NamedTuple):
-    """What the Gauss-Jordan elimination of the OSD kernels does on some rows
-    (the column elimination of ``decoder/osd.py:_eliminate``, counted), one
-    entry a row: ``steps`` columns taken while fewer than rank pivots are
-    found, ``pivots`` of them with a pivot, ``pivot_tests`` the columns after
-    t (syndrome included) tested at the pivot steps (the sum of n - t),
-    ``hits`` the columns after t that carry the pivot row, ``xor_words`` the
-    words XORed into them (hits x nonzero words of S) and ``cm_sectors`` the
-    32-byte sectors those words span in the column-major layout (hits x the
-    8-word groups of S that hold a nonzero word)."""
-
-    steps: np.ndarray
-    pivots: np.ndarray
-    pivot_tests: np.ndarray
-    hits: np.ndarray
-    xor_words: np.ndarray
-    cm_sectors: np.ndarray
-    n1: int
-    Wm: int
-
-    def rows(self, sel) -> "ElimWork":
-        return ElimWork(*(getattr(self, f)[sel] for f in self._fields[:6]), self.n1, self.Wm)
-
-    @property
-    def ops(self) -> int:
-        """The integer operations the elimination needs: at every step the
-        pivot search (an AND-NOT and a test of each of column t's Wm words),
-        at a pivot step the hit tests (shift and test, 2 each) and the XORs
-        (1 a nonzero word of S into each hit column)."""
-        return int(2 * self.Wm * self.steps.sum() + 2 * self.pivot_tests.sum()
-                   + self.xor_words.sum())
-
-    @property
-    def ops_all_columns(self) -> int:
-        """The earlier, larger count: every step tests all n + 1 columns (2
-        operations a test) and XORs Wm words into every column holding the
-        pivot bit, column t included."""
-        return (2 * int(self.steps.sum()) * self.n1
-                + int((self.hits + self.pivots).sum()) * self.Wm)
-
-    def traffic(self) -> tuple[float, float]:
-        """Device-memory bytes of the pivot steps' hit tests and XORs in the
-        column-major layout (a test reads one 32-byte sector for its 4 bytes;
-        an XOR reads and writes the sectors S spans in a column) and in the
-        word-major one (4 bytes a test, coalesced; each XORed word its own
-        sector, read and written)."""
-        tests = float(self.pivot_tests.sum())
-        return (32 * tests + 64 * float(self.cm_sectors.sum()),
-                4 * tests + 64 * float(self.xor_words.sum()))
-
-
-def elim_work(graph, perm: torch.Tensor, synd: torch.Tensor) -> ElimWork:
-    """:class:`ElimWork` of the elimination of these rows, counted on their
-    device."""
-    from bp_osd_tpu_torch.decoder.osd import _pack_rows_bits, _popcount32, _wrap_i32
-
-    cols = torch.cat([graph.H_cols[perm.long()], _pack_rows_bits(synd)[:, None, :]], 1)
-    B, n1, Wm = cols.shape
-    dev = cols.device
-    used = torch.zeros(B, Wm, dtype=torch.int32, device=dev)
-    rr = torch.zeros(B, dtype=torch.int64, device=dev)
-    ar = torch.arange(B, device=dev)
-    word_ids = torch.arange(Wm, device=dev)
-    col_ids = torch.arange(n1, device=dev)
-    groups = -(-Wm // 8)
-    acc = torch.zeros(6, B, dtype=torch.int64, device=dev)
-    for t in range(n1 - 1):
-        live = rr < graph.rank
-        if not bool(live.any()):
-            break
-        ct = cols[:, t, :]
-        elig = ct & ~used
-        nz = elig != 0
-        has = nz.any(1) & live
-        w = nz.to(torch.int32).argmax(1)
-        word = elig[ar, w]
-        bit = _popcount32((word & -word) - 1)
-        bit = torch.where(has, bit, 0)
-        pmask = torch.where(word_ids[None, :] == w[:, None],
-                            _wrap_i32(torch.ones_like(bit) << bit)[:, None], 0)
-        pmask = torch.where(has[:, None], pmask, 0)
-        S = ct & ~pmask & -has.to(torch.int32)[:, None]
-        sel = (cols.gather(2, w[:, None, None].expand(B, n1, 1)).squeeze(2)
-               >> bit[:, None].to(torch.int32)) & 1
-        sel = sel * has[:, None]
-        hits_after = (sel * (col_ids > t)).sum(1)
-        s_nz = S != 0
-        s_groups = torch.nn.functional.pad(s_nz, (0, 8 * groups - Wm)).view(B, groups, 8).any(2)
-        acc += torch.stack([live.long(), has.long(), has.long() * (n1 - 1 - t), hits_after,
-                            hits_after * s_nz.sum(1), hits_after * s_groups.sum(1)])
-        cols ^= (-sel)[:, :, None] & S[:, None, :]
-        used |= pmask
-        rr += has.to(torch.int64)
-    return ElimWork(*acc.cpu().numpy(), n1, Wm)
-
-
-def osd_bound(graph, perm: torch.Tensor, synd: torch.Tensor, *, search_ops_per_row: float,
-              in_bytes: float, out_bytes: float,
-              work: ElimWork | None = None) -> tuple[Bound, Bound]:
-    """An OSD kernel's bound on these rows: the operations the elimination
-    needs (:attr:`ElimWork.ops`), the search's ``search_ops_per_row``
-    integer operations, and its bytes; then the same with the earlier count
-    :attr:`ElimWork.ops_all_columns`.  ``work`` is these rows'
-    :func:`elim_work` where it is already counted."""
-    work = elim_work(graph, perm, synd) if work is None else work
-    search = perm.shape[0] * search_ops_per_row
-    return tuple(bound_ms(in_bytes + out_bytes, 0.0, ops + search)
-                 for ops in (work.ops, work.ops_all_columns))
-
-
-def bound_text(b: tuple[Bound, Bound], ms: float) -> str:
-    """A kernel's two bounds (:func:`osd_bound`) beside its time."""
-    return (f"bound {b[0].detail()}, {100 * b[0].ms / ms:.2f}% of it (every column counted: "
-            f"{b[1].ms:.4f} ms, {100 * b[1].ms / ms:.2f}%)")
-
-
 def plan_line(plan: dict) -> str:
     return ", ".join(f"{k} {v}" for k, v in plan.items())
 
 
-def phase12(dev, qcode, reset_counts, counts, tag, rows=SIM_ROWS, runs=SIM_RUNS,
+def phase12(dev, qcode, tag, rows=SIM_ROWS, runs=SIM_RUNS,
             osd_e_runs=FRESH) -> None:
     """The Monte-Carlo harness: (a) one batch on the card against the CPU
     harness on the same uniforms; (b) the flagship example at ``runs`` runs
@@ -428,9 +220,9 @@ def phase12(dev, qcode, reset_counts, counts, tag, rows=SIM_ROWS, runs=SIM_RUNS,
         check(card.backend == "cuda", "the harness is not on the card")
         rand = torch.rand(rows, card.N, generator=torch.Generator(dev).manual_seed(SEED),
                           device=dev)
-        reset_counts()
+        reset_launches()
         got = card._batch_stats(rand)
-        launched = counts()
+        launched = launch_counts()
         want = host._batch_stats(rand.cpu())
         for k in want:
             check(np.array_equal(got[k].cpu().numpy(), want[k].numpy()),
@@ -452,8 +244,7 @@ def phase12(dev, qcode, reset_counts, counts, tag, rows=SIM_ROWS, runs=SIM_RUNS,
         return sim, out, time.perf_counter() - t0
 
     def held(out, art, what):
-        z = sigmas(out["osdw_logical_error_rate"], out["osdw_logical_error_rate_eb"],
-                   art["osdw_logical_error_rate"], art["osdw_logical_error_rate_eb"])
+        z = artifact_sigmas(out, art)
         check(z <= 4.0, f"{what} OSDW LER {out['osdw_logical_error_rate']} is {z:.2f} sigma "
                         f"from the artifact's {art['osdw_logical_error_rate']}")
         return (f"OSDW LER {out['osdw_logical_error_rate']:.5f} +- "
@@ -461,9 +252,9 @@ def phase12(dev, qcode, reset_counts, counts, tag, rows=SIM_ROWS, runs=SIM_RUNS,
                 f"{art['osdw_logical_error_rate']:.4f}), OSD0 "
                 f"{out['osd0_logical_error_rate']:.5f}, BP {out['bp_logical_error_rate']:.5f}")
 
-    reset_counts()
+    reset_launches()
     sim, out, wall = run(qcode, target_runs=runs)
-    launches = counts()
+    launches = launch_counts()
     check(out["run_count"] == runs and out["bp_converge_count_x"] == runs,
           f"flagship harness counters: {out['run_count']} runs, "
           f"{out['bp_converge_count_x']} X-side convergences")
@@ -487,15 +278,15 @@ def phase12(dev, qcode, reset_counts, counts, tag, rows=SIM_ROWS, runs=SIM_RUNS,
     report = []
     for name, seed_fn in (("625", mkmn_20_5_8), ("900", mkmn_24_6_10)):
         code = hgp(seed_fn())
-        reset_counts()
+        reset_launches()
         _, out, wall = run(code, target_runs=runs)
-        check(counts()["osd_cs"] > 0, f"[[{code.N}]] harness did not launch K2")
+        check(launch_counts()["osd_cs"] > 0, f"[[{code.N}]] harness did not launch K2")
         art = artifact(f"hgp_{name}_decode_results.json")
         report.append(f"[[{code.N},{code.K}]] {held(out, art, name)}, {runs / wall:.1f} runs/s")
-    reset_counts()
+    reset_launches()
     _, out, wall = run(qcode, target_runs=osd_e_runs, batch_size=0, osd_method="osd_e",
                        osd_order=12)
-    launched = counts()
+    launched = launch_counts()
     check(launched["osd_e"] > 0 and launched["osd_cs"] == 0, f"osd_e harness kernels {launched}")
     print(f"phase 12c " + "; ".join(report) + f"; flagship at osd_e order 12, {osd_e_runs} runs "
           f"in one batch: OSDW LER {out['osdw_logical_error_rate']:.5f} +- "
@@ -538,16 +329,16 @@ def phase13(H, synd, dec_flood, tag) -> None:
           f"{[round(w * 1e3, 3) for w in walls['flooding']]} ms {tag}")
 
 
-def phase14(qcode, reset_counts, counts, tag, runs=LIFT_RUNS) -> None:
+def phase14(qcode, tag, runs=LIFT_RUNS) -> None:
     """The lifted-product LER example at p = 0.03 against its artifact."""
     from bp_osd_tpu_torch.examples.lifted_product_ler import run_point
 
     art = artifact("lifted_product_decode_results.json")["points"]["0.03"]
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     point = run_point(qcode, 0.03, runs)
     wall = time.perf_counter() - t0
-    launched = counts()
+    launched = launch_counts()
     z = sigmas(point["osdw_logical_error_rate"], point["osdw_error_bar"],
                art["osdw_logical_error_rate"], art["osdw_error_bar"])
     check(z <= 4.0, f"lifted OSDW LER {point['osdw_logical_error_rate']} is {z:.2f} sigma from "
@@ -560,7 +351,7 @@ def phase14(qcode, reset_counts, counts, tag, runs=LIFT_RUNS) -> None:
           f"{point['runs'] / wall:.1f} runs/s; launches {launched} {tag}")
 
 
-def phase15(H, fresh, reset_counts, counts, tag) -> None:
+def phase15(H, fresh, tag) -> None:
     """The data-parallel layer: (a) the sharded decode over every card
     against the unsharded decode; (b) the harness with and without the mesh;
     (c) two gloo ranks on one card; (d) the shards on several cards."""
@@ -597,9 +388,9 @@ def phase15(H, fresh, reset_counts, counts, tag) -> None:
     mesh = make_mesh()
     sharded = sharded_decode_fn(graph, mesh, **kw, **osd_kw)
     want = unsharded(graph, fresh, llr0)
-    reset_counts()
+    reset_launches()
     got = sharded(fresh, llr0)
-    launched = counts()
+    launched = launch_counts()
     for name, a, b in zip(("osdw", "osd0", "bp_hard", "converged"), got, want):
         check(same(a, b), f"15a sharded {name} != the unsharded decode")
     check(satisfies(got[0], H_f, fresh), "15a: a sharded osdw violates its syndrome")
@@ -610,9 +401,9 @@ def phase15(H, fresh, reset_counts, counts, tag) -> None:
         walls[name].append(wall(lambda: fn(fresh, llr0))[1])
     med = {k: float(np.median(v)) for k, v in walls.items()}
     # the JAX function's default OSD, osd0: K4's warp kernel on every shard
-    reset_counts()
+    reset_launches()
     got0 = sharded_decode_fn(graph, mesh, **kw)(fresh, llr0)
-    launched0 = counts()
+    launched0 = launch_counts()
     want0 = unsharded(graph, fresh, llr0, osd_method="osd0", osd_order=0)
     check(all(same(a, b) for a, b in zip(got0, want0)), "15a sharded osd0 != unsharded")
     check(satisfies(got0[1], H_f, fresh), "15a: a sharded osd0 violates its syndrome")
@@ -637,9 +428,9 @@ def phase15(H, fresh, reset_counts, counts, tag) -> None:
     for use_mesh in (0, 1, 1, 0, 0, 1):
         sim = css_decode_sim(hx=qcode.hx, hz=qcode.hz, use_mesh=use_mesh, **opts)
         check(sim.use_mesh == use_mesh and sim.backend == "cuda", "15b harness settings")
-        reset_counts()
+        reset_launches()
         _, w = wall(sim.run_decode_sim)
-        launched = counts()
+        launched = launch_counts()
         check(launched["bp_flood"] > 0 and launched["osd_cs"] > 0, f"15b kernels {launched}")
         c = {k: getattr(sim, k) for k in _SIM_COUNTERS}
         check(runs.setdefault("counters", c) == c,
@@ -795,10 +586,6 @@ def phase15(H, fresh, reset_counts, counts, tag) -> None:
 def interleaved_walls(fns: dict, reps: int = 3) -> dict:
     """Median host seconds of each ``fns[name]()``, every card synchronised
     before and after, the calls taken in turn ``reps`` times."""
-    def sync():
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
-
     walls = {k: [] for k in fns}
     for _ in range(reps):
         for name, fn in fns.items():
@@ -1056,19 +843,6 @@ def phase17(tag, qcode) -> None:
     from bp_osd_tpu_torch.decoder import TannerGraph, decode_pipeline
     from bp_osd_tpu_torch.decoder.bp import llr_from_channel
     from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
-    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
-    from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate
-    from bp_osd_tpu_torch.ops.cuda_osd import osd_cs, osd_e
-    from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
-
-    wrappers = (bp_flood, osd_cs, osd_e, eliminate, osd_large)
-
-    def reset():
-        for f in wrappers:
-            f.launches = 0
-
-    def counts():
-        return {f.__name__: f.launches for f in wrappers}
 
     def walls(fn, reps=3):
         """The host walls of ``reps`` calls, each synchronised, and the last
@@ -1092,23 +866,18 @@ def phase17(tag, qcode) -> None:
     graph = TannerGraph(H)
     check(graph.device.type == "cuda", f"TannerGraph(H) is on {graph.device}, not the card")
     synd = np.unpackbits(data["synd_packed"], axis=1)[:, :m]
-    ref_osdw = np.unpackbits(data["osdw_packed"], axis=1)[:, :n]
     llr0 = llr_from_channel(np.full(n, 0.05)).numpy()
     kw = dict(bp_method="minimum_sum", ms_scaling_factor=0.0, max_iter=max_iter,
               osd_method="osd_cs", osd_order=osd_order)
-    reset()
+    reset_launches()
     out, ws = walls(lambda: decode_pipeline(graph, synd, llr0, **kw))
-    got = counts()
+    got = launch_counts()
     check(got["bp_flood"] > 0 and got["osd_cs"] > 0,
           f"decode_pipeline on a default graph did not launch K1 and K2: {got}")
     check(got["osd_e"] == got["eliminate"] == got["osd_large"] == 0,
           f"decode_pipeline at osd_cs launched another OSD kernel: {got}")
     check(on_card(*out), "decode_pipeline's outputs are not all on the card")
-    check(np.array_equal(out.osdw.cpu().numpy(), ref_osdw), "decode_pipeline osdw != corpus")
-    check(np.array_equal(out.osdw.sum(1).cpu().numpy(), data["weights"])
-          and np.array_equal(out.converged.cpu().numpy(), data["converged"])
-          and np.array_equal(out.iterations.cpu().numpy(), data["iterations"]),
-          "decode_pipeline weights/converged/iterations != corpus")
+    corpus_check(out.osdw, out.converged, out.iterations, data, "decode_pipeline")
 
     # (b) the functional lifted BP on a default graph, numpy in
     hl = np.asarray(qcode.hx.toarray(), np.uint8)
@@ -1122,9 +891,9 @@ def phase17(tag, qcode) -> None:
     synd_l = ((rng.random((LIFT_B, nl)) < LIFT_P).astype(np.uint8) @ hl.T % 2).astype(np.uint8)
     l0 = llr_from_channel(np.full(nl, LIFT_P)).numpy()
     kw_l = dict(bp_method="minimum_sum", max_iter=100, ms_scaling_factor=0.625)
-    reset()
+    reset_launches()
     res, ws_l = walls(lambda: bp_decode_lifted(lg, synd_l, l0, **kw_l))
-    got_l = counts()
+    got_l = launch_counts()
     check(not any(got_l.values()), f"the functional lifted BP launched a kernel: {got_l}")
     check(on_card(*res), "bp_decode_lifted's outputs are not all on the card")
     want = bp_decode_lifted(lg_cuda, synd_l, l0, **kw_l)
@@ -1144,6 +913,22 @@ def phase17(tag, qcode) -> None:
           f"graph built in {build_s:.2f} s): == device='cuda' bit for bit, {n_conv}/{LIFT_B} "
           f"converged, outputs on the card, no kernel launched, walls "
           f"{[round(w * 1e3, 3) for w in ws_l]} ms (median {np.median(ws_l) * 1e3:.3f}) {tag}")
+
+
+def phase18(tag, qcode) -> None:
+    """``bench_torch.py``'s modes in this process, each at its default
+    options with 3 timed steps and every gate; the lifted modes reuse
+    ``qcode``, the [[10000,420]] code."""
+    import bench_torch
+
+    t0 = time.perf_counter()
+    for mode in bench_torch.MODES:
+        t = time.perf_counter()
+        kw = {"qcode": qcode} if mode in ("large", "lifted_shard") else {}
+        line = bench_torch.run(mode, SEED, steps=3, **kw)
+        print(f"phase 18 {mode} ({time.perf_counter() - t:.1f} s): {json.dumps(line)}")
+    print(f"phase 18 bench_torch.py's {len(bench_torch.MODES)} modes, 3 steps each, in "
+          f"{time.perf_counter() - t0:.1f} s {tag}")
 
 
 def rank_split(ranks: list[dict]) -> str:
@@ -1392,27 +1177,12 @@ def main() -> None:
     per_decode = {"bp_flood": bp_flood.launches, "osd_cs": osd_cs.launches}
     check(per_decode == {"bp_flood": 3, "osd_cs": 1}, f"one decode's launches {per_decode}")
     fl0 = llr0[:1].expand(FRESH, n)
-    caps = (24, 96, max_iter)
-    stages = []  # (arguments, keywords, kernel outputs, sample-iterations) of each stage
-    rows = torch.arange(FRESH, device=dev)
-    v2c_s = None
-    for i, cap in enumerate(caps):
-        it0 = caps[i - 1] if i else 0
-        emit = cap < max_iter
-        kw_s = dict(max_iter=cap, it0=it0, emit_state=emit, v2c_init=v2c_s, **bp_kw)
-        l0_s = fl0 if i == 0 else fl0[rows]
-        args = (graph, fresh[rows], l0_s)
-        out = bp_flood(*args, **kw_s)
-        stages.append((args, kw_s, out, int((out[3] - it0).sum())))
-        going = ~out[2]
-        rows, v2c_s = rows[going], (out[4][going] if emit else None)
-    check(same(rows, torch.nonzero(~dec.converge_batch).flatten()),
+    # (arguments, keywords, kernel outputs, sample-iterations, rows) of each stage
+    stages = k1_stages(graph, fresh, fl0, max_iter, **bp_kw)
+    check(len(stages) == 3, f"{len(stages)} K1 stages, not 3")
+    last = stages[-1]
+    check(same(last.rows[~last.out[2]], torch.nonzero(~dec.converge_batch).flatten()),
           "the staged rows differ from the decoder's failures")
-
-    def k1_equal(got, want, what):
-        for name, a, b in zip(("hard", "llr", "converged", "iterations", "v2c"), got, want):
-            check(same(a, b) if a is not None and b is not None else a is b,
-                  f"K1 {what}: {name} differs from the plain version")
 
     def with_team(warps, fn):  # fn() with teams of `warps` warps
         cuda_bp._TEAM_WARPS = warps
@@ -1422,7 +1192,7 @@ def main() -> None:
             cuda_bp._TEAM_WARPS = 0
 
     stage_ms, stage_plain_ms, stage_bound, report = [], [], [], []
-    for i, (args, kw_s, out, sample_its) in enumerate(stages):
+    for i, (args, kw_s, out, sample_its, _) in enumerate(stages):
         nrows = args[1].shape[0]
         want = bp_decode_plain(*args, **kw_s)  # the last stage's stays for the sweep
         k1_equal(out, want, f"stage {i + 1} ({nrows} rows)")
@@ -1454,8 +1224,7 @@ def main() -> None:
                          f"({plan['resident_per_sm']} resident, {plan['registers']} registers)")
     report.append("other teams, bit-identical: " + ", ".join(sweep))
     bp_ms, bp_plain_ms = sum(stage_ms), sum(stage_plain_ms)
-    bp_bound = bound_ms(*(sum(getattr(b, f) for b in stage_bound)
-                          for f in ("nbytes", "float_ops", "int_ops")))
+    bp_bound = bound_sum(stage_bound)
     fail = ~dec.converge_batch
     f_synd = fresh[fail]
     f_perm = torch.argsort(dec.log_prob_ratios_batch[fail], dim=1, stable=True).to(torch.int32)
@@ -1468,12 +1237,8 @@ def main() -> None:
                                     pairs=consts.pairs), 5)
     osd_plain_ms = cuda_ms(lambda: osd_decode_plain(graph, f_perm, f_synd, method="osd_cs",
                                                     osd_order=osd_order, pairs=consts.pairs), 3)
-    nf, Wm = f_perm.shape[0], -(-m // 32)
-    n_pairs = len(consts.pairs) if consts.pairs is not None else 0
-    osd_b = osd_bound(
-        graph, f_perm, f_synd,
-        search_ops_per_row=(n - graph.rank) * (2 * Wm + 1) + n_pairs * (3 * Wm + 1),
-        in_bytes=nf * (4 * n + m) + 4 * n * Wm + 8 * n_pairs, out_bytes=2 * nf * n)
+    nf = f_perm.shape[0]
+    osd_b = osd_cs_bound(graph, f_perm, f_synd, consts.pairs)
     print("phase 5 K1 at the decode's launches: " + "; ".join(report)
           + f"; K1 per decode {bp_ms:.3f} ms vs plain {bp_plain_ms:.3f} ms, bound "
           f"{bp_bound.detail()}, {100 * bp_bound.ms / bp_ms:.1f}% of it {tag}")
@@ -1557,15 +1322,10 @@ def main() -> None:
     check(same(one[0], k5_plain[0][:1]) and same(one[1], k5_plain[1][:1]),
           "K5 on the first row alone differs from the plain version")
     k5_ms, k5_one_ms = cuda_ms(lambda: k5_run(8), 3), cuda_ms(lambda: k5_run(1), 3)
-    Wml = -(-ml // 32)
     work8 = elim_work(gl, p8, s8)
 
     def k5_bound(rows):
-        return osd_bound(
-            gl, p8[:rows], s8[:rows],
-            search_ops_per_row=(nl - gl.rank) * (2 * Wml + 1) + len(pairs_l) * (3 * Wml + 1),
-            in_bytes=rows * (4 * nl + ml) + 4 * nl * Wml + 8 * len(pairs_l),
-            out_bytes=2 * rows * nl, work=work8.rows(slice(0, rows)))
+        return osd_cs_bound(gl, p8[:rows], s8[:rows], pairs_l, work=work8.rows(slice(0, rows)))
 
     k5_b, k5_one_b = k5_bound(8), k5_bound(1)
     k5_plan = osd_large_plan(gl, LIFT_ORDER)
@@ -1669,17 +1429,7 @@ def main() -> None:
           f"on 1 row {k5_one_ms:.3f} ms, on 8 rows {k5_ms:.3f} ms vs plain "
           f"{k5_plain_ms:.1f} ms; launches {launches_l}, K5 {k5_per_decode} per decode {tag}")
 
-    counters = (bp_flood, osd_cs, osd_e, eliminate, osd_large)
-
-    def reset_counts():
-        for f in counters:
-            f.launches = 0
-        eliminate.warp_launches = 0
-
-    def counts():  # eliminate: both K4 kernels; eliminate_warp: the warp kernel
-        return {**{f.__name__: f.launches for f in counters},
-                "eliminate_warp": eliminate.warp_launches}
-
+    # launch_counts(): eliminate counts both K4 kernels, eliminate_warp the warp kernel
     def max_err(xs, ys):
         return max(float((x.long() - y.long()).abs().max()) if x.numel() else 0.0
                    for x, y in zip(xs, ys))
@@ -1716,16 +1466,16 @@ def main() -> None:
     check((dec0.osd_method, dec0.max_iter, dec0.bp_method) == ("osd0", n, "minimum_sum"),
           "BpOsdDecoder defaults moved")
     check(osd_route(graph, dec0.osd_method, dec0.osd_order) == "k4", "osd0 is not routed to K4")
-    reset_counts()
+    reset_launches()
     out0, walls0 = timed_decode(dec0, fresh)
-    launches0 = counts()
+    launches0 = launch_counts()
     check(launches0["eliminate_warp"] > 0
           and launches0["eliminate"] == launches0["eliminate_warp"] and launches0["bp_flood"] > 0 and launches0["osd_cs"] == 0 and launches0["osd_e"] == 0,
           f"the default decoder's kernels: {launches0}")
     check(satisfies(dec0.osd0_decoding_batch, H_f, fresh) and satisfies(out0, H_f, fresh),
           "a default-decoder osd0 violates its syndrome")
     f_perm0, f_synd0 = failing_rows(dec0, fresh)
-    n4, W = f_perm0.shape[0], graph.num_words
+    n4 = f_perm0.shape[0]
     want0 = eliminate_plain(graph, f_perm0, f_synd0)
     for pl in ("warp", "shared"):  # the decode's OSD rows, bit for bit
         got0 = eliminate(graph, f_perm0, f_synd0, placement=pl)
@@ -1739,13 +1489,10 @@ def main() -> None:
     # K2 at order 0 runs the same warp elimination with no h_work to write
     k2_0_ms = cuda_ms(lambda: osd_cs(graph, f_perm0, f_synd0, osd_order=0), 5)
     k4_plan = gf2_elim_plan(graph, n4)
-    k4_b = osd_bound(
-        graph, f_perm0, f_synd0, search_ops_per_row=0,
-        in_bytes=n4 * (4 * n + m) + 4 * n * Wm,
-        out_bytes=n4 * (4 * m * W + 4 * m + 8 * graph.rank + n))
-    reset_counts()
+    k4_b = elim_bound(graph, f_perm0, f_synd0)
+    reset_launches()
     dec0.decode_batch(fresh, outputs="device")
-    k4_per_decode = counts()["eliminate_warp"]
+    k4_per_decode = launch_counts()["eliminate_warp"]
     k4_plain_ms = cuda_ms(lambda: eliminate_plain(graph, f_perm0, f_synd0), 3)
     f_llr0 = dec0.log_prob_ratios_batch[~dec0.converge_batch]
     tail0_ms = cuda_ms(lambda: osd_decode(graph, f_synd0, f_llr0, osd_method="osd0"), 5)
@@ -1787,9 +1534,9 @@ def main() -> None:
           and np.array_equal(dec_e.converge_batch, aux["flagship_osd_e_conv"])
           and np.array_equal(dec_e.iter_batch, aux["flagship_osd_e_iters"]),
           "flagship_osd_e osdw/converged/iterations != aux corpus")
-    reset_counts()
+    reset_launches()
     out_e, walls_e = timed_decode(dec_e, fresh)
-    launches_e = counts()
+    launches_e = launch_counts()
     check(launches_e["osd_e"] > 0 and launches_e["osd_cs"] == 0
           and launches_e["eliminate"] == 0, f"the osd_e decoder's kernels: {launches_e}")
     check(satisfies(out_e, H_f, fresh), "a fresh osd_e osdw violates its syndrome")
@@ -1803,14 +1550,11 @@ def main() -> None:
         check(same(got[0], want[0]) and same(got[1], want[1]),
               f"K3 differs from the plain osd_e on the decode's OSD rows at order {o}")
         k3_t[o] = cuda_ms(lambda: osd_e(graph, f_perm_e, f_synd_e, osd_order=o), 5)
-        k3_bounds[o] = osd_bound(
-            graph, f_perm_e, f_synd_e, search_ops_per_row=(1 << o) * (2 * Wm + 1),
-            in_bytes=n3 * (4 * n + m) + 4 * m * graph.num_words, out_bytes=2 * n3 * n,
-            work=work_e)
+        k3_bounds[o] = osd_e_bound(graph, f_perm_e, f_synd_e, o, work=work_e)
     k3_ms, k3_16_ms, k3_b, k3_16_b = k3_t[12], k3_t[16], k3_bounds[12], k3_bounds[16]
-    reset_counts()
+    reset_launches()
     dec_e.decode_batch(fresh, outputs="device")
-    k3_per_decode = counts()["osd_e"]
+    k3_per_decode = launch_counts()["osd_e"]
     k3_plain_ms = cuda_ms(lambda: osd_decode_plain(graph, f_perm_e, f_synd_e, method="osd_e",
                                                    osd_order=12), 3)
     print(f"phase 10 K3 vs plain: {B} corpus rows at osd_e orders 12 and 16 bit-identical; "
@@ -1839,9 +1583,9 @@ def main() -> None:
         rng = np.random.default_rng(SEED + L)
         errL = torch.as_tensor((rng.random((32, gL.n)) < 0.05).astype(np.float32), device=dev)
         sL = torch.remainder(errL @ HL_f.T, 2).to(torch.uint8)
-        reset_counts()
+        reset_launches()
         outL = dec_L.decode_batch(sL, outputs="device")
-        launchesL = counts()
+        launchesL = launch_counts()
         check(launchesL["eliminate"] > 0 and launchesL["eliminate_warp"] == 0
               and launchesL["osd_e"] == 0 and launchesL["osd_large"] == 0,
               f"lift {L} osd_e kernels: {launchesL}")
@@ -1864,7 +1608,7 @@ def main() -> None:
     gd = dec_d.graph
     check(not k1_fits(gd), "K1 claims to hold the dense lift-400 code in shared memory")
     s64 = heavy_l[:64]
-    reset_counts()
+    reset_launches()
     hard_d = dec_d.decode_batch(s64, outputs="device")
     check(bp_flood.launches > 0, "the dense lift-400 BpDecoder did not launch K1")
     l0d = llr_from_channel(np.full(nl, LIFT_HEAVY_P)).to(dev).expand(64, nl)
@@ -1896,12 +1640,13 @@ def main() -> None:
           f"K1 {k1g_ms:.3f} ms vs plain {k1g_plain_ms:.3f} ms; K1 and K4 (block and warp) "
           f"shared-memory mirrors == library {tag}")
 
-    phase12(dev, hgp(mkmn_16_4_6()), reset_counts, counts, tag)
+    phase12(dev, hgp(mkmn_16_4_6()), tag)
     phase13(H, synd, dec, tag)
-    phase14(qcode, reset_counts, counts, tag)
-    phase15(H, fresh, reset_counts, counts, tag)
+    phase14(qcode, tag)
+    phase15(H, fresh, tag)
     model_parallel = phase16(tag, qcode)
     phase17(tag, qcode)
+    phase18(tag, qcode)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)

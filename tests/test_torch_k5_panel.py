@@ -1,7 +1,7 @@
 """Kernel K5's design (``csrc/osd_large.cu``) on the CPU: its panel
 elimination in the word-major layout and its sweep, emulated in numpy step
 for step, against the port's plain versions and the JAX package; the Python
-mirror of its shared memory; the elimination counts ``chip_smoke.py``
+mirror of its shared memory; the elimination counts ``utils/measure.py``
 counts the OSD kernels' bounds from; K3's fit and the unchanged OSD
 routing.
 
@@ -33,6 +33,7 @@ from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import _SMEM_LIMIT
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, k3_fits, osd_cs_warp_smem_bytes
 from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large_panel, osd_large_smem_bytes
+from bp_osd_tpu_torch.utils.measure import elim_work
 
 torch.set_num_threads(1)
 
@@ -277,21 +278,14 @@ def _count_elimination(h_cols, perm, synd, rank):
 
 @pytest.mark.parametrize("code", ["flagship_corpus", "lift60", "rank_deficient"])
 def test_chip_smoke_elim_work_counts(code):
-    """``chip_smoke.py``'s :func:`elim_work`, from which the OSD kernels'
-    bounds are counted, gives per row the counts of a direct replay of the
-    elimination; the needed operations are 2 Wm a step (the pivot search),
-    2 a hit test and 1 an XORed word, and never more than the earlier count
-    over every column."""
-    import importlib.util
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(root, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    """:func:`bp_osd_tpu_torch.utils.measure.elim_work`, from which
+    ``chip_smoke.py`` and ``bench_torch.py`` count the OSD kernels' bounds,
+    gives per row the counts of a direct replay of the elimination; the
+    needed operations are 2 Wm a step (the pivot search), 2 a hit test and 1
+    an XORed word, and never more than the earlier count over every column."""
     H, synd, perm, _ = _case(code)
     g = TannerGraph(H, device="cpu")
-    work = chip_smoke.elim_work(g, torch.as_tensor(perm), torch.as_tensor(synd))
+    work = elim_work(g, torch.as_tensor(perm), torch.as_tensor(synd))
     h_cols = g.H_cols.numpy().view(np.uint32)
     Wm = h_cols.shape[1]
     for b in range(synd.shape[0]):
