@@ -5,6 +5,7 @@ Monte-Carlo harness.  Each mode prints one JSON line of named metrics,
 after its gates pass:
 
     python3 bench_torch.py --mode flagship [--code 400|625|900] [--decoder osd_cs42|osd0|osd_e12]
+                                           [--stage1 24,96|32|...]
     python3 bench_torch.py --mode api
     python3 bench_torch.py --mode large [--p 0.005|0.028]
     python3 bench_torch.py --mode lifted_shard
@@ -18,6 +19,11 @@ with ``--seed S`` (default 0) and ``--steps N`` (default 40) on every mode.
   min-sum to max_iter = n in the pipeline's stages, then osd_cs 42 (K1 +
   K2); ``--decoder osd0`` is the decoder class's defaults (min-sum 1.0,
   osd0: K1 + K4), ``osd_e12`` osd_e 12 at max_iter 100 (K1 + K3).
+  ``--stage1`` sets the pipeline's ``stage1_iters`` (``bench.py:61-63``'s
+  ``BENCH_STAGE1``): one int or a comma list of stage caps; by default
+  ``auto_stage_schedule`` (24, 96 at max_iter 400).  The line's
+  ``stage_caps`` are the caps that ran; K1's bound, its launch check and
+  gate (b) follow them.
 - ``api`` (``bench_api.py``): the same workload through ``BpOsdDecoder``
   built with no backend, device or chunk size, ``decode_batch(...,
   outputs="device")``, timed in turns with the flagship path.
@@ -64,8 +70,8 @@ from bp_osd_tpu_torch.utils.measure import (KERNELS, artifact, artifact_sigmas, 
                                             card, check, corpus_check, elim_bound, k1_merged,
                                             k1_stages, k1_stages_equal_plain, launches,
                                             osd_cs_bound, osd_e_bound, reset_launches, same,
-                                            satisfies, spread, staged_k1_bound, sync,
-                                            trace_step, wrappers)
+                                            satisfies, spread, stage_caps, staged_k1_bound,
+                                            sync, trace_step, wrappers)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(ROOT, "tests", "data", "flagship_corpus.npz")
@@ -119,6 +125,19 @@ def random_syndromes(rng: np.random.Generator, m: int, rows: int, device) -> tor
     """Uniform random syndromes ``[rows, m]`` (``bench_lifted_shard.py:62-65``):
     almost none lies in H's image, so BP runs every row to max_iter."""
     return torch.as_tensor(rng.integers(0, 2, (rows, m), dtype=np.uint8), device=device)
+
+
+def parse_stage1(text: str):
+    """``--stage1``: one int (``"32"``) or a comma list of ints
+    (``"24,96"``, a tuple), as ``decode_pipeline``'s ``stage1_iters``."""
+    try:
+        caps = tuple(int(c) for c in text.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--stage1 takes ints separated by commas, "
+                                         f"got {text!r}") from None
+    if any(c < 1 for c in caps):
+        raise argparse.ArgumentTypeError(f"--stage1 caps must be at least 1, got {text!r}")
+    return caps[0] if len(caps) == 1 else caps
 
 
 def harness_seed(rng: np.random.Generator) -> int:
@@ -233,15 +252,17 @@ def traced_fields(trace: dict, kernels: dict) -> dict:
             "glue_ms": trace["wall_ms"] - sum(kms) if measured else "not measured"}
 
 
-def pipeline_bounds(graph, synd, llr, converged, iterations, opts: dict, consts) -> dict:
+def pipeline_bounds(graph, synd, llr, converged, iterations, opts: dict, consts,
+                    stage1_iters=None) -> dict:
     """The bounds of one staged decode's kernels from its own data: K1 from
-    the iterations its rows ran, the OSD kernel from the elimination its
-    failing rows need."""
+    the iterations its rows ran in the stages of ``stage1_iters``, the OSD
+    kernel from the elimination its failing rows need."""
     from bp_osd_tpu_torch.decoder.osd import normalize_osd_method
 
     method = normalize_osd_method(opts["osd_method"])
     order = 0 if method == "osd0" else int(opts["osd_order"])
-    bounds = {"bp_flood": staged_k1_bound(graph, iterations, opts["max_iter"] or graph.n)}
+    bounds = {"bp_flood": staged_k1_bound(graph, iterations, opts["max_iter"] or graph.n,
+                                          stage1_iters)}
     bounds.update(osd_bounds(graph, synd[~converged], llr[~converged], method, order, consts))
     return bounds
 
@@ -278,17 +299,19 @@ def result_line(mode: str, metric: str, value: float, unit: str, step_ms, *, see
 
 # ---- gates --------------------------------------------------------------------
 
-def staged_decode_equal_plain(graph, synd, llr0, opts: dict, consts, what: str):
-    """Gate (b): each K1 launch of the staged decode of these rows against
-    ``bp_decode_plain`` on the same inputs, then the OSD kernel on the rows
-    BP left unconverged against ``osd_decode_plain``, bit for bit.  Returns
-    the decode's ``(osdw, converged, iterations)``."""
+def staged_decode_equal_plain(graph, synd, llr0, opts: dict, consts, what: str,
+                              stage1_iters=None):
+    """Gate (b): each K1 launch of the staged decode of these rows (in the
+    stages of ``stage1_iters``) against ``bp_decode_plain`` on the same
+    inputs, then the OSD kernel on the rows BP left unconverged against
+    ``osd_decode_plain``, bit for bit.  Returns the decode's ``(osdw,
+    converged, iterations)``."""
     from bp_osd_tpu_torch.decoder.bp import normalize_bp_method
     from bp_osd_tpu_torch.decoder.osd import normalize_osd_method
 
     B, n = synd.shape[0], graph.n
     max_iter = opts["max_iter"] or n
-    stages = k1_stages(graph, synd, llr0.expand(B, n), max_iter,
+    stages = k1_stages(graph, synd, llr0.expand(B, n), max_iter, stage1_iters,
                        method=normalize_bp_method(opts["bp_method"]),
                        ms_scaling_factor=opts["ms_scaling_factor"])
     k1_stages_equal_plain(stages, what)
@@ -364,8 +387,11 @@ def _flagship_setup(code: str, dev):
 
 
 def run_flagship(seed: int = 0, *, code: str = "400", decoder: str = "osd_cs42",
-                 steps: int = STEPS, batch: int = B_FLAGSHIP, device=None) -> dict:
-    """``decode_pipeline`` on the flagship workload (``bench.py``)."""
+                 stage1=None, steps: int = STEPS, batch: int = B_FLAGSHIP,
+                 device=None) -> dict:
+    """``decode_pipeline`` on the flagship workload (``bench.py``), BP in the
+    stages of ``stage1`` (``stage1_iters``; ``None`` is the default
+    schedule)."""
     from bp_osd_tpu_torch.decoder import TannerGraph, decode_pipeline, llr_from_channel
     from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_route
 
@@ -374,6 +400,7 @@ def run_flagship(seed: int = 0, *, code: str = "400", decoder: str = "osd_cs42",
     dev = _device(device)
     opts = DECODERS[decoder]
     qcode, H, H_f = _flagship_setup(code, dev)
+    caps = stage_caps(opts["max_iter"] or qcode.N, stage1)
     batches = [error_syndromes(batch_rng(seed, "flagship", s), H_f, P_FLAGSHIP, batch)
                for s in range(steps)]
     extra = [error_syndromes(batch_rng(seed, "flagship", EXTRA + k), H_f, P_FLAGSHIP, batch)
@@ -385,7 +412,7 @@ def run_flagship(seed: int = 0, *, code: str = "400", decoder: str = "osd_cs42",
     llr0 = llr_from_channel(np.full(graph.n, P_FLAGSHIP)).to(dev)
 
     def decode(synd):
-        return decode_pipeline(graph, synd, llr0, consts=consts, **opts)
+        return decode_pipeline(graph, synd, llr0, consts=consts, stage1_iters=stage1, **opts)
 
     decode(extra[0])
     sync()
@@ -404,9 +431,10 @@ def run_flagship(seed: int = 0, *, code: str = "400", decoder: str = "osd_cs42",
         gates["corpus"] = "not applicable (the corpus is the [[400,16,6]] osd_cs 42 decode)"
     rows = min(GATE_ROWS, batch)  # (b)
     gate_b = staged_decode_equal_plain(graph, batches[0][:rows], llr0, opts, consts,
-                                       "flagship gate (b)")
-    gates["plain"] = (f"K1 at every stage and the OSD kernel on {int((~gate_b[1]).sum())} "
-                      f"failing rows bit-identical to the plain versions ({rows} rows)")
+                                       "flagship gate (b)", stage1)
+    gates["plain"] = (f"K1 at every stage (caps {caps}) and the OSD kernel on "
+                      f"{int((~gate_b[1]).sum())} failing rows bit-identical to the plain "
+                      f"versions ({rows} rows)")
 
     walls, counts, kept = timed_steps(
         {"flagship": (lambda s: decode(batches[s]),
@@ -423,8 +451,13 @@ def run_flagship(seed: int = 0, *, code: str = "400", decoder: str = "osd_cs42",
     reset_launches()
     out, trace = trace_step(lambda: decode(extra[WARMUP]))
     traced = launches()
+    # stage i launches K1 when a row ran past cap i - 1
+    ran = sum(bool((out.iterations > prev).any()) for prev in [0] + caps[:-1])
+    check(not on_card or traced["bp_flood"] == ran,
+          f"flagship: the traced decode launched K1 {traced['bp_flood']} times, its "
+          f"stages {caps} ran {ran}")
     bounds = pipeline_bounds(graph, extra[WARMUP], out.llr, out.converged, out.iterations,
-                             opts, consts)
+                             opts, consts, stage1)
     kernels = kernel_lines(used, total, traced, trace, bounds)
     med = float(np.median(walls["flagship"]))
     value = batch / (med / 1e3)
@@ -437,7 +470,7 @@ def run_flagship(seed: int = 0, *, code: str = "400", decoder: str = "osd_cs42",
         "flagship", f"syndromes_per_s_[[{qcode.N},{qcode.K}]]_p{P_FLAGSHIP}_{decoder}", value,
         "syndromes/s", walls["flagship"], seed=seed, steps=steps, first_call_ms=first_call_ms,
         kernels=kernels, trace=trace, gates=gates, dev=dev, code=code, decoder=decoder,
-        batch=batch, options=dict(opts),
+        batch=batch, options=dict(opts), stage_caps=caps,
         bp_converged_frac=float(conv.mean()),
         bp_mean_iterations=float(torch.stack([o[2] for o in outs]).float().mean()),
         osd_rows=[int((1 - c).sum()) for c in conv], **extra_fields)
@@ -802,9 +835,13 @@ def main(argv=None) -> None:
                     help="timed steps (40 is what a benchmark runs; fewer for smoke runs)")
     ap.add_argument("--code", choices=tuple(SEED_CODES), help="flagship and harness")
     ap.add_argument("--decoder", choices=tuple(DECODERS), help="flagship")
+    ap.add_argument("--stage1", type=parse_stage1,
+                    help="flagship: the pipeline's stage1_iters, one int or a comma list "
+                         "(default: auto_stage_schedule, 24,96 at max_iter 400)")
     ap.add_argument("--p", type=float, help="large: 0.005 (default) or the heavy point 0.028")
     args = ap.parse_args(argv)
-    takes = {"code": ("flagship", "harness"), "decoder": ("flagship",), "p": ("large",)}
+    takes = {"code": ("flagship", "harness"), "decoder": ("flagship",), "stage1": ("flagship",),
+             "p": ("large",)}
     options = {}
     for opt, modes in takes.items():
         if getattr(args, opt) is not None:

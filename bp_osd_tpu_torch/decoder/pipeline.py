@@ -1,7 +1,8 @@
 """Batched BP+OSD decode pipeline with staged long-iteration BP.
 
 Port of ``bp_osd_tpu/decoder/pipeline.py``.  BP runs to ``max_iter`` in
-stages ``(s_1, s_2, ...) -> max_iter``: stage 1 decodes the whole batch and
+stages ``(s_1, s_2, ...) -> max_iter`` (:func:`stage_caps`, from the
+``stage1_iters`` argument): stage 1 decodes the whole batch and
 emits its message state; each later stage resumes only the failures of the
 stage before it, at iteration ``s_prev + 1``, from that state.  BP is
 deterministic and the adaptive min-sum factor depends only on the global
@@ -32,7 +33,7 @@ from .lifted_bp import LiftedGraph, bp_decode_lifted
 from .osd import OsdConsts, osd_decode
 from .tanner import TannerGraph
 
-__all__ = ["BpOsdBatch", "auto_stage_schedule", "decode_pipeline"]
+__all__ = ["BpOsdBatch", "auto_stage_schedule", "decode_pipeline", "stage_caps"]
 
 
 def _partition_order(conv: torch.Tensor):
@@ -65,6 +66,30 @@ def auto_stage_schedule(max_iter: int) -> tuple[int, ...]:
     return tuple(c for c in caps if c < mi) or (mi,)
 
 
+def stage_caps(max_iter: int, stage1_iters=None) -> list[int]:
+    """The iteration caps of the staged BP's launches, ``max_iter`` last.
+
+    ``stage1_iters`` follows the JAX package's rule
+    (``bp_osd_tpu/decoder/pipeline.py:170-174``): an int ``s`` gives the
+    caps ``[min(s, max_iter)]``, a sequence its entries below ``max_iter``;
+    they are sorted without repeats, or ``[max_iter]`` if none is left.
+    ``None`` is :func:`auto_stage_schedule`.  A cap below 1 raises
+    ``ValueError``.  ``[max_iter]`` alone is one straight run."""
+    mi = int(max_iter)
+    if stage1_iters is None:
+        stage1_iters = auto_stage_schedule(mi)
+    if isinstance(stage1_iters, (tuple, list)):
+        given = [int(s) for s in stage1_iters]
+        caps = [s for s in given if s < mi]
+    else:
+        given = [int(stage1_iters)]
+        caps = [min(given[0], mi)]
+    if any(s < 1 for s in given):
+        raise ValueError(f"stage1_iters caps must be at least 1, got {stage1_iters!r}")
+    caps = sorted(set(caps)) or [mi]
+    return caps if caps[-1] == mi else caps + [mi]
+
+
 def decode_pipeline(
     graph: TannerGraph,
     syndromes,
@@ -79,11 +104,17 @@ def decode_pipeline(
     backend: str = "auto",
     lifted: LiftedGraph | None = None,
     layered: LayeredTannerGraph | None = None,
+    stage1_iters=None,
 ) -> BpOsdBatch:
-    """Full batched BP+OSD decode, BP staged by :func:`auto_stage_schedule`,
-    or straight lifted BP when ``lifted`` (the protograph lift of
-    ``graph.H``) is given, or straight layered BP when ``layered`` (the
-    layered graph of ``graph.H``) is."""
+    """Full batched BP+OSD decode, BP staged by :func:`stage_caps` of
+    ``stage1_iters`` (an int, a sequence of ints, or ``None`` for
+    :func:`auto_stage_schedule`), or straight lifted BP when ``lifted`` (the
+    protograph lift of ``graph.H``) is given, or straight layered BP when
+    ``layered`` (the layered graph of ``graph.H``) is; those two take no
+    ``stage1_iters``."""
+    if stage1_iters is not None and (lifted is not None or layered is not None):
+        raise ValueError("stage1_iters stages flooding BP; lifted and layered BP run "
+                         "straight to max_iter")
     method = normalize_bp_method(bp_method)
     if max_iter == 0:
         max_iter = graph.n
@@ -100,7 +131,7 @@ def decode_pipeline(
         hard, llr, conv, iters = bp_decode_layered(layered, synd, llr0, **bp_kw)
     else:
         hard, llr, conv, iters = _staged_bp(graph, synd, llr0, method, max_iter,
-                                            ms_scaling_factor, backend)
+                                            ms_scaling_factor, backend, stage1_iters)
 
     osdw = hard.clone()
     osd0 = hard.clone()
@@ -115,10 +146,11 @@ def decode_pipeline(
                       iterations=iters, llr=llr)
 
 
-def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend):
-    """BP in the stages of :func:`auto_stage_schedule`, each resuming the
-    failures of the one before; returns ``(hard, llr, converged, iterations)``."""
-    caps = [c for c in auto_stage_schedule(max_iter) if c < max_iter] + [max_iter]
+def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend,
+               stage1_iters=None):
+    """BP in the stages of :func:`stage_caps`, each resuming the failures of
+    the one before; returns ``(hard, llr, converged, iterations)``."""
+    caps = stage_caps(max_iter, stage1_iters)
     bp_kw = dict(bp_method=method, ms_scaling_factor=ms_scaling_factor,
                  backend=backend)
 

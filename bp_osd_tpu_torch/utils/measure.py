@@ -9,10 +9,11 @@
   its idle share of the call's wall).
 - Bounds: the least time a call could take on an H100 SXM at 700 W
   (:func:`bound_ms`), for K1 from the iterations its rows ran
-  (:func:`k1_bound`, :func:`staged_k1_bound`) and for the OSD kernels from
-  the elimination work their rows need (:class:`ElimWork`,
-  :func:`elim_work`, :func:`osd_cs_bound`, :func:`osd_e_bound`,
-  :func:`elim_bound`).
+  (:func:`k1_bound`, :func:`staged_k1_bound`, over the launches of the
+  pipeline's :func:`~bp_osd_tpu_torch.decoder.pipeline.stage_caps`) and
+  for the OSD kernels from the elimination work their rows need
+  (:class:`ElimWork`, :func:`elim_work`, :func:`osd_cs_bound`,
+  :func:`osd_e_bound`, :func:`elim_bound`).
 - Gates: :func:`check` (raises :class:`GateFailed`), :func:`same`,
   :func:`satisfies`, :func:`k1_stages`/:func:`k1_equal` (K1 stage by stage
   against its plain version), :func:`corpus_check` and
@@ -32,6 +33,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..decoder.pipeline import stage_caps
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -282,21 +285,15 @@ def k1_bound(graph, rows: int, sample_its: int, *, prior_rows: int, v2c_in: bool
     return bound_ms(nbytes, sample_its * (2 * E + n + m), sample_its * (7 * E + n))
 
 
-def stage_caps(max_iter: int) -> list[int]:
-    """The iteration caps of the staged pipeline's K1 launches
-    (``decoder/pipeline.py:_staged_bp``)."""
-    from ..decoder.pipeline import auto_stage_schedule
-
-    return [c for c in auto_stage_schedule(max_iter) if c < max_iter] + [int(max_iter)]
-
-
-def staged_k1_bound(graph, iterations: torch.Tensor, max_iter: int) -> Bound:
-    """K1's bound over the staged pipeline's launches that decoded rows whose
-    final ``iterations`` these are: stage i takes the rows that ran past
-    cap i - 1 and runs each to at most cap i; stage 1 reads one prior row
-    (the pipeline's expanded prior), later stages one a row."""
+def staged_k1_bound(graph, iterations: torch.Tensor, max_iter: int,
+                    stage1_iters=None) -> Bound:
+    """K1's bound over the staged pipeline's launches (:func:`stage_caps` of
+    ``stage1_iters``) that decoded rows whose final ``iterations`` these
+    are: stage i takes the rows that ran past cap i - 1 and runs each to at
+    most cap i; stage 1 reads one prior row (the pipeline's expanded prior),
+    later stages one a row."""
     its = iterations.long()
-    caps = stage_caps(max_iter)
+    caps = stage_caps(max_iter, stage1_iters)
     parts, prev = [], 0
     for i, cap in enumerate(caps):
         live = its > prev
@@ -472,15 +469,16 @@ class Stage(NamedTuple):
 
 
 def k1_stages(graph, synd: torch.Tensor, llr0: torch.Tensor, max_iter: int,
-              **bp_kw) -> list[Stage]:
+              stage1_iters=None, **bp_kw) -> list[Stage]:
     """K1 (``ops/cuda_bp.py:bp_flood``) at each launch the staged pipeline
-    makes on these rows (:func:`stage_caps`): stage 1 on every row with the
-    prior ``llr0 [B, n]`` as given, each later stage on the rows the one
-    before left unconverged, resumed from its message state.  ``bp_kw`` are
-    ``bp_flood``'s ``method`` and ``ms_scaling_factor``."""
+    makes on these rows (:func:`stage_caps` of ``stage1_iters``): stage 1 on
+    every row with the prior ``llr0 [B, n]`` as given, each later stage on
+    the rows the one before left unconverged, resumed from its message
+    state.  ``bp_kw`` are ``bp_flood``'s ``method`` and
+    ``ms_scaling_factor``."""
     from ..ops.cuda_bp import bp_flood
 
-    caps = stage_caps(max_iter)
+    caps = stage_caps(max_iter, stage1_iters)
     stages = []
     rows = torch.arange(synd.shape[0], device=synd.device)
     v2c = None

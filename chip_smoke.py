@@ -138,7 +138,17 @@ Phases, one line each (any failed check exits non-zero):
    built with ``device="cuda"``; each call's walls (3 calls);
 18. ``bench_torch.py``'s five modes (flagship, api, large, lifted_shard,
    harness) in this process at their default options with 3 timed steps,
-   gates included: each mode's JSON line, and the seconds each took.
+   gates included: each mode's JSON line, and the seconds each took;
+19. ``decode_pipeline``'s stage schedule (``stage1_iters``) at ``None`` (the
+   default, 24 -> 96 -> 400), 32, (8, 32, 128) and 400 (one straight
+   launch): (a) on the 512 corpus rows each schedule's six outputs equal
+   the corpus and the default schedule's bit for bit (llr as int32 bits),
+   K1 launched once a cap (3, 2, 4 and 1 times) and K2 once, each K1
+   launch held bit for bit to ``bp_decode_plain`` on its rows and caps;
+   (b) on the 16384 fresh syndromes each schedule's outputs equal the
+   default's, every osdw satisfied, the decode's median wall of 5, K1's
+   device ms at each launch (CUDA events, median of 5) beside its bound,
+   and K1's share of the wall.
 
 The helpers for timing, bounds and gates are those of
 ``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
@@ -177,7 +187,8 @@ import torch
 from bp_osd_tpu_torch.utils.measure import (Bound, ElimWork, artifact, artifact_sigmas,
                                            bound_sum, bound_text, card_line, check,
                                            corpus_check, cuda_ms, elim_bound, elim_work, host_ms,
-                                           k1_bound, k1_equal, k1_stages, osd_cs_bound,
+                                           k1_bound, k1_equal, k1_merged, k1_stages,
+                                           k1_stages_equal_plain, osd_cs_bound,
                                            osd_e_bound, reset_launches, same, satisfies, sigmas,
                                            sync)
 from bp_osd_tpu_torch.utils.measure import launches as launch_counts
@@ -191,6 +202,7 @@ FRESH = 16384
 PROTO = [[(0,), (0,), (0,), (0,)], [(0,), (1,), (2,), (3,)], [(0,), (2,), (4,), (6,)]]
 LIFT, LIFT_P, LIFT_HEAVY_P, LIFT_B, LIFT_ORDER = 400, 0.005, 0.028, 512, 15
 SIM_ROWS, SIM_RUNS, LIFT_RUNS = 512, 100000, 4096  # phases 12-14
+STAGE_SCHEDULES = (None, 32, (8, 32, 128), 400)  # phase 19's stage1_iters
 BIG_RUNS = 6 * 16384  # phase 15d's harness at batch 16384
 RANK_TIMEOUT = 300  # seconds the phase-15c ranks may take, start-up included
 
@@ -931,6 +943,105 @@ def phase18(tag, qcode) -> None:
           f"{time.perf_counter() - t0:.1f} s {tag}")
 
 
+def phase19(tag, graph, synd, fresh, H_f, consts) -> dict:
+    """``decode_pipeline`` at each of :data:`STAGE_SCHEDULES`: (a) on the
+    corpus rows ``synd``, bit for bit against the corpus, the default
+    schedule and, launch by launch, K1's plain version, with K1 launched
+    once a cap; (b) on the fresh rows, timed, K1 at each launch beside its
+    bound.  Returns each schedule's caps, launches and times."""
+    from bp_osd_tpu_torch.decoder import decode_pipeline
+    from bp_osd_tpu_torch.decoder.bp import llr_from_channel
+    from bp_osd_tpu_torch.decoder.pipeline import stage_caps
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
+
+    data = np.load(CORPUS)
+    B, _, n, max_iter, osd_order, _ = (int(x) for x in data["meta"])
+    llr0 = llr_from_channel(np.full(n, 0.05)).to(graph.device)
+    kw = dict(bp_method="minimum_sum", ms_scaling_factor=0.0, max_iter=max_iter,
+              osd_method="osd_cs", osd_order=osd_order, consts=consts)
+    bp_kw = dict(method="minimum_sum", ms_scaling_factor=0.0)
+
+    def bits(out):
+        return out._replace(llr=out.llr.view(torch.int32))
+
+    def equal(out, ref, what):
+        for name, a, b in zip(out._fields, bits(out), bits(ref)):
+            check(same(a, b), f"phase 19 {what}: {name} differs from the default schedule's")
+
+    # (a) the corpus rows: bits, launches, each K1 launch against its plain version
+    ref, report = None, []
+    for sched in STAGE_SCHEDULES:
+        what = f"stage1_iters={sched}"
+        caps = stage_caps(max_iter, sched)
+        reset_launches()
+        out = decode_pipeline(graph, synd, llr0, stage1_iters=sched, **kw)
+        got = launch_counts()
+        check(got["bp_flood"] == len(caps) and got["osd_cs"] == 1,
+              f"phase 19 {what}: caps {caps} but launches {got}")
+        check(got["osd_e"] == got["eliminate"] == got["osd_large"] == 0,
+              f"phase 19 {what}: another OSD kernel launched: {got}")
+        corpus_check(out.osdw, out.converged, out.iterations, data, f"phase 19 {what}")
+        ref = out if ref is None else ref
+        equal(out, ref, what)
+        stages = k1_stages(graph, synd, llr0.expand(B, n), max_iter, sched, **bp_kw)
+        check([st.kw["max_iter"] for st in stages] == caps,
+              f"phase 19 {what}: K1's stages ran to {[st.kw['max_iter'] for st in stages]}")
+        k1_stages_equal_plain(stages, f"phase 19 {what}")
+        for name, a, b in zip(("hard", "llr", "converged", "iterations"), k1_merged(stages),
+                              (out.bp_hard, out.llr, out.converged, out.iterations)):
+            check(same(a, b), f"phase 19 {what}: K1's staged {name} differs from the decode's")
+        report.append(f"{sched}: caps {caps}, K1 x{got['bp_flood']} "
+                      f"(rows {[st.args[1].shape[0] for st in stages]})")
+    print(f"phase 19a stage schedules on the {B} corpus rows (adaptive min-sum, max_iter "
+          f"{max_iter}, osd_cs {osd_order}): every schedule's osdw/osd0/bp_hard/converged/"
+          f"iterations/llr == corpus and == the default schedule's bit for bit, each K1 launch "
+          f"== bp_decode_plain on its rows and caps, K2 x1: " + "; ".join(report) + f" {tag}")
+
+    # (b) the fresh rows: the decode's wall, K1 at each launch beside its bound
+    F = fresh.shape[0]
+    ref_f, rows = None, {}
+    for sched in STAGE_SCHEDULES:
+        what = f"stage1_iters={sched}"
+        caps = stage_caps(max_iter, sched)
+
+        def decode():
+            return decode_pipeline(graph, fresh, llr0, stage1_iters=sched, **kw)
+
+        wall = host_ms(decode, 5)
+        reset_launches()
+        out = decode()
+        got = launch_counts()
+        check(satisfies(out.osdw, H_f, fresh), f"phase 19 {what}: a fresh osdw violates its "
+                                               "syndrome")
+        ref_f = out if ref_f is None else ref_f
+        equal(out, ref_f, f"{what}, fresh rows")
+        stages = k1_stages(graph, fresh, llr0.expand(F, n), max_iter, sched, **bp_kw)
+        check(got["bp_flood"] == len(stages),
+              f"phase 19 {what}: {got['bp_flood']} K1 launches, {len(stages)} stages")
+        stage_ms, stage_b = [], []
+        for i, st in enumerate(stages):
+            nrows = st.args[1].shape[0]
+            stage_ms.append(cuda_ms(lambda: bp_flood(*st.args, **st.kw), 5))
+            stage_b.append(k1_bound(graph, nrows, st.sample_its,
+                                    prior_rows=1 if i == 0 else nrows, v2c_in=i > 0,
+                                    emit=st.kw["emit_state"]))
+        k1_ms = sum(stage_ms)
+        rows[str(sched)] = {"caps": caps, "launches": got["bp_flood"],
+                            "stage_rows": [st.args[1].shape[0] for st in stages],
+                            "stage_ms": stage_ms, "stage_bound_ms": [b.ms for b in stage_b],
+                            "k1_ms": k1_ms, "bound_ms": bound_sum(stage_b).ms,
+                            "wall_ms": wall}
+        print(f"phase 19b {what} on {F} fresh syndromes: caps {caps}, == the default "
+              f"schedule's bit for bit, all satisfied; decode median of 5 {wall:.3f} ms, "
+              f"{F / wall * 1e3:.1f} syndromes/s; K1 x"
+              f"{got['bp_flood']}: " + ", ".join(
+                  f"{r} rows {ms:.3f} ms (bound {b.ms:.4f})"
+                  for r, ms, b in zip(rows[str(sched)]["stage_rows"], stage_ms, stage_b))
+              + f" = {k1_ms:.3f} ms, {100 * k1_ms / wall:.1f}% of the wall, bound "
+              f"{bound_sum(stage_b).ms:.4f} ms; launches {got} {tag}")
+    return rows
+
+
 def rank_split(ranks: list[dict]) -> str:
     """Each rank's ms a batch, beside one reduction's and one slice's decode."""
     return ("each rank's first batch of one (a fresh process, before the timed run) "
@@ -1647,6 +1758,7 @@ def main() -> None:
     model_parallel = phase16(tag, qcode)
     phase17(tag, qcode)
     phase18(tag, qcode)
+    schedules = phase19(tag, graph, synd, fresh, H_f, consts)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)
@@ -1664,7 +1776,7 @@ def main() -> None:
         row("bp_flood", "bp_flood.cu", "pallas_bp.py:140", launches["bp_flood"],
             per_decode["bp_flood"], bp_err, bp_ms, bp_plain_ms, bp_bound,
             stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
-            stage_bound_ms=[b.ms for b in stage_bound]),
+            stage_bound_ms=[b.ms for b in stage_bound], stage_schedules=schedules),
         row("osd_cs", "osd_cs.cu", "pallas_osd.py:135", launches["osd_cs"],
             per_decode["osd_cs"], osd_err, osd_ms, osd_plain_ms, osd_b),
         row("osd_e", "osd_cs.cu", "pallas_osd.py:565", launches_e["osd_e"], k3_per_decode,

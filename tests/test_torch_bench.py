@@ -242,17 +242,22 @@ def test_k1_bound_from_the_decode_equals_its_launches(flagship):
     H, _ = flagship
     graph = TannerGraph(H, "cpu")
     _, synd, _ = _corpus()
-    for max_iter in (400, 100):
+    for max_iter, stage1 in ((400, None), (100, None), (400, 32), (400, (8, 32, 128)),
+                             (400, 400), (100, (4, 60, 60))):
         llr0 = llr_from_channel(np.full(graph.n, 0.05)).expand(96, graph.n)
-        stages = measure.k1_stages(graph, synd[:96], llr0, max_iter, method="minimum_sum",
-                                   ms_scaling_factor=0.0)
+        stages = measure.k1_stages(graph, synd[:96], llr0, max_iter, stage1,
+                                   method="minimum_sum", ms_scaling_factor=0.0)
+        caps = measure.stage_caps(max_iter, stage1)
+        assert [st.kw["max_iter"] for st in stages] == caps  # the corpus rows reach every cap
         want = measure.bound_sum(
             measure.k1_bound(graph, st.args[1].shape[0], st.sample_its,
                              prior_rows=1 if i == 0 else st.args[1].shape[0], v2c_in=i > 0,
                              emit=st.kw["emit_state"])
             for i, st in enumerate(stages))
         iters = measure.k1_merged(stages)[3]
-        assert measure.staged_k1_bound(graph, iters, max_iter) == want
+        assert measure.staged_k1_bound(graph, iters, max_iter, stage1) == want
+        if stage1 is not None:  # the default schedule's count is another count
+            assert measure.staged_k1_bound(graph, iters, max_iter) != want
 
 
 def test_trace_step_without_a_card():
@@ -275,6 +280,7 @@ KEYS = {"metric", "value", "unit", "spread", "first_call_ms", "kernels", "device
     ("large", dict(batch=16, lift=LIFT, p=0.03)),
     ("lifted_shard", dict(batch=8, lift=LIFT)),
     ("harness", dict(runs=100, batch=50)),
+    ("flagship", dict(batch=24, stage1=32)),
 ])
 def test_mode_end_to_end_on_the_cpu(mode, options):
     """Each mode, gates included, at a tiny size on the CPU: one line with
@@ -290,6 +296,38 @@ def test_mode_end_to_end_on_the_cpu(mode, options):
         assert k["launches"] == 0 and k["ms"] == "not measured" and k["share"] == "not measured"
         assert {"bound_ms", "bound_by"} <= set(k)
     assert line["gates"]
+    if mode == "flagship":  # the caps that ran: the default schedule, or --stage1's
+        n = int(options.get("code", "400"))
+        max_iter = bench.DECODERS[options.get("decoder", "osd_cs42")]["max_iter"] or n
+        assert line["stage_caps"] == measure.stage_caps(max_iter, options.get("stage1"))
+        if options == dict(batch=24):
+            assert line["stage_caps"] == [24, 96, 400]
+        if options == dict(batch=24, stage1=32):
+            assert line["stage_caps"] == [32, 400]
+
+
+@pytest.mark.parametrize("text, want", [("24,96", (24, 96)), ("32", 32), ("8,32,128", (8, 32, 128)),
+                                        ("400", 400)])
+def test_stage1_parses(text, want):
+    """``--stage1`` takes one int (``stage1_iters=32``) or a comma list (a
+    tuple of caps), as ``bench.py:61-63`` reads ``BENCH_STAGE1``."""
+    assert bench.parse_stage1(text) == want
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--mode", "api", "--stage1", "32"], "--stage1 applies to --mode flagship"),
+    (["--mode", "harness", "--stage1", "24,96"], "--stage1 applies to --mode flagship"),
+    (["--mode", "large", "--stage1", "32"], "--stage1 applies to --mode flagship"),
+    (["--mode", "flagship", "--stage1", "0"], "at least 1"),
+    (["--mode", "flagship", "--stage1", "24,x"], "ints separated by commas"),
+])
+def test_stage1_is_refused_outside_flagship(argv, message, capsys):
+    """Outside ``--mode flagship``, or with a cap that is not a positive
+    int, the command line is refused before anything is built."""
+    with pytest.raises(SystemExit) as exc:
+        bench.main(argv)
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
 
 
 def test_script_without_a_card_prints_no_line():
