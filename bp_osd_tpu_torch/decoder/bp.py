@@ -94,18 +94,29 @@ def as_syndromes(syndromes, m: int, device, what: str = "syndromes") -> torch.Te
     """Validate and convert ``syndromes`` to a ``[B, m]`` uint8 tensor on
     ``device``.
 
-    Entries must be 0 or 1 whatever the dtype: a float syndrome such as 0.9 is
-    rejected with ``ValueError``, never truncated to 0.
+    Entries must be 0 or 1 whatever the dtype: a float syndrome such as 0.9,
+    or a uint8 one holding 2 or 255, is rejected with ``ValueError``, never
+    truncated or reduced mod 2.  A numpy array is checked on the host before
+    it is copied; a card tensor costs one reduction and one host read.  Each
+    public entry point calls this once on its input and hands the result to
+    private functions that do not check again.
     """
     s = torch.as_tensor(syndromes)
     if s.dim() == 1:
         s = s[None, :]
     if s.dim() != 2 or s.shape[1] != m:
         raise ValueError(f"{what} must have shape [B, {m}], got {tuple(s.shape)}")
-    if s.dtype != torch.uint8 and s.dtype != torch.bool:
-        if bool(((s != 0) & (s != 1)).any()):
-            raise ValueError(f"{what} entries must be 0 or 1")
+    _check_binary(s, what)
     return s.to(device=device, dtype=torch.uint8)
+
+
+def _check_binary(s: torch.Tensor, what: str) -> None:
+    """Raise ``ValueError`` unless every entry of ``s`` is 0 or 1."""
+    if s.dtype == torch.bool:
+        return
+    bad = s > 1 if s.dtype == torch.uint8 else (s != 0) & (s != 1)
+    if bool(bad.any()):
+        raise ValueError(f"{what} entries must be 0 or 1")
 
 
 def as_f32(x, device) -> torch.Tensor:
@@ -349,12 +360,24 @@ def bp_decode(
     :class:`BPResult`, and with ``emit_state=True`` the pair
     ``(BPResult, v2c [B, m*wr])``.
     """
+    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    synd = as_syndromes(syndromes, graph.m, device)
+    return _bp_decode(graph, synd, llr0, bp_method=bp_method, max_iter=max_iter,
+                      ms_scaling_factor=ms_scaling_factor, skip=skip, v2c_init=v2c_init,
+                      it0=it0, emit_state=emit_state, backend=backend)
+
+
+def _bp_decode(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method: str,
+               max_iter: int, ms_scaling_factor: float, skip=None, v2c_init=None,
+               it0: int = 0, emit_state: bool = False, backend: str = "auto"):
+    """:func:`bp_decode` of ``synd``, syndromes that :func:`as_syndromes`
+    has checked (a ``[B, m]`` uint8 tensor); the port's own callers use it,
+    so a public call checks its input once."""
     method = normalize_bp_method(bp_method)
     if max_iter == 0:
         max_iter = graph.n
-    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    device = synd.device
     graph = graph.to(device)
-    synd = as_syndromes(syndromes, graph.m, device)
     B = synd.shape[0]
     llr0 = as_f32(llr0, device).expand(B, graph.n)
     if skip is not None:

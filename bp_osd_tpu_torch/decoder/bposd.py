@@ -22,9 +22,10 @@ A decoder lives on one ``device`` (default: the card when
 decode goes through the CUDA kernels, on the CPU through their plain torch
 versions, and ``"cuda"`` without a card raises.
 
-Syndromes must hold 0/1 entries: a float syndrome such as 0.9 raises
-``ValueError`` instead of being truncated to 0 as the JAX package's
-``astype(uint8)`` does.
+Syndromes (and received vectors) must hold 0/1 entries: a float syndrome
+such as 0.9 raises ``ValueError`` instead of being truncated to 0 as the JAX
+package's ``astype(uint8)`` does, and so does a uint8 entry above 1.  A
+decode checks its input once, in :meth:`BpDecoder._resolve_input`.
 """
 
 from __future__ import annotations
@@ -34,11 +35,11 @@ import scipy.sparse as sp
 import torch
 
 from ..ops import BACKENDS, resolve_backend
-from .bp import BPResult, as_syndromes, bp_decode, llr_from_channel, normalize_bp_method
-from .layered import LayeredTannerGraph, bp_decode_layered
-from .lifted_bp import LiftedGraph, bp_decode_lifted
+from .bp import BPResult, _bp_decode, as_syndromes, llr_from_channel, normalize_bp_method
+from .layered import LayeredTannerGraph, _bp_decode_layered
+from .lifted_bp import LiftedGraph, _bp_decode_lifted
 from .osd import build_osd_consts, normalize_osd_method
-from .pipeline import decode_pipeline
+from .pipeline import _decode_pipeline
 from .tanner import TannerGraph, resolve_device
 
 __all__ = ["BpDecoder", "BpOsdDecoder", "bp_decoder", "bposd_decoder"]
@@ -159,7 +160,9 @@ class BpDecoder:
     def _resolve_input(self, vectors):
         """Map decode() input to ``(syndromes [B, m] uint8, received [B, n]
         uint8 or None)`` on the decoder's device; in received-vector mode
-        decodings are ``received XOR e_hat``."""
+        decodings are ``received XOR e_hat``.  The one check of a decode's
+        input: what it returns goes to the private BP and pipeline
+        functions, which do not check again."""
         if torch.is_tensor(vectors) and vectors.device != self.device:
             raise ValueError(
                 f"input is on {vectors.device}, the decoder on {self.device}")
@@ -181,13 +184,13 @@ class BpDecoder:
         kw = dict(bp_method=self.bp_method, max_iter=self.max_iter,
                   ms_scaling_factor=self.ms_scaling_factor)
         if self._lifted is not None:
-            res: BPResult = bp_decode_lifted(self._lifted, synd,
-                                             self._llr0(channel_probs), **kw)
+            res: BPResult = _bp_decode_lifted(self._lifted, synd,
+                                              self._llr0(channel_probs), **kw)
         elif self._layered is not None:
-            res = bp_decode_layered(self._layered, synd, self._llr0(channel_probs), **kw)
+            res = _bp_decode_layered(self._layered, synd, self._llr0(channel_probs), **kw)
         else:
-            res = bp_decode(self.graph, synd, self._llr0(channel_probs),
-                            backend=self.backend, **kw)
+            res = _bp_decode(self.graph, synd, self._llr0(channel_probs),
+                             backend=self.backend, **kw)
         hard = res.hard if received is None else res.hard ^ received
         self.bp_decoding_batch = self._out(hard, outputs)
         self.log_prob_ratios_batch = self._out(res.llr, outputs)
@@ -280,7 +283,7 @@ class BpOsdDecoder(BpDecoder):
         llr0 = self._llr0(channel_probs)
         outs = []
         for lo in range(0, synd.shape[0], chunk_size):
-            outs.append(decode_pipeline(
+            outs.append(_decode_pipeline(
                 self.graph, synd[lo : lo + chunk_size], llr0,
                 bp_method=self.bp_method, max_iter=self.max_iter,
                 ms_scaling_factor=self.ms_scaling_factor,

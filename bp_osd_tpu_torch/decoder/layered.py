@@ -134,13 +134,22 @@ def bp_decode_layered(
     Outputs are in the original check and variable indexing: the row
     permutation stays inside.  Tensor inputs decide the device.
     """
+    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    synd = as_syndromes(syndromes, graph.m, device)
+    return _bp_decode_layered(graph, synd, llr0, bp_method=bp_method, max_iter=max_iter,
+                              ms_scaling_factor=ms_scaling_factor)
+
+
+def _bp_decode_layered(graph: LayeredTannerGraph, synd: torch.Tensor, llr0, *,
+                       bp_method: str, max_iter: int, ms_scaling_factor: float) -> BPResult:
+    """:func:`bp_decode_layered` of ``synd``, syndromes that
+    :func:`~bp_osd_tpu_torch.decoder.bp.as_syndromes` has checked."""
     method = normalize_bp_method(bp_method)
     if max_iter == 0:
         max_iter = graph.n
-    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    device = synd.device
     graph = graph.to(device)
     m, n, wr = graph.m, graph.n, graph.wr
-    synd = as_syndromes(syndromes, m, device)
     B = synd.shape[0]
     syn = synd.index_select(1, graph._row_perm_t).to(torch.int32)
     llr0 = as_f32(llr0, device).expand(B, n)

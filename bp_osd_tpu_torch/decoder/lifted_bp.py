@@ -154,12 +154,21 @@ def bp_decode_lifted(
     Tensor inputs decide the device.  Rows are decoded in calls of at most
     ``2^26 / (m * wr)`` rows, so the message tensors stay bounded.
     """
+    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    synd = as_syndromes(syndromes, graph.m, device)
+    return _bp_decode_lifted(graph, synd, llr0, bp_method=bp_method, max_iter=max_iter,
+                             ms_scaling_factor=ms_scaling_factor)
+
+
+def _bp_decode_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0, *, bp_method: str,
+                      max_iter: int, ms_scaling_factor: float) -> BPResult:
+    """:func:`bp_decode_lifted` of ``synd``, syndromes that
+    :func:`~bp_osd_tpu_torch.decoder.bp.as_syndromes` has checked."""
     method = normalize_bp_method(bp_method)
     if max_iter == 0:
         max_iter = graph.n
-    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    device = synd.device
     graph = graph.to(device)
-    synd = as_syndromes(syndromes, graph.m, device)
     B, n = synd.shape[0], graph.n
     llr0 = as_f32(llr0, device).expand(B, n)
     rows = max(1, _MSG_BUDGET // (graph.m * graph.wr))

@@ -403,6 +403,19 @@ def osd_decode(
     order-0 decodes in K4, or K5 on codes K2 cannot hold.  On the CPU every
     method runs :func:`osd_decode_plain`.
     """
+    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    synd = as_syndromes(syndromes, graph.m, device)
+    return _osd_decode(graph, synd, llr, osd_method=osd_method, osd_order=osd_order,
+                       consts=consts, skip=skip, backend=backend)
+
+
+def _osd_decode(graph: TannerGraph, synd: torch.Tensor, llr, *, osd_method: str,
+                osd_order: int, consts: OsdConsts | None = None, skip=None,
+                backend: str = "auto") -> OsdResult:
+    """:func:`osd_decode` of ``synd``, syndromes that
+    :func:`~bp_osd_tpu_torch.decoder.bp.as_syndromes` has checked (a
+    ``[B, m]`` uint8 tensor); the port's own callers use it, so a public
+    call checks its input once."""
     method = normalize_osd_method(osd_method)
     if method == "osd_e" and osd_order > _MAX_OSD_E_ORDER:
         raise ValueError(
@@ -411,9 +424,8 @@ def osd_decode(
         )
     if consts is None:
         consts = build_osd_consts(graph, method, osd_order)
-    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    device = synd.device
     graph = graph.to(device)
-    synd = as_syndromes(syndromes, graph.m, device)
     llr = as_f32(llr, device)
     if llr.dim() == 1:
         llr = llr[None, :]

@@ -27,10 +27,10 @@ from typing import NamedTuple
 
 import torch
 
-from .bp import as_f32, as_syndromes, bp_decode, normalize_bp_method
-from .layered import LayeredTannerGraph, bp_decode_layered
-from .lifted_bp import LiftedGraph, bp_decode_lifted
-from .osd import OsdConsts, osd_decode
+from .bp import _bp_decode, as_f32, as_syndromes, normalize_bp_method
+from .layered import LayeredTannerGraph, _bp_decode_layered
+from .lifted_bp import LiftedGraph, _bp_decode_lifted
+from .osd import OsdConsts, _osd_decode
 from .tanner import TannerGraph
 
 __all__ = ["BpOsdBatch", "auto_stage_schedule", "decode_pipeline", "stage_caps"]
@@ -112,6 +112,24 @@ def decode_pipeline(
     protograph lift of ``graph.H``) is given, or straight layered BP when
     ``layered`` (the layered graph of ``graph.H``) is; those two take no
     ``stage1_iters``."""
+    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    synd = as_syndromes(syndromes, graph.m, device)
+    return _decode_pipeline(graph, synd, llr0, bp_method=bp_method, max_iter=max_iter,
+                            ms_scaling_factor=ms_scaling_factor, osd_method=osd_method,
+                            osd_order=osd_order, consts=consts, backend=backend,
+                            lifted=lifted, layered=layered, stage1_iters=stage1_iters)
+
+
+def _decode_pipeline(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method: str,
+                     max_iter: int, ms_scaling_factor: float, osd_method: str, osd_order: int,
+                     consts: OsdConsts | None = None, backend: str = "auto",
+                     lifted: LiftedGraph | None = None,
+                     layered: LayeredTannerGraph | None = None,
+                     stage1_iters=None) -> BpOsdBatch:
+    """:func:`decode_pipeline` of ``synd``, syndromes that
+    :func:`~bp_osd_tpu_torch.decoder.bp.as_syndromes` has checked (a
+    ``[B, m]`` uint8 tensor); the decoder classes and the harness call it,
+    so a public call checks its input once, whatever the stages."""
     if stage1_iters is not None and (lifted is not None or layered is not None):
         raise ValueError("stage1_iters stages flooding BP; lifted and layered BP run "
                          "straight to max_iter")
@@ -119,16 +137,15 @@ def decode_pipeline(
     if max_iter == 0:
         max_iter = graph.n
     max_iter = int(max_iter)
-    device = syndromes.device if torch.is_tensor(syndromes) else graph.device
+    device = synd.device
     graph = graph.to(device)
-    synd = as_syndromes(syndromes, graph.m, device)
     B, n = synd.shape[0], graph.n
     llr0 = as_f32(llr0, device).expand(B, n)
     bp_kw = dict(bp_method=method, max_iter=max_iter, ms_scaling_factor=ms_scaling_factor)
     if lifted is not None:
-        hard, llr, conv, iters = bp_decode_lifted(lifted, synd, llr0, **bp_kw)
+        hard, llr, conv, iters = _bp_decode_lifted(lifted, synd, llr0, **bp_kw)
     elif layered is not None:
-        hard, llr, conv, iters = bp_decode_layered(layered, synd, llr0, **bp_kw)
+        hard, llr, conv, iters = _bp_decode_layered(layered, synd, llr0, **bp_kw)
     else:
         hard, llr, conv, iters = _staged_bp(graph, synd, llr0, method, max_iter,
                                             ms_scaling_factor, backend, stage1_iters)
@@ -138,8 +155,8 @@ def decode_pipeline(
     order, nfail = _partition_order(conv)
     if nfail:
         sel = order[:nfail]
-        o = osd_decode(graph, synd[sel], llr[sel], osd_method=osd_method,
-                       osd_order=osd_order, consts=consts, backend=backend)
+        o = _osd_decode(graph, synd[sel], llr[sel], osd_method=osd_method,
+                        osd_order=osd_order, consts=consts, backend=backend)
         osdw[sel] = o.osdw
         osd0[sel] = o.osd0
     return BpOsdBatch(osdw=osdw, osd0=osd0, bp_hard=hard, converged=conv,
@@ -155,7 +172,7 @@ def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend,
                  backend=backend)
 
     emit = caps[0] < max_iter
-    out = bp_decode(graph, synd, llr0, max_iter=caps[0], emit_state=emit, **bp_kw)
+    out = _bp_decode(graph, synd, llr0, max_iter=caps[0], emit_state=emit, **bp_kw)
     bp, v2c = out if emit else (out, None)
     hard, llr = bp.hard, bp.llr
     conv, iters = bp.converged, bp.iterations
@@ -165,8 +182,8 @@ def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend,
             break
         sel = order[:nfail]
         emit = s_next < max_iter
-        out = bp_decode(graph, synd[sel], llr0[sel], max_iter=s_next,
-                        v2c_init=v2c[sel], it0=s_prev, emit_state=emit, **bp_kw)
+        out = _bp_decode(graph, synd[sel], llr0[sel], max_iter=s_next,
+                         v2c_init=v2c[sel], it0=s_prev, emit_state=emit, **bp_kw)
         res, v2c_sel = out if emit else (out, None)
         hard[sel] = res.hard
         llr[sel] = res.llr

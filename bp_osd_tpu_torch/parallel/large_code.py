@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..decoder.osd import build_osd_consts, osd_decode
+from ..decoder.osd import _osd_decode, build_osd_consts
 from ..decoder.tanner import TannerGraph
 from ..ops import resolve_backend
 from .edge_shard import ShardedTannerGraph, edge_sharded_bp_fn
@@ -44,8 +44,8 @@ def _build_osd_stage(graph: TannerGraph, consts, mesh: Mesh2D, *, osd_method, os
 
     def local(synd, llr, conv):
         graph_k, consts_k = copies[synd.device]
-        return osd_decode(graph_k, synd, llr, osd_method=osd_method, osd_order=osd_order,
-                          consts=consts_k, skip=conv, backend=backend).osdw
+        return _osd_decode(graph_k, synd, llr, osd_method=osd_method, osd_order=osd_order,
+                           consts=consts_k, skip=conv, backend=backend).osdw
 
     flat = mesh.flat()
     return shard_decode_fn(local, flat, flat.axis_name)
@@ -57,8 +57,8 @@ def _bposd(bp, osd_stage, m: int, devices: int):
         if B % devices:
             raise ValueError(f"a batch of {B} rows does not split evenly over the mesh's "
                              f"{devices} devices (pad it to a multiple with pad_batch)")
-        hard, llr, conv = bp(syndromes_pad, llr0)[:3]
-        synd = torch.as_tensor(syndromes_pad)[:, :m]
+        hard, llr, conv = bp(syndromes_pad, llr0)[:3]  # checks the syndromes once
+        synd = torch.as_tensor(syndromes_pad)[:, :m].to(torch.uint8)
         osdw = osd_stage(synd, llr, conv)
         return torch.where(conv[:, None], hard, osdw), conv
 

@@ -20,9 +20,10 @@ partition keeps that order: shard ``d`` continues shard ``d - 1``'s running
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..decoder.bp import normalize_bp_method
-from ..decoder.lifted_bp import LiftedGraph, bp_decode_lifted
+from ..decoder.bp import as_syndromes, normalize_bp_method
+from ..decoder.lifted_bp import LiftedGraph, _bp_decode_lifted
 from .edge_shard import ChainBP, ChainPlan, check_mesh, lane_table, make_shard
 from .mesh import Mesh, Mesh2D
 from .shard_pallas import shard_decode_fn
@@ -133,11 +134,18 @@ def lifted_sharded_bp_fn(
     if sgraph.n_shards == 1:
         copies = {d: lg.to(d) for d in dict.fromkeys(mesh.devices)}
 
-        def local(syndromes_pad, llr0):
-            return tuple(bp_decode_lifted(copies[syndromes_pad.device], syndromes_pad[:, :lg.m],
-                                          llr0, bp_method=method, max_iter=max_iter,
-                                          ms_scaling_factor=ms_scaling_factor))
+        def local(synd, llr0):
+            return tuple(_bp_decode_lifted(copies[synd.device], synd, llr0, bp_method=method,
+                                           max_iter=max_iter,
+                                           ms_scaling_factor=ms_scaling_factor))
 
-        return shard_decode_fn(local, Mesh(tuple(g[0] for g in groups), data_axis), data_axis)
+        run = shard_decode_fn(local, Mesh(tuple(g[0] for g in groups), data_axis), data_axis)
+
+        def decode(syndromes_pad, llr0):  # one shard: no pad rows, m columns
+            device = (syndromes_pad.device if torch.is_tensor(syndromes_pad)
+                      else torch.device("cpu"))
+            return run(as_syndromes(syndromes_pad, lg.m, device, "syndromes_pad"), llr0)
+
+        return decode
     return ChainBP(_lifted_plan(sgraph, groups), mesh, lg.n, method=method, max_iter=max_iter,
                    ms_scaling_factor=ms_scaling_factor).decode

@@ -24,8 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..decoder.bp import bp_decode
-from ..decoder.osd import build_osd_consts, osd_decode
+from ..decoder.bp import _bp_decode, as_syndromes
+from ..decoder.osd import _osd_decode, build_osd_consts
 from ..decoder.tanner import TannerGraph, canonical_device
 from .shard_pallas import replicate, shard_decode_fn
 
@@ -170,19 +170,25 @@ def sharded_decode_fn(
     :func:`pad_batch`; broadcast a shared channel prior to ``[B, n]`` at the
     caller).  Converged rows keep BP's decision in ``osdw`` and ``osd0``; OSD
     skips them.  The graph and the OSD tables are copied to each device
-    here, once.
+    here, once.  The syndromes are checked once, before they are split.
     """
     consts = build_osd_consts(graph, osd_method, osd_order)
     copies = {d: (graph.to(d), replicate(consts, d)) for d in dict.fromkeys(mesh.devices)}
 
     def shard(syndromes, llr0):
         graph_k, consts_k = copies[syndromes.device]
-        bp = bp_decode(graph_k, syndromes, llr0, bp_method=bp_method, max_iter=max_iter,
-                       ms_scaling_factor=ms_scaling_factor)
-        osd = osd_decode(graph_k, syndromes, bp.llr, osd_method=osd_method,
-                         osd_order=osd_order, consts=consts_k, skip=bp.converged)
+        bp = _bp_decode(graph_k, syndromes, llr0, bp_method=bp_method, max_iter=max_iter,
+                        ms_scaling_factor=ms_scaling_factor)
+        osd = _osd_decode(graph_k, syndromes, bp.llr, osd_method=osd_method,
+                          osd_order=osd_order, consts=consts_k, skip=bp.converged)
         keep = bp.converged[:, None]
         return (torch.where(keep, bp.hard, osd.osdw), torch.where(keep, bp.hard, osd.osd0),
                 bp.hard, bp.converged)
 
-    return shard_decode_fn(shard, mesh, axis_name)
+    run = shard_decode_fn(shard, mesh, axis_name)
+
+    def decode(syndromes, llr0):
+        device = syndromes.device if torch.is_tensor(syndromes) else torch.device("cpu")
+        return run(as_syndromes(syndromes, graph.m, device), llr0)
+
+    return decode

@@ -49,7 +49,7 @@ from ..codes.css import css_code
 from ..decoder.bp import llr_from_channel
 from ..decoder.bposd import _CHUNK_CARD, _CHUNK_CPU
 from ..decoder.osd import build_osd_consts, normalize_osd_method
-from ..decoder.pipeline import BpOsdBatch, decode_pipeline
+from ..decoder.pipeline import BpOsdBatch, _decode_pipeline
 from ..decoder.tanner import TannerGraph, canonical_device, resolve_device
 from ..ops import BACKENDS, resolve_backend
 from ..parallel import Mesh, make_mesh, shard_batch_fn
@@ -195,9 +195,9 @@ class _OnDevice:
             hit, miss = bayes
             llr0 = torch.where(first_osdw == 1, hit, miss)
         c = self._chunk
-        outs = [decode_pipeline(graph, synd[lo:lo + c],
-                                llr0 if llr0.dim() == 1 else llr0[lo:lo + c],
-                                consts=consts, **self._decode_kw)
+        outs = [_decode_pipeline(graph, synd[lo:lo + c],
+                                 llr0 if llr0.dim() == 1 else llr0[lo:lo + c],
+                                 consts=consts, **self._decode_kw)
                 for lo in range(0, synd.shape[0], c)]
         if len(outs) == 1:
             return outs[0]

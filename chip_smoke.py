@@ -90,7 +90,10 @@ Phases, one line each (any failed check exits non-zero):
 14. the lifted-product example (``examples/lifted_product_ler.py``'s
    experiment through ``BpOsdDecoder(hx, proto=hx_proto, lift=400)``) at
    p = 0.03, 4096 runs: OSDW LER within 4 sigma of
-   ``examples/lifted_product_decode_results.json``, K5 launched;
+   ``examples/lifted_product_decode_results.json``, K5 launched; then the
+   example's first 8 rows (its rng's first batch) through the same
+   decoder on the card and on ``device="cpu"``: equal per sample in
+   ``bp_decoding``, ``converge_batch`` and ``osdw``;
 15. the data-parallel layer (``bp_osd_tpu_torch.parallel``): (a)
    ``sharded_decode_fn`` over ``make_mesh()`` (every card) on the 16384
    fresh flagship syndromes (adaptive min-sum, max_iter 400, osd_cs 42):
@@ -148,7 +151,20 @@ Phases, one line each (any failed check exits non-zero):
    (b) on the 16384 fresh syndromes each schedule's outputs equal the
    default's, every osdw satisfied, the decode's median wall of 5, K1's
    device ms at each launch (CUDA events, median of 5) beside its bound,
-   and K1's share of the wall.
+   and K1's share of the wall;
+20. the syndrome check and the code generator: (a) uint8 card tensors
+   holding 2 and 255 raise ``ValueError`` at every public entry point
+   (``bp_decode``, ``decode_pipeline``, ``osd_decode``,
+   ``bp_decode_layered``, ``bp_decode_lifted``, ``BpOsdDecoder.decode_batch``
+   and ``decode``, received-vector mode, ``BpDecoder.decode``,
+   ``sharded_decode_fn``, ``edge_sharded_bp_fn``) with one check a call and
+   no kernel launched, one flagship ``decode_batch`` of the 16384 fresh rows
+   makes one check over its three K1 launches, and the check alone on that
+   16384 x 192 uint8 tensor is timed (host clock, median of 5); (b)
+   ``bp_osd_tpu_torch/examples/generate_hgp_codes.py``'s ``generate`` writes
+   into a temporary directory, its ``hx`` file reloaded into a
+   ``TannerGraph`` on the card equals the flagship matrix, and
+   ``decode_pipeline`` on it reproduces the corpus through K1 and K2.
 
 The helpers for timing, bounds and gates are those of
 ``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
@@ -202,6 +218,7 @@ FRESH = 16384
 PROTO = [[(0,), (0,), (0,), (0,)], [(0,), (1,), (2,), (3,)], [(0,), (2,), (4,), (6,)]]
 LIFT, LIFT_P, LIFT_HEAVY_P, LIFT_B, LIFT_ORDER = 400, 0.005, 0.028, 512, 15
 SIM_ROWS, SIM_RUNS, LIFT_RUNS = 512, 100000, 4096  # phases 12-14
+LIFT_CPU_ROWS = 8  # phase 14's lift-400 rows on the CPU, whose plain OSD is slow at n = 10^4
 STAGE_SCHEDULES = (None, 32, (8, 32, 128), 400)  # phase 19's stage1_iters
 BIG_RUNS = 6 * 16384  # phase 15d's harness at batch 16384
 RANK_TIMEOUT = 300  # seconds the phase-15c ranks may take, start-up included
@@ -342,8 +359,13 @@ def phase13(H, synd, dec_flood, tag) -> None:
 
 
 def phase14(qcode, tag, runs=LIFT_RUNS) -> None:
-    """The lifted-product LER example at p = 0.03 against its artifact."""
+    """The lifted-product LER example at p = 0.03 against its artifact, then
+    the example's first :data:`LIFT_CPU_ROWS` rows through its decoder on the
+    card and on the CPU, equal per sample."""
+    from bp_osd_tpu_torch import BpOsdDecoder
+    from bp_osd_tpu_torch.examples import lifted_product_ler as ex
     from bp_osd_tpu_torch.examples.lifted_product_ler import run_point
+    from bp_osd_tpu_torch.sim.css_decode_sim import _mod2mul
 
     art = artifact("lifted_product_decode_results.json")["points"]["0.03"]
     reset_launches()
@@ -361,6 +383,31 @@ def phase14(qcode, tag, runs=LIFT_RUNS) -> None:
           f"({z:.2f} sigma from the artifact's OSDW LER); every field but the runtime equal to "
           f"the artifact: {all(point[k] == art[k] for k in keys)}; {wall:.3f} s, "
           f"{point['runs'] / wall:.1f} runs/s; launches {launched} {tag}")
+
+    # the example's first rows (its rng, its first batch) on the card and on the CPU
+    t0 = time.perf_counter()
+    H = np.asarray(qcode.hx.toarray(), np.uint8)
+    rng = np.random.default_rng(ex.SEED)
+    err = (rng.random((ex.B, H.shape[1])) < 0.03).astype(np.uint8)[:LIFT_CPU_ROWS]
+    synd = _mod2mul(torch.as_tensor(err), torch.as_tensor(H, dtype=torch.float32))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        dec = BpOsdDecoder(qcode.hx, proto=qcode.hx_proto, lift=qcode.lift, error_rate=0.03,
+                           max_iter=ex.MAX_ITER, bp_method="minimum_sum",
+                           ms_scaling_factor=0.625, osd_method="osd_cs",
+                           osd_order=ex.OSD_ORDER, device=device)
+        t = time.perf_counter()
+        dec.decode_batch(synd.to(dec.device))
+        outs[device] = (dec.bp_decoding_batch, dec.converge_batch, dec.osdw_decoding_batch,
+                        time.perf_counter() - t)
+    for name, a, b in zip(("bp_decoding", "converge_batch", "osdw"), outs["cuda"], outs["cpu"]):
+        check(np.array_equal(a, b), f"phase 14 lifted rows: {name} on the card != the CPU")
+    conv = int(outs["cpu"][1].sum())
+    print(f"phase 14 the example's first {LIFT_CPU_ROWS} rows at p = 0.03 through "
+          f"BpOsdDecoder(proto, lift={qcode.lift}): card == CPU per sample in bp_decoding, "
+          f"converge_batch and osdw ({conv} converged, {LIFT_CPU_ROWS - conv} through OSD); "
+          f"card {outs['cuda'][3]:.3f} s, CPU {outs['cpu'][3]:.3f} s, all "
+          f"{time.perf_counter() - t0:.1f} s {tag}")
 
 
 def phase15(H, fresh, tag) -> None:
@@ -1040,6 +1087,135 @@ def phase19(tag, graph, synd, fresh, H_f, consts) -> dict:
               + f" = {k1_ms:.3f} ms, {100 * k1_ms / wall:.1f}% of the wall, bound "
               f"{bound_sum(stage_b).ms:.4f} ms; launches {got} {tag}")
     return rows
+
+
+def phase20(tag, H, fresh) -> None:
+    """(a) Syndromes above 1 rejected at every public entry point on the
+    card, before any kernel, with one check a call; the check's own time.
+    (b) The port's ``generate_hgp_codes`` example's ``hx`` file, reloaded on
+    the card, reproduces the corpus through ``decode_pipeline``."""
+    from bp_osd_tpu_torch import BpDecoder, BpOsdDecoder
+    from bp_osd_tpu_torch.codes import lifted_hgp, mkmn_16_4_6
+    from bp_osd_tpu_torch.decoder import bp as bp_mod
+    from bp_osd_tpu_torch.decoder import (LayeredTannerGraph, TannerGraph, bp_decode,
+                                          bp_decode_layered, decode_pipeline, osd_decode)
+    from bp_osd_tpu_torch.decoder.bp import llr_from_channel
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
+    from bp_osd_tpu_torch.examples.generate_hgp_codes import generate
+    from bp_osd_tpu_torch.parallel import (Mesh2D, ShardedTannerGraph, edge_sharded_bp_fn,
+                                           make_mesh, sharded_decode_fn)
+
+    # (a) every public entry point, uint8 card tensors holding 2 and 255
+    dev = fresh.device
+    m, n = H.shape
+    graph = TannerGraph(H, dev)
+    rows = fresh[:64]
+    llr0 = llr_from_channel(np.full(n, 0.05)).to(dev)
+    kw = dict(bp_method="minimum_sum", max_iter=400, ms_scaling_factor=0.0)
+    osd_kw = dict(osd_method="osd_cs", osd_order=42)
+    lq = lifted_hgp(PROTO, lift=8)
+    lrows = torch.zeros(64, lq.hx.shape[0], dtype=torch.uint8, device=dev)
+    l_llr0 = llr_from_channel(np.full(lq.hx.shape[1], 0.05)).to(dev)
+    sg = ShardedTannerGraph(H, 2)
+
+    def osdd(**extra):
+        return BpOsdDecoder(H, error_rate=0.05, max_iter=0, bp_method="ms", ms_scaling_factor=0,
+                            **osd_kw, **extra)
+
+    def edge(s):
+        pad = torch.zeros(s.shape[0], 2 * sg.m_chunk - m, dtype=s.dtype, device=dev)
+        return edge_sharded_bp_fn(sg, Mesh2D((dev, dev), (1, 2)), **kw).decode(
+            torch.cat([s, pad], 1), llr0)
+
+    entries = {
+        "bp_decode": (rows, lambda s: bp_decode(graph, s, llr0, **kw)),
+        "decode_pipeline": (rows, lambda s: decode_pipeline(graph, s, llr0, **kw, **osd_kw)),
+        "osd_decode": (rows, lambda s: osd_decode(graph, s, llr0.expand(64, n), **osd_kw)),
+        "bp_decode_layered": (rows, lambda s: bp_decode_layered(
+            LayeredTannerGraph(H, dev), s, llr0, **kw)),
+        "bp_decode_lifted": (lrows, lambda s: bp_decode_lifted(
+            LiftedGraph(lq.hx_proto, 8, dev), s, l_llr0, **kw)),
+        "BpOsdDecoder.decode_batch": (rows, lambda s: osdd().decode_batch(s)),
+        "BpOsdDecoder.decode": (rows[:1], lambda s: osdd().decode(s[0])),
+        "BpOsdDecoder received_vector": (
+            torch.zeros(64, n, dtype=torch.uint8, device=dev),
+            lambda s: osdd(input_vector_type="received_vector").decode_batch(s)),
+        "BpDecoder.decode": (rows[:1], lambda s: BpDecoder(
+            H, error_rate=0.05, max_iter=0, bp_method="ms", ms_scaling_factor=0).decode(s[0])),
+        "sharded_decode_fn": (rows, lambda s: sharded_decode_fn(
+            graph, make_mesh(1), **kw, **osd_kw)(s, llr0.expand(64, n))),
+        "edge_sharded_bp_fn": (rows, edge),
+    }
+    checks = []
+    real = bp_mod._check_binary
+
+    def counting(s, what):
+        checks.append(what)
+        return real(s, what)
+
+    bp_mod._check_binary = counting
+    try:
+        reset_launches()
+        rejected = 0
+        for name, (good, call) in entries.items():
+            for value in (2, 255):
+                bad = good.clone()
+                bad[0, 1] = value
+                try:
+                    call(bad)
+                    error = None
+                except ValueError as e:
+                    error = str(e)
+                check(error is not None and "0 or 1" in error,
+                      f"phase 20 {name}: an entry {value} was not rejected ({error})")
+                rejected += 1
+        sync()
+        got = launch_counts()
+        check(not any(got.values()), f"phase 20 rejected calls launched kernels: {got}")
+        check(len(checks) == rejected, f"phase 20: {len(checks)} checks for {rejected} calls")
+        # one check a valid decode, over the default schedule's three K1 launches
+        checks.clear()
+        reset_launches()
+        dec = osdd()
+        dec.decode_batch(fresh, outputs="device")
+        sync()
+        got = launch_counts()
+        check(len(checks) == 1 and got["bp_flood"] == 3 and got["osd_cs"] == 1,
+              f"phase 20 one flagship decode: {len(checks)} checks, launches {got}")
+    finally:
+        bp_mod._check_binary = real
+    one_check = host_ms(lambda: real(fresh, "syndromes"), 5)
+    print(f"phase 20a uint8 card tensors with an entry 2 or 255: ValueError at all "
+          f"{len(entries)} public entry points ({rejected} calls: {', '.join(entries)}), one "
+          f"check a call, no kernel launched; one flagship decode_batch of {fresh.shape[0]}: "
+          f"one check, K1 x3, K2 x1; the check alone on a {fresh.shape[0]} x {m} uint8 card "
+          f"tensor ((s > 1).any() and its host read): {one_check:.4f} ms (host clock, median of "
+          f"5) {tag}")
+
+    # (b) the example's hx file, reloaded on the card, decodes the corpus
+    data = np.load(CORPUS)
+    B, m, n, max_iter, osd_order, _ = (int(x) for x in data["meta"])
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        qcode = generate(mkmn_16_4_6(), out_dir=out_dir)
+        gen_s = time.perf_counter() - t0
+        files = sorted(os.listdir(out_dir))
+        hx = np.loadtxt(os.path.join(out_dir, f"hgp_{qcode.code_params}_hx.txt"), dtype=np.uint8)
+    check(np.array_equal(hx, H), "the generated hx differs from hgp(mkmn_16_4_6()).hx")
+    g = TannerGraph(hx, dev)
+    synd = torch.as_tensor(np.unpackbits(data["synd_packed"], axis=1)[:, :m], device=dev)
+    reset_launches()
+    out = decode_pipeline(g, synd, llr_from_channel(np.full(n, 0.05)).to(dev),
+                          bp_method="minimum_sum", ms_scaling_factor=0.0, max_iter=max_iter,
+                          osd_method="osd_cs", osd_order=osd_order)
+    got = launch_counts()
+    check(got["bp_flood"] > 0 and got["osd_cs"] > 0,
+          f"phase 20b decode_pipeline did not launch K1 and K2: {got}")
+    corpus_check(out.osdw, out.converged, out.iterations, data, "phase 20b")
+    print(f"phase 20b generate_hgp_codes.generate(mkmn_16_4_6()) in {gen_s:.2f} s: "
+          f"{qcode.code_params}, files {files}; hx reloaded on {g.device} == "
+          f"hgp(mkmn_16_4_6()).hx; decode_pipeline on the {B} corpus rows: osdw/weights/"
+          f"converged/iterations == corpus, launches {got} {tag}")
 
 
 def rank_split(ranks: list[dict]) -> str:
@@ -1759,6 +1935,7 @@ def main() -> None:
     phase17(tag, qcode)
     phase18(tag, qcode)
     schedules = phase19(tag, graph, synd, fresh, H_f, consts)
+    phase20(tag, H, fresh)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)

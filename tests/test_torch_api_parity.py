@@ -8,7 +8,9 @@ only imports is the other module's).  For a function, every argument of the
 JAX function must be an argument of the port's; for a class, every public
 method and ``__init__`` must exist with every argument, and every annotated
 field (a ``NamedTuple``'s) too.  What the port leaves out on purpose is in
-the allow-lists below, each entry with its reason.
+the allow-lists below, each entry with its reason.  The root scripts in
+``examples/`` are held the same way against ``bp_osd_tpu_torch/examples/``:
+a module of the same name, with each public function and its arguments.
 """
 
 import ast
@@ -170,6 +172,24 @@ def gaps(rel, jtree, ptree):
 
 JAX_MODULES = _modules(JAX_PKG)
 PORT_MODULES = _modules(PORT_PKG)
+JAX_EXAMPLES = {rel: tree for rel, tree in _modules("examples").items() if "/" not in rel}
+
+
+def example_gaps(name, jtree, ptree):
+    """What the port's example ``name`` (``ptree``, or None where it has no
+    such module) lacks of the root script's public functions."""
+    if ptree is None:
+        return [f"examples/{name}: no module {PORT_PKG}/examples/{name}"]
+    pnames = _names(ptree)
+    found = []
+    for node in jtree.body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            pnode = pnames.get(node.name)
+            if not isinstance(pnode, ast.FunctionDef):
+                found.append(f"examples/{name}: no function {node.name!r}")
+            else:
+                found += _missing_args(node, pnode, f"examples/{name}:{node.name}")
+    return found
 
 
 @pytest.mark.parametrize("rel", sorted(JAX_MODULES))
@@ -177,6 +197,29 @@ def test_port_covers_the_module(rel):
     """Each module of the JAX package: its counterpart holds every public
     name, argument, method and field, but for the allow-lists."""
     assert gaps(rel, JAX_MODULES[rel], PORT_MODULES.get(rel)) == []
+
+
+@pytest.mark.parametrize("name", sorted(JAX_EXAMPLES))
+def test_port_has_each_example(name):
+    """Each root ``examples/*.py``: ``bp_osd_tpu_torch/examples/`` has a
+    module of that name with every public function and argument."""
+    assert example_gaps(name, JAX_EXAMPLES[name], PORT_MODULES.get(f"examples/{name}")) == []
+
+
+def test_a_missing_example_or_argument_is_found():
+    """The check fails on the port without ``generate_hgp_codes`` (the port
+    before it had one) and on a ``generate`` without ``out_dir``."""
+    name = "generate_hgp_codes.py"
+    assert example_gaps(name, JAX_EXAMPLES[name], None) == [
+        f"examples/{name}: no module {PORT_PKG}/examples/{name}"]
+    tree = _without(PORT_MODULES[f"examples/{name}"], "generate", "out_dir")
+    assert example_gaps(name, JAX_EXAMPLES[name], tree) == [
+        f"examples/{name}:generate: argument 'out_dir'"]
+    tree = copy.deepcopy(PORT_MODULES[f"examples/{name}"])
+    tree.body = [n for n in tree.body
+                 if not (isinstance(n, ast.FunctionDef) and n.name == "generate")]
+    assert example_gaps(name, JAX_EXAMPLES[name], tree) == [
+        f"examples/{name}: no function 'generate'"]
 
 
 def test_every_allow_list_entry_is_used():

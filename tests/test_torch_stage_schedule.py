@@ -150,13 +150,13 @@ def test_flagship_equals_jax_straight_run_and_corpus(flagship, schedule, monkeyp
     left (``it0`` the cap before, state emitted below max_iter)."""
     data, synd, llr0, g, consts, max_iter, order, ref = flagship
     calls = []
-    real = pipeline_mod.bp_decode
+    real = pipeline_mod._bp_decode
 
     def recording(graph, s, l0, **kw):
         calls.append((s.shape[0], kw.get("it0", 0), kw["max_iter"], kw["emit_state"]))
         return real(graph, s, l0, **kw)
 
-    monkeypatch.setattr(pipeline_mod, "bp_decode", recording)
+    monkeypatch.setattr(pipeline_mod, "_bp_decode", recording)
     mine = decode_pipeline(g, synd, llr0, max_iter=max_iter, osd_method="osd_cs",
                            osd_order=order, consts=consts, backend="torch",
                            stage1_iters=None if schedule == AUTO else schedule, **FLAGSHIP_KW)
