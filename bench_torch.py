@@ -29,10 +29,12 @@ with ``--seed S`` (default 0) and ``--steps N`` (default 40) on every mode.
   outputs="device")``, timed in turns with the flagship path.
 - ``large`` (``bench_large.py``): ``BpOsdDecoder(hx, proto=hx_proto,
   lift=400, ...)`` on the [[10000,420]] lifted product, B = 512: lifted BP
-  (plain torch) and K5 on the rows it leaves unconverged.
+  (K6, one launch a batch) and K5 on the rows it leaves unconverged.
 - ``lifted_shard`` (``bench_lifted_shard.py``): lifted BP on uniform random
   syndromes, which never converge, unsharded and block-row-sharded on
-  ``Mesh2D`` 1 x 1 and 1 x 2, every shard on the card.
+  ``Mesh2D`` 1 x 1 and 1 x 2, every shard on the card (the unsharded BP and
+  the 1 x 1 mesh run K6; the 1 x 2 mesh's block-row-sharded BP is plain
+  torch and launches no kernel).
 - ``harness``: ``css_decode_sim`` at the options of
   ``examples/qldpc_decode_example.py`` (pure Z, osd_cs 42, batch 2000),
   100000 runs a step, its LER held to the committed artifact.
@@ -68,7 +70,7 @@ import torch
 
 from bp_osd_tpu_torch.utils.measure import (KERNELS, artifact, artifact_sigmas, bound_sum,
                                             card, check, corpus_check, elim_bound, k1_merged,
-                                            k1_stages, k1_stages_equal_plain, launches,
+                                            k1_stages, k1_stages_equal_plain, k6_bound, launches,
                                             osd_cs_bound, osd_e_bound, reset_launches, same,
                                             satisfies, spread, stage_caps, staged_k1_bound,
                                             sync, trace_step, wrappers)
@@ -546,6 +548,7 @@ def run_large(seed: int = 0, *, p: float = 0.005, steps: int = STEPS, batch: int
     from bp_osd_tpu_torch.decoder.bp import llr_from_channel
     from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
     from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_route
+    from bp_osd_tpu_torch.ops.cuda_lifted_bp import k6_route
 
     dev = _device(device)
     qcode = lifted_code(lift) if qcode is None else qcode
@@ -578,7 +581,8 @@ def run_large(seed: int = 0, *, p: float = 0.005, steps: int = STEPS, batch: int
         {"large": (lambda s: dec.decode_batch(batches[s], outputs="device"), keep)}, steps)
     steps_out = kept["large"]
     osd_kernel = ROUTE_KERNEL[osd_route(graph, "osd_cs", LIFT_ORDER)]
-    total = check_launches(counts["large"], some=(osd_kernel,), on_card=on_card, what="large")
+    total = check_launches(counts["large"], every=("bp_lifted",), some=(osd_kernel,),
+                           on_card=on_card, what="large")
     satisfied_all([o[0] for o in steps_out], batches, H_f, "large")
     gates = {"satisfied": f"every osdw of the {steps} timed batches satisfies its syndrome"}
     # the OSD kernel against the plain version on the first failing rows
@@ -615,7 +619,9 @@ def run_large(seed: int = 0, *, p: float = 0.005, steps: int = STEPS, batch: int
     fail = ~dec.converge_batch
     bounds = osd_bounds(graph, extra[k][fail], dec.log_prob_ratios_batch[fail], "osd_cs",
                         LIFT_ORDER, consts)
-    kernels = kernel_lines((osd_kernel,), total, traced, trace, bounds)
+    bounds["bp_lifted"] = k6_bound(lg, torch.as_tensor(dec.iter_batch), prior_rows=1,
+                                   device_route=k6_route(lg) == "device")
+    kernels = kernel_lines(("bp_lifted", osd_kernel), total, traced, trace, bounds)
     med = float(np.median(walls["large"]))
     conv_all = torch.stack([c for _, c, _ in steps_out]).float()
     return result_line(
@@ -680,8 +686,9 @@ def run_lifted_shard(seed: int = 0, *, steps: int = STEPS, batch: int = B_SHARD,
 
     walls, counts, kept = timed_steps({k: (lambda s, f=f: f(batches[s]), keep)
                                        for k, f in fns.items()}, steps)
-    for name in fns:
-        check_launches(counts[name], on_card=on_card, what=f"lifted_shard {name}")
+    for name in fns:  # the 1 x 2 mesh's block-row-sharded BP is plain torch
+        check_launches(counts[name], every=() if name == "sharded_1x2" else ("bp_lifted",),
+                       on_card=on_card, what=f"lifted_shard {name}")
         check(not any(kept[name]), f"lifted_shard {name}: a row converged or stopped early")
     gates["never_converged"] = (f"no row of any step converged; every row ran {LIFT_ITERS} "
                                 "iterations")
@@ -702,7 +709,8 @@ def run_lifted_shard(seed: int = 0, *, steps: int = STEPS, batch: int = B_SHARD,
     check(satisfies(osdw, H_f, synd_o), "lifted_shard: a sharded BP + OSD osdw violates its "
                                         "syndrome")
     if on_card:
-        check(bposd_launches["osd_large"] > 0 and bposd_launches["bp_flood"] == 0,
+        check(bposd_launches["osd_large"] > 0 and bposd_launches["bp_flood"] == 0
+              and bposd_launches["bp_lifted"] == 0,
               f"lifted_shard: the sharded BP + OSD did not run K5 alone: {bposd_launches}")
     gates["bposd"] = (f"lifted_sharded_bposd_fn on 1 x 2 at p={p_osd}: {int((~conv).sum())} of "
                       f"{batch} rows through the OSD stage, all satisfied, launches "

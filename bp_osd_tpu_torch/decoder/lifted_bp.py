@@ -17,8 +17,15 @@ iteration instead of three per (block row, slot), of which the
 [[10000,420]] code has 84.  The message layout is batch-major ``[B, m, wr]``
 (checks in the natural ``(I, l)`` order, slots in protograph edge order), so
 rows leave the working set with one row gather as they converge, and the
-check update is the dense path's own code.  Plain torch on the card too: the
-JAX package computes this in XLA, outside any Pallas kernel.
+check update is the dense path's own code.  That loop, :func:`_bp_rows`, is
+the plain version of kernel K6 (``csrc/bp_lifted.cu``), which runs the whole
+decode of a batch in one launch: CUDA tensors go to K6
+(:func:`bp_osd_tpu_torch.ops.cuda_lifted_bp.bp_lifted`), CPU tensors to
+:func:`_bp_rows`.  K6 routes by the protograph instead of the index tables:
+``slot_table`` gives slot ``s`` of block row ``I`` as ``(J, e)``, and
+``block_edges`` lists the ``(I, s, e)`` of variable block ``J``'s edges in
+the order ``var_edge`` sums them.  The JAX package computes this decode in
+XLA, as one ``jax.lax.while_loop``, outside any Pallas kernel.
 
 Semantics kept exactly from the JAX package:
 
@@ -55,6 +62,26 @@ __all__ = ["LiftedGraph", "bp_decode_lifted"]
 _MSG_BUDGET = 1 << 26
 
 
+def _route_tables(edges, np_: int, wr: int, depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """K6's routing tables of a protograph whose block row ``I`` has the
+    slots ``edges[I]`` (``(J, e mod L)`` each): ``slot_table [mp, wr, 2]``
+    int32, the ``(J, e)`` of each slot, ``(-1, 0)`` on pad slots; and
+    ``block_edges [np_, depth, 3]`` int32, for each variable block ``J`` the
+    ``(I, s, e)`` of its edges, ``I`` outer and ``s`` inner, ``(-1, 0, 0)``
+    on pads."""
+    slots = np.zeros((len(edges), wr, 2), np.int32)
+    slots[..., 0] = -1
+    blocks = np.zeros((np_, depth, 3), np.int32)
+    blocks[..., 0] = -1
+    fill = [0] * np_
+    for I, row in enumerate(edges):
+        for s, (J, e) in enumerate(row):
+            slots[I, s] = (J, e)
+            blocks[J, fill[J]] = (I, s, e)
+            fill[J] += 1
+    return slots, blocks
+
+
 class LiftedGraph:
     """Routing tables of a protograph lift on ``device``.
 
@@ -62,11 +89,13 @@ class LiftedGraph:
     ``codes.lifted_product.lifted_hgp`` in ``.hx_proto`` / ``.hz_proto``.
     ``edges[I]`` lists ``(J, e mod L)`` per slot of block row ``I``;
     ``chk_mask [wr, mp, 1, 1]`` (numpy) is the JAX package's slot mask.
+    ``chk_var``/``var_edge`` route :func:`_bp_rows`; ``slot_table`` and
+    ``block_edges`` (:func:`_route_tables`) route kernel K6.
     ``device`` defaults as :class:`TannerGraph`'s does: the card when there
     is one.
     """
 
-    _TENSORS = ("chk_var", "edge_mask", "var_edge")
+    _TENSORS = ("chk_var", "edge_mask", "var_edge", "slot_table", "block_edges")
 
     def __init__(self, proto, lift: int, device=None):
         self.proto = [[tuple(int(e) for e in ent) for ent in row] for row in proto]
@@ -102,6 +131,9 @@ class LiftedGraph:
                           .reshape(m, wr).to(self.device))
         self.var_edge = var_edge.reshape(n * depth).to(self.device)
         self.depth = depth
+        slots, blocks = _route_tables(self.edges, self.np_, wr, depth)
+        self.slot_table = torch.from_numpy(slots).to(self.device)
+        self.block_edges = torch.from_numpy(blocks).to(self.device)
 
     def to(self, device) -> "LiftedGraph":
         """The same graph with its tables on ``device``."""
@@ -122,6 +154,8 @@ class LiftedGraph:
         ``fields`` holds ``proto`` (the protograph the JAX graph was built
         from), ``L``, ``edges``, ``wr`` and ``chk_mask``; every one but
         ``proto`` must equal what this class computes, else ``ValueError``.
+        K6's tables built from the reference's ``edges`` must equal the
+        port's too.
         """
         g = cls(fields["proto"], int(fields["L"]), device)
         ref_edges = [[(int(J), int(e)) for J, e in row] for row in fields["edges"]]
@@ -131,6 +165,11 @@ class LiftedGraph:
             raise ValueError(f"reference wr={fields['wr']} differs from the port's {g.wr}")
         if not np.array_equal(np.asarray(fields["chk_mask"]), g.chk_mask):
             raise ValueError("reference field 'chk_mask' differs from the port's")
+        for name, ref in zip(("slot_table", "block_edges"),
+                             _route_tables(ref_edges, g.np_, g.wr, g.depth)):
+            if not np.array_equal(ref, getattr(g, name).cpu().numpy()):
+                raise ValueError(f"K6's {name} from the reference's edges differs from "
+                                 "the port's")
         return g
 
     def __repr__(self) -> str:
@@ -151,7 +190,8 @@ def bp_decode_lifted(
     :func:`~bp_osd_tpu_torch.decoder.bp.bp_decode` (``[B, m]`` syndromes with
     checks ordered ``(I, l)``, ``[B, n]`` outputs with variables ``(J, l)``).
 
-    Tensor inputs decide the device.  Rows are decoded in calls of at most
+    Tensor inputs decide the device.  On a card the whole batch is one
+    launch of kernel K6; elsewhere rows are decoded in calls of at most
     ``2^26 / (m * wr)`` rows, so the message tensors stay bounded.
     """
     device = syndromes.device if torch.is_tensor(syndromes) else graph.device
@@ -171,6 +211,14 @@ def _bp_decode_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0, *, bp_method
     graph = graph.to(device)
     B, n = synd.shape[0], graph.n
     llr0 = as_f32(llr0, device).expand(B, n)
+    if device.type == "cuda":
+        from ..ops.cuda_lifted_bp import bp_lifted
+
+        if llr0.stride(0) != 0:  # K6 reads one broadcast row or contiguous rows
+            llr0 = llr0.contiguous()
+        hard, llr, conv, iters = bp_lifted(graph, synd, llr0, method, int(max_iter),
+                                           float(ms_scaling_factor))
+        return BPResult(hard=hard, llr=llr, converged=conv, iterations=iters)
     rows = max(1, _MSG_BUDGET // (graph.m * graph.wr))
     parts = [_bp_rows(graph, synd[lo : lo + rows], llr0[lo : lo + rows], method,
                       int(max_iter), float(ms_scaling_factor))
@@ -180,6 +228,9 @@ def _bp_decode_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0, *, bp_method
 
 
 def _bp_rows(graph: LiftedGraph, synd, llr0, method: str, max_iter: int, msf: float):
+    """The plain version of kernel K6: ``(hard, llr, converged, iterations)``
+    of ``synd [B, m]`` uint8 from ``llr0 [B, n]`` f32, a torch loop of one
+    iteration a pass, rows leaving the working set as they converge."""
     dev = synd.device
     B, n, m, wr = synd.shape[0], graph.n, graph.m, graph.wr
     E = m * wr

@@ -12,7 +12,12 @@ plain torch version, in the matching ``decoder`` module, for CPU tensors:
   sample in ``csrc/osd_cs.cu``; a block per sample in ``csrc/gf2_elim.cu``
   for codes above the warp layout);
 - :mod:`.cuda_osd_large` ``osd_large``: K5, osd0/osd_cs for codes above a
-  block's shared memory (``csrc/osd_large.cu``).
+  block's shared memory (``csrc/osd_large.cu``);
+- :mod:`.cuda_lifted_bp` ``bp_lifted``: K6, the whole shift-routed BP
+  decode of a lifted-product batch in one launch (``csrc/bp_lifted.cu``; it
+  replaces the JAX package's XLA ``while_loop``, not a Pallas kernel).
+
+The check-node rules K1 and K6 share are in ``csrc/bp_check.cuh``.
 
 Each wrapper counts its launches in ``<wrapper>.launches`` and, by card
 index, in ``<wrapper>.launches_on`` (:func:`count_launch`).

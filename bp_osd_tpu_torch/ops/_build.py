@@ -4,8 +4,8 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a`` (all
 in parallel) and linked into one shared library with a plain C interface,
 loaded with ``ctypes``.  The build
 runs on first use, from the package's own sources only, into
-``bp_osd_tpu_torch/_build/``, and is cached there by a hash of the sources
-and flags.  ``nvcc`` is found through ``CUDA_HOME`` or ``PATH``.  A failed or
+``bp_osd_tpu_torch/_build/``, and is cached there by a hash of the sources,
+the headers they share (``csrc/*.cuh``) and the flags.  ``nvcc`` is found through ``CUDA_HOME`` or ``PATH``.  A failed or
 impossible build raises :class:`KernelBuildError` with the compiler's
 output; nothing falls back to the plain torch versions.
 """
@@ -62,6 +62,10 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def build() -> tuple[str, str]:
     """Compile the kernels if no build of these sources exists yet.
 
@@ -78,7 +82,7 @@ def _build() -> tuple[str, str]:
     nvcc = find_nvcc()
     sources = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + _headers():
         with open(src, "rb") as f:
             digest.update(f.read())
     so_path = os.path.join(BUILD_DIR, f"libbp_osd_kernels_{digest.hexdigest()[:16]}.so")
@@ -160,4 +164,11 @@ def load() -> ctypes.CDLL:
     lib.osd_large_smem_bytes.restype = SZ
     lib.osd_large_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
     lib.osd_large_plan.restype = I
+    lib.bp_lifted_launch.argtypes = [P, P, LL, P, P, P, P, P, P, P, P,
+                                     I, I, I, I, I, I, I, I, I, F, P]
+    lib.bp_lifted_launch.restype = I
+    lib.bp_lifted_smem_bytes.argtypes = [I, I, I, I, I, I]
+    lib.bp_lifted_smem_bytes.restype = SZ
+    lib.bp_lifted_plan.argtypes = [I, I, I, I, I, I, I, ctypes.POINTER(I)]
+    lib.bp_lifted_plan.restype = I
     return lib

@@ -1,0 +1,162 @@
+"""Wrapper of kernel K6, ``csrc/bp_lifted.cu``: the whole shift-routed BP
+decode of a lifted-product batch in one launch.
+
+K6 replaces no Pallas kernel: the JAX package runs this decode as the XLA
+``jax.lax.while_loop`` of ``bp_osd_tpu/decoder/lifted_bp.py:173-212``.  CUDA
+tensors go to the kernel; CPU tensors to the plain torch version,
+:func:`bp_osd_tpu_torch.decoder.lifted_bp._bp_rows`; any other device
+raises.  A graph whose row state (messages and totals) fits a block's
+shared memory beside K6's tables (:func:`k6_route` ``"shared"``, up to the
+[[10000,420]] code at lift 400) keeps it there; a larger one (lift 1000)
+keeps it in a device-memory slice of each persistent block.  Either way a
+call is one launch, whatever the batch.  The plan is queried once a card and
+shape, and it and the launch run with the tensors' card current.  ``bp_lifted.launches`` counts kernel
+launches (``bp_lifted.launches_on`` by card).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..decoder.bp import normalize_bp_method
+from ..decoder.lifted_bp import LiftedGraph, _bp_rows
+from . import _build, count_launch, launch_counter
+from .cuda_bp import _MAX_ROW_WEIGHT, _SMEM_LIMIT
+
+__all__ = ["bp_lifted", "bp_lifted_plan", "bp_lifted_smem_bytes", "bp_lifted_state_words",
+           "k6_route"]
+
+# Tests and measurements set this to run every graph on the device-memory
+# route; the result does not depend on the route.
+_FORCE_DEVICE_ROUTE = False
+
+
+def bp_lifted_smem_bytes(mp: int, np_: int, L: int, wr: int, depth: int,
+                         device_route: bool) -> int:
+    """Dynamic shared memory of one K6 block, as
+    ``csrc/bp_lifted.cu:bp_lifted_smem_bytes`` computes it (``chip_smoke.py``
+    holds the two equal on the card): a word each of the slot table's
+    ``2 mp wr`` entries, the edge lists' ``3 np depth``, the ``mp`` block-row
+    degrees and the row slot, and on the shared route the row's state,
+    :func:`bp_lifted_state_words`."""
+    state = 0 if device_route else bp_lifted_state_words(mp, np_, L, wr)
+    return 4 * (2 * mp * wr + 3 * np_ * depth + mp + 1 + state)
+
+
+def bp_lifted_state_words(mp: int, np_: int, L: int, wr: int) -> int:
+    """One row's state in K6: its ``mp L wr`` messages and ``np L`` totals
+    (in shared memory, or a block's device-memory scratch)."""
+    return mp * L * wr + np_ * L
+
+
+def k6_route(graph: LiftedGraph) -> str:
+    """``"shared"`` when K6's tables and one row's state fit a block's
+    232,448 bytes of shared memory, else ``"device"`` (the state in device
+    memory); ``_FORCE_DEVICE_ROUTE`` forces ``"device"``."""
+    shared = bp_lifted_smem_bytes(graph.mp, graph.np_, graph.L, graph.wr, graph.depth, False)
+    return "device" if _FORCE_DEVICE_ROUTE or shared > _SMEM_LIMIT else "shared"
+
+
+def bp_lifted_plan(graph: LiftedGraph, *, product_sum: bool = False) -> dict:
+    """K6's launch at this graph on the current card: its route, resident
+    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the
+    card's SMs, registers a thread and dynamic shared memory.  Queried once
+    a card and shape; the query also raises the kernel's shared-memory
+    limit on the card, which the launch needs."""
+    route = k6_route(graph)
+    plan = _plan(torch.cuda.current_device(), graph.mp, graph.np_, graph.L, graph.wr,
+                 graph.depth, bool(product_sum), route == "device")
+    return {"route": route, **dict(zip(("blocks_per_sm", "sms", "registers", "smem_bytes"),
+                                       plan))}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(card: int, mp: int, np_: int, L: int, wr: int, depth: int, product_sum: bool,
+          device_route: bool) -> tuple:
+    out = (ctypes.c_int * 4)()
+    err = _build.load().bp_lifted_plan(mp, np_, L, wr, depth, int(product_sum),
+                                       int(device_route), out)
+    if err != 0:
+        raise RuntimeError(f"bp_lifted_plan failed: CUDA error {err}")
+    return tuple(out)
+
+
+def _check_args(graph: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor) -> None:
+    """Device, dtype and shape of both inputs; on the card also contiguity
+    (``llr0`` may be one prior row broadcast with stride 0)."""
+    if synd.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bp_lifted takes CPU or CUDA tensors, got {synd.device}")
+    if llr0.device != synd.device:
+        raise ValueError(f"llr0 is on {llr0.device}, synd on {synd.device}")
+    B = synd.shape[0] if synd.dim() == 2 else -1
+    on_card = synd.device.type == "cuda"
+    for name, t, dtype, shape in (("synd", synd, torch.uint8, (B, graph.m)),
+                                  ("llr0", llr0, torch.float32, (B, graph.n))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        broadcast = name == "llr0" and t.stride() == (0, 1)
+        if on_card and not (t.is_contiguous() or broadcast):
+            raise ValueError(f"{name} must be contiguous")
+
+
+def bp_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor, method: str,
+              max_iter: int, ms_scaling_factor: float):
+    """Lifted BP of ``synd [B, m]`` uint8 (checked 0/1, checks ordered
+    ``(I, l)``) from ``llr0 [B, n]`` f32 (a broadcast ``[n]`` row is read
+    with stride 0); ``max_iter == 0`` means ``n``.  Returns ``(hard [B, n]
+    uint8, llr [B, n] f32, converged [B] bool, iterations [B] int32)``, as
+    :func:`~bp_osd_tpu_torch.decoder.lifted_bp._bp_rows` does."""
+    _check_args(graph, synd, llr0)
+    method = normalize_bp_method(method)
+    max_iter = int(max_iter) or graph.n
+    if max_iter < 1:
+        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
+    dev = synd.device
+    graph = graph.to(dev)
+    if dev.type == "cpu":
+        return _bp_rows(graph, synd, llr0, method, max_iter, float(ms_scaling_factor))
+    B, n = synd.shape[0], graph.n
+    if llr0.stride() == (0, 1):
+        llr0, stride = llr0[0], 0  # one prior row broadcast over the batch
+    else:
+        stride = n
+    if graph.wr > _MAX_ROW_WEIGHT:
+        raise ValueError(f"K6 takes row weights up to {_MAX_ROW_WEIGHT}, got {graph.wr}")
+
+    hard = torch.empty(B, n, dtype=torch.uint8, device=dev)
+    llr = torch.empty(B, n, dtype=torch.float32, device=dev)
+    conv = torch.empty(B, dtype=torch.uint8, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        product_sum = method == "product_sum"
+        # the plan reads the current card, and the launch runs in its context
+        with torch.cuda.device(dev):
+            plan = bp_lifted_plan(graph, product_sum=product_sum)
+            grid = min(B, plan["sms"] * plan["blocks_per_sm"])
+            scratch = None
+            if plan["route"] == "device":
+                words = bp_lifted_state_words(graph.mp, graph.np_, graph.L, graph.wr)
+                scratch = torch.empty(grid * words, dtype=torch.float32, device=dev)
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            alpha = 1.0 if product_sum else float(np.float32(ms_scaling_factor))
+            slots = graph.slot_table.contiguous()
+            blocks = graph.block_edges.contiguous()
+            err = _build.load().bp_lifted_launch(
+                synd.data_ptr(), llr0.data_ptr(), stride, slots.data_ptr(), blocks.data_ptr(),
+                hard.data_ptr(), llr.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None, counter.data_ptr(),
+                B, grid, graph.mp, graph.np_, graph.L, graph.wr, graph.depth, max_iter,
+                int(product_sum), alpha, torch.cuda.current_stream(dev).cuda_stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"bp_lifted launch failed: CUDA error {err}")
+            count_launch(bp_lifted, dev)
+    return hard, llr, conv.to(torch.bool), iters
+
+
+launch_counter(bp_lifted)

@@ -8,8 +8,8 @@
   ``torch.profiler``: each kernel's device time, the device's busy time and
   its idle share of the call's wall).
 - Bounds: the least time a call could take on an H100 SXM at 700 W
-  (:func:`bound_ms`), for K1 from the iterations its rows ran
-  (:func:`k1_bound`, :func:`staged_k1_bound`, over the launches of the
+  (:func:`bound_ms`), for K1 and K6 from the iterations their rows ran
+  (:func:`k1_bound`, :func:`k6_bound`, :func:`staged_k1_bound`, over the launches of the
   pipeline's :func:`~bp_osd_tpu_torch.decoder.pipeline.stage_caps`) and
   for the OSD kernels from the elimination work their rows need
   (:class:`ElimWork`, :func:`elim_work`, :func:`osd_cs_bound`,
@@ -50,6 +50,7 @@ KERNELS = {
     "osd_e": ("K3", "osd_cs.cu", ("osd_e_warp_kernel",)),
     "eliminate": ("K4", "osd_cs.cu", ("gf2_elim_warp_kernel", "gf2_elim_kernel")),
     "osd_large": ("K5", "osd_large.cu", ("osd_large_kernel",)),
+    "bp_lifted": ("K6", "bp_lifted.cu", ("bp_lifted_kernel",)),
 }
 
 
@@ -218,11 +219,12 @@ def wrappers() -> dict:
     """The kernel wrappers by name (:data:`KERNELS`)."""
     from ..ops.cuda_bp import bp_flood
     from ..ops.cuda_gf2 import eliminate
+    from ..ops.cuda_lifted_bp import bp_lifted
     from ..ops.cuda_osd import osd_cs, osd_e
     from ..ops.cuda_osd_large import osd_large
 
     return {"bp_flood": bp_flood, "osd_cs": osd_cs, "osd_e": osd_e, "eliminate": eliminate,
-            "osd_large": osd_large}
+            "osd_large": osd_large, "bp_lifted": bp_lifted}
 
 
 def reset_launches() -> None:
@@ -282,6 +284,23 @@ def k1_bound(graph, rows: int, sample_its: int, *, prior_rows: int, v2c_in: bool
     m, n, E = graph.m, graph.n, graph.m * graph.wr
     nbytes = (rows * m + 4 * prior_rows * n + 4 * (E + n * graph.wc + m)
               + rows * (n + 4 * n + 1 + 4) + 4 * rows * E * (int(v2c_in) + int(emit)))
+    return bound_ms(nbytes, sample_its * (2 * E + n + m), sample_its * (7 * E + n))
+
+
+def k6_bound(graph, iterations: torch.Tensor, *, prior_rows: int, device_route: bool) -> Bound:
+    """K6's min-sum bound for the rows of one launch that ran
+    ``iterations [B]``, counted as :func:`k1_bound` counts a
+    sample-iteration of the same arithmetic on the lifted graph (E = m * wr
+    edges): 2E + n + m float and 7E + n integer operations.  Bytes:
+    the syndromes, ``prior_rows`` prior rows, the tables and the outputs
+    once; on the device-memory route also the row state (E + n floats)
+    written and read once a sample-iteration."""
+    m, n, E = graph.m, graph.n, graph.m * graph.wr
+    rows = int(iterations.numel())
+    sample_its = int(iterations.long().sum())
+    tables = 4 * (2 * graph.mp * graph.wr + 3 * graph.np_ * graph.depth)
+    nbytes = (rows * m + 4 * prior_rows * n + tables + rows * (n + 4 * n + 1 + 4)
+              + (8 * (E + n) * sample_its if device_route else 0))
     return bound_ms(nbytes, sample_its * (2 * E + n + m), sample_its * (7 * E + n))
 
 

@@ -45,8 +45,9 @@ Phases, one line each (any failed check exits non-zero):
    lift=400)`` (p = 0.005, min-sum 0.625, max_iter 100, osd_cs order 15) on
    512 fresh syndromes, timed (median of 3 calls), then one batch at
    p = 0.028 where about a quarter of the rows fail BP; every osdw satisfies
-   its syndrome, K5 is launched and K2 is not; the p = 0.028 batch is split
-   into lifted BP, argsort, K5 and host glue;
+   its syndrome, K6 (the lifted BP, once a decode) and K5 are launched, K1
+   and K2 are not; the p = 0.028 batch is split into lifted BP (K6),
+   argsort, K5 and host glue;
 9. K4: its warp kernel (``osd_cs.cu``, the flagship's placement) and its
    block kernel (``gf2_elim.cu``) in shared and in device memory, all five
    outputs equal ``eliminate_plain`` on the 512 corpus rows (skip rows
@@ -123,7 +124,7 @@ Phases, one line each (any failed check exits non-zero):
    osdw equal to ``bp_decode`` + ``osd_decode``, all satisfied, K2 launched
    on every card of the mesh and K1 not; (b) the [[10000,420]] lift-400 code
    at p = 0.028, 512 rows (min-sum 0.625, max_iter 100, osd_cs 15):
-   ``lifted_sharded_bposd_fn`` (its BP equal to ``bp_decode_lifted``) and
+   ``lifted_sharded_bposd_fn`` (its BP equal to ``bp_decode_lifted``, K6) and
    ``edge_sharded_bposd_fn`` (its BP equal to K1), osdw equal to the
    unsharded BP + OSD, K5 launched on every card and K1/K2 not; for each
    decode the median of 3 walls and syndromes/s beside the unsharded
@@ -136,8 +137,8 @@ Phases, one line each (any failed check exits non-zero):
    converged and iterations equal the corpus, every output on the card, K1
    and K2 launched and no other OSD kernel; (b)
    ``bp_decode_lifted(LiftedGraph(hx_proto, 400), ...)`` on 512 numpy
-   syndromes at p = 0.005 (min-sum 0.625, max_iter 100): plain torch on the
-   card, no kernel launched, equal bit for bit to the same call on a graph
+   syndromes at p = 0.005 (min-sum 0.625, max_iter 100): K6 launched once a
+   call and no other kernel, equal bit for bit to the same call on a graph
    built with ``device="cuda"``; each call's walls (3 calls);
 18. ``bench_torch.py``'s five modes (flagship, api, large, lifted_shard,
    harness) in this process at their default options with 3 timed steps,
@@ -164,7 +165,19 @@ Phases, one line each (any failed check exits non-zero):
    ``bp_osd_tpu_torch/examples/generate_hgp_codes.py``'s ``generate`` writes
    into a temporary directory, its ``hx`` file reloaded into a
    ``TannerGraph`` on the card equals the flagship matrix, and
-   ``decode_pipeline`` on it reproduces the corpus through K1 and K2.
+   ``decode_pipeline`` on it reproduces the corpus through K1 and K2;
+21. K6 (``bp_lifted.cu``, the whole lifted BP decode in one launch) against
+   its plain version ``decoder/lifted_bp.py:_bp_rows`` on the card: hard,
+   llr bits, converged and iterations equal under min-sum 0.625, adaptive
+   min-sum and product-sum (max_iter 100), on the shared route and forced
+   to the device-memory route, on phase 8's 512 lift-400 rows at p = 0.005
+   and p = 0.028, 512 rows at lift 60 and lift 100, a lift-400 batch of
+   zero syndromes (every row converges at iteration 1), one of uniform
+   random syndromes (no row converges) and 64 rows of the lift-400
+   protograph's edges lifted to 1000 (the device-memory route by size); the
+   Python mirror of K6's shared memory equals the library's; K6, its
+   device-memory route and the plain version timed with CUDA events on
+   the p = 0.028 and p = 0.005 batches beside K6's bound, with its plan.
 
 The helpers for timing, bounds and gates are those of
 ``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
@@ -678,6 +691,7 @@ def phase16(tag, qcode=None) -> dict:
     from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
     from bp_osd_tpu_torch.ops.cuda_bp import bp_flood
     from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate
+    from bp_osd_tpu_torch.ops.cuda_lifted_bp import bp_lifted
     from bp_osd_tpu_torch.ops.cuda_osd import osd_cs, osd_e
     from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large
     from bp_osd_tpu_torch.parallel import Mesh2D, ShardedTannerGraph, edge_sharded_bp_fn
@@ -688,7 +702,7 @@ def phase16(tag, qcode=None) -> dict:
 
     dev = torch.device("cuda", 0)
     cards = torch.cuda.device_count()
-    wrappers = (bp_flood, osd_cs, osd_e, eliminate, osd_large)
+    wrappers = (bp_flood, osd_cs, osd_e, eliminate, osd_large, bp_lifted)
     model_parallel = {f.__name__: 0 for f in wrappers}
 
     def reset():
@@ -823,7 +837,8 @@ def phase16(tag, qcode=None) -> dict:
         reset()
         bp_equal(lbp(pad_l, l0), want_l, f"{what} block-row-sharded BP against bp_decode_lifted")
         bp_equal(ebp.decode(pad_e, l0), want_k1, f"{what} edge-sharded BP against K1")
-        check(bp_flood.launches == 0, f"{what}: a model-sharded BP launched K1")
+        check(bp_flood.launches == 0 and (shards == 1 or bp_lifted.launches == 0),
+              f"{what}: a model-sharded BP launched K1 or K6")
         ons = {}
         for name, fn, pad, w in (("lifted", lbposd, pad_l, want_l_osdw),
                                  ("edge", ebposd, pad_e, want_k1_osdw)):
@@ -833,8 +848,9 @@ def phase16(tag, qcode=None) -> dict:
             check(same(osdw, w), f"{what} {name}-sharded osdw != the unsharded BP + OSD")
             check(on.get("osd_large") and all(on["osd_large"].get(d.index, 0) > 0
                                                for d in mesh.devices)
-                  and "osd_cs" not in on and "bp_flood" not in on,
-                  f"{what} {name}: K5 not launched on every card, or K1/K2 launched: {on}")
+                  and "osd_cs" not in on and "bp_flood" not in on
+                  and (shards == 1 or "bp_lifted" not in on),
+                  f"{what} {name}: K5 not launched on every card, or K1/K2/K6 launched: {on}")
         check(torch.cuda.current_device() == 0, f"{what}: the current card changed")
         return lbp, ebp, lbposd, ebposd, pad_l, pad_e, ons
 
@@ -897,7 +913,7 @@ def phase17(tag, qcode) -> None:
     """The functional API on graphs built with no ``device``: (a)
     ``decode_pipeline(TannerGraph(H), ...)`` on the corpus's numpy
     syndromes, through K1 and K2; (b) ``bp_decode_lifted(LiftedGraph(proto,
-    400), ...)`` on one numpy lift-400 batch, plain torch on the card."""
+    400), ...)`` on one numpy lift-400 batch, through K6."""
     from bp_osd_tpu_torch.codes import hgp, mkmn_16_4_6
     from bp_osd_tpu_torch.decoder import TannerGraph, decode_pipeline
     from bp_osd_tpu_torch.decoder.bp import llr_from_channel
@@ -953,7 +969,8 @@ def phase17(tag, qcode) -> None:
     reset_launches()
     res, ws_l = walls(lambda: bp_decode_lifted(lg, synd_l, l0, **kw_l))
     got_l = launch_counts()
-    check(not any(got_l.values()), f"the functional lifted BP launched a kernel: {got_l}")
+    check(got_l["bp_lifted"] == 3 and not any(v for k, v in got_l.items() if k != "bp_lifted"),
+          f"the functional lifted BP did not launch K6 alone, once a call: {got_l}")
     check(on_card(*res), "bp_decode_lifted's outputs are not all on the card")
     want = bp_decode_lifted(lg_cuda, synd_l, l0, **kw_l)
     for name, a, b in zip(res._fields, res, want):
@@ -970,7 +987,7 @@ def phase17(tag, qcode) -> None:
           f"{np.median(ws) * 1e3:.3f}); (b) bp_decode_lifted(LiftedGraph(hx_proto, {LIFT}), "
           f"numpy syndromes) on {LIFT_B} rows at p={LIFT_P} (min-sum 0.625, max_iter 100; "
           f"graph built in {build_s:.2f} s): == device='cuda' bit for bit, {n_conv}/{LIFT_B} "
-          f"converged, outputs on the card, no kernel launched, walls "
+          f"converged, outputs on the card, launches {got_l} over the 3 calls, walls "
           f"{[round(w * 1e3, 3) for w in ws_l]} ms (median {np.median(ws_l) * 1e3:.3f}) {tag}")
 
 
@@ -1218,6 +1235,131 @@ def phase20(tag, H, fresh) -> None:
           f"converged/iterations == corpus, launches {got} {tag}")
 
 
+def phase21(tag, qcode, fresh_l, heavy_l) -> dict:
+    """K6 against its plain version ``_bp_rows`` on the card (see the module
+    docstring), then its times beside its bound.  Returns the kernels line's
+    numbers for K6."""
+    from bp_osd_tpu_torch.codes import lifted_hgp
+    from bp_osd_tpu_torch.decoder.bp import llr_from_channel
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, _bp_rows
+    from bp_osd_tpu_torch.ops import _build
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+    from bp_osd_tpu_torch.utils.measure import k6_bound
+
+    dev = torch.device("cuda")
+    lib = _build.load()
+    rules = (("minimum_sum", 0.625), ("minimum_sum", 0.0), ("product_sum", 1.0))
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def k6_run(g, synd, l0, method, msf, route, max_iter=100):
+        k6._FORCE_DEVICE_ROUTE = route == "device"
+        try:
+            return k6.bp_lifted(g, synd, l0, method, max_iter, msf)
+        finally:
+            k6._FORCE_DEVICE_ROUTE = False
+
+    def held(g, synd, l0, what, rules=rules, routes=("shared", "device")):
+        """K6 on ``routes`` equal to ``_bp_rows`` under ``rules``, bit for
+        bit; returns the plain outputs of the first rule and the largest
+        llr difference (0.0)."""
+        first, err = None, 0.0
+        for method, msf in rules:
+            want = _bp_rows(g, synd, l0, method, 100, msf)
+            first = want if first is None else first
+            for route in routes:
+                got = k6_run(g, synd, l0, method, msf, route)
+                sync()
+                for name, a, b in zip(("hard", "llr", "converged", "iterations"), got, want):
+                    check(same(bits(a), bits(b)), f"phase 21 {what}, {method} {msf}, {route} "
+                                                  f"route: K6 {name} differs from _bp_rows")
+                err = max(err, float((got[1] - want[1]).abs().max()))
+        return first, err
+
+    t0 = time.perf_counter()
+    lg = LiftedGraph(qcode.hx_proto, LIFT, dev)
+    nl = lg.n
+    report, err = [], 0.0
+    batches = {}
+    for name, synd, p in (("p=0.005", fresh_l, LIFT_P), ("p=0.028", heavy_l, LIFT_HEAVY_P)):
+        l0 = llr_from_channel(np.full(nl, p)).to(dev).expand(synd.shape[0], nl)
+        want, e = held(lg, synd, l0, f"lift {LIFT} {name}")
+        batches[name] = (synd, l0, want)
+        err = max(err, e)
+        report.append(f"lift {LIFT} {name}: {int(want[2].sum())}/{synd.shape[0]} converged, "
+                      f"{int(want[3].sum())} row-iterations")
+    # every row converges at iteration 1; no row converges
+    zero = torch.zeros(LIFT_B, lg.m, dtype=torch.uint8, device=dev)
+    l0 = batches["p=0.005"][1]
+    want, _ = held(lg, zero, l0, "zero syndromes")
+    check(bool(want[2].all()) and bool((want[3] == 1).all()),
+          "phase 21: zero syndromes did not all converge at iteration 1")
+    g_rand = torch.Generator(dev).manual_seed(SEED + 21)
+    rand = (torch.rand(LIFT_B, lg.m, generator=g_rand, device=dev) < 0.5).to(torch.uint8)
+    want, _ = held(lg, rand, l0, "uniform random syndromes")
+    check(not bool(want[2].any()) and bool((want[3] == 100).all()),
+          "phase 21: a uniform random syndrome converged")
+    report.append(f"{LIFT_B} zero syndromes all converged at iteration 1; {LIFT_B} uniform "
+                  f"random syndromes none, all 100 iterations")
+    # lifts 60 and 100, and the lift-400 edges lifted to 1000
+    for lift in (60, 100):
+        q = lifted_hgp(PROTO, lift=lift)
+        H_f = torch.as_tensor(q.hx.toarray(), dtype=torch.float32, device=dev)
+        rng = np.random.default_rng(SEED + lift)
+        err_m = torch.as_tensor((rng.random((LIFT_B, H_f.shape[1])) < 0.03).astype(np.float32),
+                                device=dev)
+        synd = torch.remainder(err_m @ H_f.T, 2).to(torch.uint8)
+        g = LiftedGraph(q.hx_proto, lift, dev)
+        l0 = llr_from_channel(np.full(g.n, 0.03)).to(dev).expand(LIFT_B, g.n)
+        want, _ = held(g, synd, l0, f"lift {lift}")
+        report.append(f"lift {lift} ({k6.k6_route(g)} route by size): "
+                      f"{int(want[2].sum())}/{LIFT_B} converged")
+    g1k = LiftedGraph(qcode.hx_proto, 1000, dev)
+    check(k6.k6_route(g1k) == "device", f"lift 1000 takes the {k6.k6_route(g1k)} route")
+    rng = np.random.default_rng(SEED + 1000)
+    e1k = torch.as_tensor((rng.random((64, g1k.n)) < 0.01).astype(np.uint8), device=dev)
+    pad = torch.cat([e1k, e1k.new_zeros(64, 1)], 1)
+    s1k = (pad[:, g1k.chk_var].view(64, g1k.m, g1k.wr).sum(-1) & 1).to(torch.uint8)
+    l1k = llr_from_channel(np.full(g1k.n, 0.01)).to(dev).expand(64, g1k.n)
+    want, _ = held(g1k, s1k, l1k, "lift 1000", rules=rules[:1], routes=("device",))
+    report.append(f"lift 1000 (device route by size, min-sum 0.625): "
+                  f"{int(want[2].sum())}/64 converged")
+    mirror = all(k6.bp_lifted_smem_bytes(lg.mp, lg.np_, L, lg.wr, lg.depth, route)
+                 == lib.bp_lifted_smem_bytes(lg.mp, lg.np_, L, lg.wr, lg.depth, int(route))
+                 for L in (60, 100, 400, 1000) for route in (False, True))
+    check(mirror, "K6's shared-memory mirror differs from the library")
+    check_s = time.perf_counter() - t0
+
+    # times at the main path's shapes: K6, its device-memory route, the plain loop
+    times = {}
+    for name, (synd, l0, want) in batches.items():
+        times[name] = {
+            "ms": cuda_ms(lambda: k6_run(lg, synd, l0, "minimum_sum", 0.625, "shared"), 5),
+            "device_route_ms": cuda_ms(
+                lambda: k6_run(lg, synd, l0, "minimum_sum", 0.625, "device"), 5),
+            "plain_ms": cuda_ms(lambda: _bp_rows(lg, synd, l0, "minimum_sum", 100, 0.625), 3),
+            "bound": k6_bound(lg, want[3], prior_rows=1, device_route=False),
+            "max_iterations": int(want[3].max())}
+    plan = k6.bp_lifted_plan(lg)
+    plan_dev = k6.bp_lifted_plan(g1k)
+    heavy = times["p=0.028"]
+    print(f"phase 21 K6 vs _bp_rows on the card (min-sum 0.625, adaptive, product-sum; max_iter "
+          f"100; shared and device-memory routes): hard/llr bits/converged/iterations "
+          f"bit-identical on " + "; ".join(report) + f"; shared-memory mirror == library "
+          f"({check_s:.1f} s); plan {plan_line(plan)}; lift 1000 {plan_line(plan_dev)}; "
+          + "; ".join(f"{LIFT_B} rows {name}: K6 {t['ms']:.3f} ms (device-memory route "
+                      f"{t['device_route_ms']:.3f}), plain {t['plain_ms']:.3f} ms, bound "
+                      f"{t['bound'].detail()}, {100 * t['bound'].ms / t['ms']:.2f}% of it, rows "
+                      f"to {t['max_iterations']} iterations" for name, t in times.items())
+          + f" {tag}")
+    return {"err": err, "ms": heavy["ms"], "plain_ms": heavy["plain_ms"],
+            "bound": heavy["bound"], "p0005_ms": times["p=0.005"]["ms"],
+            "p0005_plain_ms": times["p=0.005"]["plain_ms"],
+            "p0005_bound_ms": times["p=0.005"]["bound"].ms,
+            "device_route_ms": heavy["device_route_ms"], "plan": plan}
+
+
 def rank_split(ranks: list[dict]) -> str:
     """Each rank's ms a batch, beside one reduction's and one slice's decode."""
     return ("each rank's first batch of one (a fresh process, before the timed run) "
@@ -1356,6 +1498,7 @@ def main() -> None:
     from bp_osd_tpu_torch.decoder.pipeline import _staged_bp
     from bp_osd_tpu_torch.ops.cuda_gf2 import (eliminate, gf2_elim_plan, gf2_elim_smem_bytes,
                                                gf2_elim_warp_smem_bytes, k4_fits, k4_placement)
+    from bp_osd_tpu_torch.ops.cuda_lifted_bp import bp_lifted
     from bp_osd_tpu_torch.ops.cuda_osd import (k2_fits, osd_cs, osd_cs_plan,
                                                osd_cs_warp_smem_bytes, osd_e)
     from bp_osd_tpu_torch.ops.cuda_osd_large import (osd_large, osd_large_panel, osd_large_plan,
@@ -1659,7 +1802,7 @@ def main() -> None:
     # ---- phase 8: the lifted path at full width ----
     fresh_l = lifted_batch(LIFT_P, SEED + 2, LIFT_B)
     heavy_l = lifted_batch(LIFT_HEAVY_P, SEED + 3, LIFT_B)
-    for f in (bp_flood, osd_cs, osd_large):
+    for f in (bp_flood, osd_cs, osd_large, bp_lifted):
         f.launches = 0
     walls_l = []
     for _ in range(3):
@@ -1677,14 +1820,15 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_h = time.perf_counter() - t0
     launches_l = {"bp_flood": bp_flood.launches, "osd_cs": osd_cs.launches,
-                  "osd_large": osd_large.launches}
+                  "osd_large": osd_large.launches, "bp_lifted": bp_lifted.launches}
     check(launches_l["osd_large"] > 0, f"K5 not launched on the lifted path: {launches_l}")
+    check(launches_l["bp_lifted"] == 4, f"K6 not launched once a lifted decode: {launches_l}")
     check(launches_l["osd_cs"] == 0 and launches_l["bp_flood"] == 0,
           f"the lifted path launched K1/K2: {launches_l}")
     check(satisfies(out_h, Hl_f, heavy_l), "a heavy-batch lifted osdw violates its syndrome")
-    osd_large.launches = 0
+    osd_large.launches = bp_lifted.launches = 0
     dec_l.decode_batch(heavy_l, channel_probs=np.full(nl, LIFT_HEAVY_P), outputs="device")
-    k5_per_decode = osd_large.launches
+    k5_per_decode, k6_per_decode = osd_large.launches, bp_lifted.launches
     conv_h = dec_l.converge_batch.clone()
     n_fail_h = int((~conv_h).sum())
     rate_l = LIFT_B / float(np.median(walls_l))
@@ -1709,12 +1853,13 @@ def main() -> None:
     print(f"phase 8 lifted path: [[{nl},{qcode.K}]] lift {LIFT}, B={LIFT_B}, p={LIFT_P}: "
           f"all satisfied; {rate_l:.1f} syndromes/s (median of walls "
           f"{[round(w, 4) for w in walls_l]} s); converged fraction {conv_l:.4f}; lifted BP "
-          f"{lbp_ms:.3f} ms per batch; p={LIFT_HEAVY_P}: {n_fail_h}/{LIFT_B} rows failed BP, "
-          f"all satisfied, wall {wall_h * 1e3:.3f} ms = lifted BP {hbp_ms:.3f} + argsort "
+          f"(K6) {lbp_ms:.3f} ms per batch; p={LIFT_HEAVY_P}: {n_fail_h}/{LIFT_B} rows failed "
+          f"BP, all satisfied, wall {wall_h * 1e3:.3f} ms = lifted BP (K6) {hbp_ms:.3f} + argsort "
           f"{sort_ms:.3f} + K5 {k5_all_ms:.3f} ({k5_all_ms / max(n_fail_h, 1):.3f} ms per "
           f"failing row) + host glue {glue_ms:.3f} ms; K5 "
           f"on 1 row {k5_one_ms:.3f} ms, on 8 rows {k5_ms:.3f} ms vs plain "
-          f"{k5_plain_ms:.1f} ms; launches {launches_l}, K5 {k5_per_decode} per decode {tag}")
+          f"{k5_plain_ms:.1f} ms; launches {launches_l}, K5 {k5_per_decode} and K6 "
+          f"{k6_per_decode} per decode {tag}")
 
     # launch_counts(): eliminate counts both K4 kernels, eliminate_warp the warp kernel
     def max_err(xs, ys):
@@ -1936,13 +2081,14 @@ def main() -> None:
     phase18(tag, qcode)
     schedules = phase19(tag, graph, synd, fresh, H_f, consts)
     phase20(tag, H, fresh)
+    k6_line = phase21(tag, qcode, fresh_l, heavy_l)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)
             b, extra["bound_ms_all_columns"] = b[0], b[1].ms
         launcher = {"gf2_elim": "eliminate"}.get(name, name)  # the wrapper's name
         return {"name": name, "route": "cuda", "source": f"bp_osd_tpu_torch/csrc/{source}",
-                "replaces": f"bp_osd_tpu/ops/{replaces}", "launches": launches,
+                "replaces": replaces, "launches": launches,
                 "launches_per_decode": per_decode, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b.ms, "bound_by": b.by, "library_ms": None,
                 "bound_bytes": b.nbytes, "bound_int_ops": b.int_ops,
@@ -1950,29 +2096,40 @@ def main() -> None:
                 "launches_model_parallel": model_parallel[launcher], **extra}
 
     kernels = [
-        row("bp_flood", "bp_flood.cu", "pallas_bp.py:140", launches["bp_flood"],
+        row("bp_flood", "bp_flood.cu", "bp_osd_tpu/ops/pallas_bp.py:140", launches["bp_flood"],
             per_decode["bp_flood"], bp_err, bp_ms, bp_plain_ms, bp_bound,
             stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
             stage_bound_ms=[b.ms for b in stage_bound], stage_schedules=schedules),
-        row("osd_cs", "osd_cs.cu", "pallas_osd.py:135", launches["osd_cs"],
+        row("osd_cs", "osd_cs.cu", "bp_osd_tpu/ops/pallas_osd.py:135", launches["osd_cs"],
             per_decode["osd_cs"], osd_err, osd_ms, osd_plain_ms, osd_b),
-        row("osd_e", "osd_cs.cu", "pallas_osd.py:565", launches_e["osd_e"], k3_per_decode,
+        row("osd_e", "osd_cs.cu", "bp_osd_tpu/ops/pallas_osd.py:565", launches_e["osd_e"], k3_per_decode,
             k3_err, k3_ms, k3_plain_ms, k3_b, order16_ms=k3_16_ms, order16_bound_ms=k3_16_b[0].ms,
             design="a warp per sample, several a block sharing the column-packed H; "
                    "K2's elimination, then 2^lam / 32 Gray-code patterns a lane"),
-        row("gf2_elim", "osd_cs.cu", "pallas_gf2.py:57", launches0["eliminate_warp"],
+        row("gf2_elim", "osd_cs.cu", "bp_osd_tpu/ops/pallas_gf2.py:57", launches0["eliminate_warp"],
             k4_per_decode, k4_err, k4_ms, k4_plain_ms, k4_b, block_ms=k4_block_ms,
             k2_order0_ms=k2_0_ms,
             block_source="bp_osd_tpu_torch/csrc/gf2_elim.cu", plan=k4_plan,
             design="a warp per sample, several a block sharing the column-packed H; K2's "
                    "elimination, then h_work by 32 x 32 bit-tile shuffle transposes through "
                    "an inverse perm; the block kernel (gf2_elim.cu) for codes above it"),
-        row("osd_large", "osd_large.cu", "pallas_osd_large.py:62", launches_l["osd_large"],
+        row("osd_large", "osd_large.cu", "bp_osd_tpu/ops/pallas_osd_large.py:62", launches_l["osd_large"],
             k5_per_decode, k5_err, k5_ms, k5_plain_ms, k5_b, lone_row_ms=k5_one_ms,
             lone_row_bound_ms=k5_one_b[0].ms, heavy_ms=k5_all_ms, heavy_rows=n_fail_h,
             design="word-major scratch, a window of two panels in shared memory owned "
                    "by warp 0 (search, window XOR, dependent columns without a barrier), "
                    "warps 1-31 test and XOR the later columns"),
+        row("bp_lifted", "bp_lifted.cu", "bp_osd_tpu/decoder/lifted_bp.py:173",
+            launches_l["bp_lifted"], k6_per_decode, k6_line["err"], k6_line["ms"],
+            k6_line["plain_ms"], k6_line["bound"], p0005_ms=k6_line["p0005_ms"],
+            p0005_plain_ms=k6_line["p0005_plain_ms"],
+            p0005_bound_ms=k6_line["p0005_bound_ms"],
+            device_route_ms=k6_line["device_route_ms"], plan=k6_line["plan"],
+            replaces_kind="the XLA jax.lax.while_loop of bp_decode_lifted (no Pallas kernel)",
+            design="persistent 1024-thread blocks take rows from a counter; a row's messages "
+                   "and totals in shared memory (device memory above it), updated in place; "
+                   "routing from the protograph's slot table and edge lists; three barriers "
+                   "an iteration, the last ORing the parity failures"),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

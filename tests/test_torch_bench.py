@@ -171,6 +171,49 @@ def test_launch_gate():
                                 what="t")["bp_flood"] == 0
 
 
+def test_lifted_launch_gates_name_k6():
+    """``large`` launches K6 on every step and K5 on some; in
+    ``lifted_shard`` the unsharded BP and the 1 x 1 mesh launch K6 on every
+    step, the 1 x 2 mesh nothing; each refuses K1 on the lifted path."""
+    zero = {k: 0 for k in measure.KERNELS}
+    assert measure.KERNELS["bp_lifted"] == ("K6", "bp_lifted.cu", ("bp_lifted_kernel",))
+    large = [dict(zero, bp_lifted=1), dict(zero, bp_lifted=1, osd_large=1)]
+    total = bench.check_launches(large, every=("bp_lifted",), some=("osd_large",),
+                                 on_card=True, what="large")
+    assert total["bp_lifted"] == 2 and total["osd_large"] == 1
+    with pytest.raises(GateFailed, match="step 0 did not launch bp_lifted"):
+        bench.check_launches([dict(zero, osd_large=1)], every=("bp_lifted",),
+                             some=("osd_large",), on_card=True, what="large")
+    with pytest.raises(GateFailed, match="launched bp_flood"):
+        bench.check_launches([dict(large[1], bp_flood=1)], every=("bp_lifted",),
+                             some=("osd_large",), on_card=True, what="large")
+    bench.check_launches([zero, zero], on_card=True, what="lifted_shard sharded_1x2")
+    with pytest.raises(GateFailed, match="launched bp_lifted"):
+        bench.check_launches([dict(zero, bp_lifted=1)], on_card=True,
+                             what="lifted_shard sharded_1x2")
+
+
+def test_k6_bound_counts_the_rows_iterations(lifted):
+    """K6's bound from the iterations each row ran: 2E + n + m float and
+    7E + n integer operations a sample-iteration, the inputs and outputs
+    once, the row state twice a sample-iteration on the device-memory
+    route."""
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph
+
+    g = LiftedGraph(lifted[0].hx_proto, LIFT, device="cpu")
+    m, n, E = g.m, g.n, g.m * g.wr
+    its = torch.tensor([3, 100, 1, 7], dtype=torch.int32)
+    b = measure.k6_bound(g, its, prior_rows=1, device_route=False)
+    assert b.float_ops == 111 * (2 * E + n + m) and b.int_ops == 111 * (7 * E + n)
+    io = 4 * m + 4 * n + 4 * (2 * g.mp * g.wr + 3 * g.np_ * g.depth) + 4 * (5 * n + 5)
+    assert b.nbytes == io
+    d = measure.k6_bound(g, its, prior_rows=1, device_route=True)
+    assert d.nbytes == io + 8 * (E + n) * 111
+    assert d.float_ops == b.float_ops and d.int_ops == b.int_ops
+    assert b.ms == max(b.nbytes / measure.HBM_BYTES_S, b.float_ops / measure.F32_OPS_S,
+                       b.int_ops / measure.INT_OPS_S) * 1e3
+
+
 def _corpus():
     data = np.load(bench.CORPUS)
     _, m, n = (int(x) for x in data["meta"][:3])
@@ -296,6 +339,9 @@ def test_mode_end_to_end_on_the_cpu(mode, options):
         assert k["launches"] == 0 and k["ms"] == "not measured" and k["share"] == "not measured"
         assert {"bound_ms", "bound_by"} <= set(k)
     assert line["gates"]
+    if mode == "large":  # K6 and the OSD kernel beside their bounds
+        assert list(line["kernels"])[0] == "bp_lifted" and len(line["kernels"]) == 2
+        assert line["kernels"]["bp_lifted"]["id"] == "K6"
     if mode == "flagship":  # the caps that ran: the default schedule, or --stage1's
         n = int(options.get("code", "400"))
         max_iter = bench.DECODERS[options.get("decoder", "osd_cs42")]["max_iter"] or n

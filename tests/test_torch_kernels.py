@@ -597,3 +597,71 @@ def test_model_sharded_bposd_on_the_card(dev, osd_order):
         _equal((osdw, conv), (torch.where(want.converged[:, None], want.hard, osd.osdw),
                               want.converged))
         assert all(kernel.launches_on[d.index] > before.get(d.index, 0) for d in mesh.devices)
+
+
+def _lifted_case(lift, B, p, seed, dev):
+    """The lifted product of ``PROTO`` at ``lift``: its ``hx_proto`` graph on
+    the card, ``B`` syndromes of errors of rate ``p`` and the prior."""
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph
+
+    q = lifted_hgp(PROTO, lift=lift)
+    H = np.asarray(q.hx.toarray(), np.uint8)
+    synd, llr0 = _batch(H, B, p, seed, dev)
+    return LiftedGraph(q.hx_proto, lift, dev), synd, llr0
+
+
+def _bits_equal(got, want):
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lift", [8, 60])
+@pytest.mark.parametrize("method,msf", [("minimum_sum", 0.625), ("minimum_sum", 0.0),
+                                        ("product_sum", 1.0)])
+@pytest.mark.parametrize("device_route", [False, True])
+def test_bp_lifted_bit_identical(dev, lift, method, msf, device_route, monkeypatch):
+    """K6 against its plain version ``_bp_rows`` on the card, both routes:
+    hard, llr bits, converged and iterations equal; one launch a call."""
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+    from bp_osd_tpu_torch.decoder.lifted_bp import _bp_rows
+
+    monkeypatch.setattr(k6, "_FORCE_DEVICE_ROUTE", device_route)
+    g, synd, llr0 = _lifted_case(lift, 96, 0.05, lift, dev)
+    assert k6.k6_route(g) == ("device" if device_route else "shared")
+    before = k6.bp_lifted.launches
+    got = k6.bp_lifted(g, synd, llr0, method, 40, msf)
+    assert k6.bp_lifted.launches == before + 1
+    _bits_equal(got, _bp_rows(g, synd, llr0, method, 40, msf))
+    assert 0 < int(got[2].sum()) < 96
+
+
+@pytest.mark.parametrize("B", [1, 7, 300, 2000])
+def test_bp_lifted_batch_sizes_and_one_launch(dev, B):
+    """Any batch is one launch of K6 through ``bp_decode_lifted`` (persistent
+    blocks take rows from a counter), equal to the plain version; a
+    contiguous prior equals the broadcast one."""
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+    from bp_osd_tpu_torch.decoder.lifted_bp import _bp_rows, bp_decode_lifted
+
+    g, synd, llr0 = _lifted_case(60, B, 0.04, B, dev)
+    before = k6.bp_lifted.launches
+    res = bp_decode_lifted(g, synd, llr0[0], bp_method="ms", max_iter=50,
+                           ms_scaling_factor=0.625)
+    assert k6.bp_lifted.launches == before + 1
+    _bits_equal(res, _bp_rows(g, synd, llr0, "minimum_sum", 50, 0.625))
+    _bits_equal(k6.bp_lifted(g, synd, llr0.contiguous(), "minimum_sum", 50, 0.625), res)
+
+
+def test_bp_lifted_checks_inputs(dev):
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+
+    g, synd, llr0 = _lifted_case(8, 4, 0.05, 1, dev)
+    with pytest.raises(ValueError):
+        k6.bp_lifted(g, synd.to(torch.int32), llr0, "minimum_sum", 5, 0.625)
+    with pytest.raises(ValueError):
+        k6.bp_lifted(g, synd, llr0[:, :-1], "minimum_sum", 5, 0.625)
+    with pytest.raises(ValueError):  # neither contiguous nor one broadcast row
+        k6.bp_lifted(g, synd, llr0.contiguous()[:, ::1].t().contiguous().t(), "minimum_sum",
+                     5, 0.625)
