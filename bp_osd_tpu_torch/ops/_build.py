@@ -165,10 +165,10 @@ def load() -> ctypes.CDLL:
     lib.osd_large_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
     lib.osd_large_plan.restype = I
     lib.bp_lifted_launch.argtypes = [P, P, LL, P, P, P, P, P, P, P, P,
-                                     I, I, I, I, I, I, I, I, I, F, P]
+                                     I, I, I, I, I, I, I, I, I, I, I, F, P]
     lib.bp_lifted_launch.restype = I
-    lib.bp_lifted_smem_bytes.argtypes = [I, I, I, I, I, I]
+    lib.bp_lifted_smem_bytes.argtypes = [I, I, I, I, I, I, I]
     lib.bp_lifted_smem_bytes.restype = SZ
-    lib.bp_lifted_plan.argtypes = [I, I, I, I, I, I, I, ctypes.POINTER(I)]
+    lib.bp_lifted_plan.argtypes = [I, I, I, I, I, I, I, I, I, ctypes.POINTER(I)]
     lib.bp_lifted_plan.restype = I
     return lib

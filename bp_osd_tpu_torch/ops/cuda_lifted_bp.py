@@ -5,19 +5,22 @@ K6 replaces no Pallas kernel: the JAX package runs this decode as the XLA
 ``jax.lax.while_loop`` of ``bp_osd_tpu/decoder/lifted_bp.py:173-212``.  CUDA
 tensors go to the kernel; CPU tensors to the plain torch version,
 :func:`bp_osd_tpu_torch.decoder.lifted_bp._bp_rows`; any other device
-raises.  A graph whose row state (messages and totals) fits a block's
-shared memory beside K6's tables (:func:`k6_route` ``"shared"``, up to the
-[[10000,420]] code at lift 400) keeps it there; a larger one (lift 1000)
+raises.  A graph whose row state (min-sum: three words a check and the
+totals; product-sum: the messages and the totals) fits a block's shared
+memory beside K6's tables (:func:`k6_route` ``"shared"``, min-sum up to lift
+942 of the [[10000,420]] code's protograph) keeps it there; a larger one
 keeps it in a device-memory slice of each persistent block.  Either way a
-call is one launch, whatever the batch.  The plan is queried once a card and
-shape, and it and the launch run with the tensors' card current.  ``bp_lifted.launches`` counts kernel
-launches (``bp_lifted.launches_on`` by card).
+call is one launch, whatever the batch.  The threads a row come from the
+graph alone (:func:`k6_threads`, once a card and graph), and the plan and
+the launch run with the tensors' card current.  ``bp_lifted.launches``
+counts kernel launches (``bp_lifted.launches_on`` by card).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -27,62 +30,123 @@ from ..decoder.lifted_bp import LiftedGraph, _bp_rows
 from . import _build, count_launch, launch_counter
 from .cuda_bp import _MAX_ROW_WEIGHT, _SMEM_LIMIT
 
-__all__ = ["bp_lifted", "bp_lifted_plan", "bp_lifted_smem_bytes", "bp_lifted_state_words",
-           "k6_route"]
+__all__ = ["TEAM_SIZES", "bp_lifted", "bp_lifted_plan", "bp_lifted_smem_bytes",
+           "bp_lifted_state_words", "bp_lifted_table_words", "full_rows", "k6_route",
+           "k6_threads"]
 
-# Tests and measurements set this to run every graph on the device-memory
-# route; the result does not depend on the route.
+# Tests and measurements set these to run every graph on the device-memory
+# route, or every row with _THREADS threads (0: k6_threads' choice); the
+# result depends on neither.
 _FORCE_DEVICE_ROUTE = False
+_THREADS = 0
+
+TEAM_SIZES = (128, 256, 512, 1024)  # the threads a row k6_threads chooses from
+_MAX_CHECKS_PER_THREAD = 64  # a thread's syndrome bits sit in one 64-bit register
 
 
-def bp_lifted_smem_bytes(mp: int, np_: int, L: int, wr: int, depth: int,
+def bp_lifted_table_words(mp: int, np_: int, wr: int, depth: int) -> int:
+    """Words of K6's tables in shared memory: the edges ``[np][depth]`` as
+    four words each, the slots ``[mp][wr]`` as two, the degree of each block
+    row and variable block, and the row slot."""
+    return 4 * np_ * depth + 2 * mp * wr + mp + np_ + 1
+
+
+def bp_lifted_state_words(mp: int, np_: int, L: int, wr: int, product_sum: bool = False) -> int:
+    """One row's state in K6 (in shared memory, or a block's device-memory
+    scratch): min-sum keeps each check's compressed message, three words,
+    and the ``np L`` totals; product-sum the ``mp L wr`` messages and the
+    totals."""
+    m = mp * L
+    return (m * wr if product_sum else 3 * m) + np_ * L
+
+
+def bp_lifted_smem_bytes(mp: int, np_: int, L: int, wr: int, depth: int, product_sum: bool,
                          device_route: bool) -> int:
     """Dynamic shared memory of one K6 block, as
     ``csrc/bp_lifted.cu:bp_lifted_smem_bytes`` computes it (``chip_smoke.py``
-    holds the two equal on the card): a word each of the slot table's
-    ``2 mp wr`` entries, the edge lists' ``3 np depth``, the ``mp`` block-row
-    degrees and the row slot, and on the shared route the row's state,
-    :func:`bp_lifted_state_words`."""
-    state = 0 if device_route else bp_lifted_state_words(mp, np_, L, wr)
-    return 4 * (2 * mp * wr + 3 * np_ * depth + mp + 1 + state)
+    holds the two equal on the card): the tables
+    (:func:`bp_lifted_table_words`) and, on the shared route, the row's
+    state (:func:`bp_lifted_state_words`)."""
+    state = 0 if device_route else bp_lifted_state_words(mp, np_, L, wr, product_sum)
+    return 4 * (bp_lifted_table_words(mp, np_, wr, depth) + state)
 
 
-def bp_lifted_state_words(mp: int, np_: int, L: int, wr: int) -> int:
-    """One row's state in K6: its ``mp L wr`` messages and ``np L`` totals
-    (in shared memory, or a block's device-memory scratch)."""
-    return mp * L * wr + np_ * L
-
-
-def k6_route(graph: LiftedGraph) -> str:
+def k6_route(graph: LiftedGraph, product_sum: bool = False) -> str:
     """``"shared"`` when K6's tables and one row's state fit a block's
     232,448 bytes of shared memory, else ``"device"`` (the state in device
     memory); ``_FORCE_DEVICE_ROUTE`` forces ``"device"``."""
-    shared = bp_lifted_smem_bytes(graph.mp, graph.np_, graph.L, graph.wr, graph.depth, False)
+    shared = bp_lifted_smem_bytes(graph.mp, graph.np_, graph.L, graph.wr, graph.depth,
+                                  product_sum, False)
     return "device" if _FORCE_DEVICE_ROUTE or shared > _SMEM_LIMIT else "shared"
 
 
+def k6_threads(m: int, n: int, wr: int, depth: int, rows_per_sm: dict) -> int:
+    """The threads a row K6 runs a graph with, from :data:`TEAM_SIZES`:
+    ``rows_per_sm[T]`` is how many rows of ``T`` threads an SM holds (the
+    occupancy query; 0 or absent where none fits).  A row-iteration costs
+    about the work of its busiest thread between the two barriers, ``path =
+    ceil(m / T) wr + ceil(n / T) depth`` slot and edge updates; the choice is
+    the most rows an SM per path, and of equal rates the larger team (its
+    row finishes sooner, and a batch waits for its slowest rows: at the
+    [[10000,420]] code one 1024-thread row an SM beat two 512-thread rows on
+    every batch timed).  A thread owns at most 64 checks.  Depends on the
+    graph alone, so every batch size runs the same kernel build."""
+    best = None
+    for T in TEAM_SIZES:
+        rows, cpt = rows_per_sm.get(T, 0), -(-m // T)
+        if rows < 1 or cpt > _MAX_CHECKS_PER_THREAD:
+            continue
+        key = (Fraction(rows, cpt * wr + -(-n // T) * depth), T)
+        if best is None or key > best[0]:
+            best = (key, T)
+    if best is None:
+        raise ValueError(f"K6 fits no team of {TEAM_SIZES} threads on this graph "
+                         f"(m={m}, n={n})")
+    return best[1]
+
+
 def bp_lifted_plan(graph: LiftedGraph, *, product_sum: bool = False) -> dict:
-    """K6's launch at this graph on the current card: its route, resident
-    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the
-    card's SMs, registers a thread and dynamic shared memory.  Queried once
-    a card and shape; the query also raises the kernel's shared-memory
-    limit on the card, which the launch needs."""
-    route = k6_route(graph)
-    plan = _plan(torch.cuda.current_device(), graph.mp, graph.np_, graph.L, graph.wr,
-                 graph.depth, bool(product_sum), route == "device")
-    return {"route": route, **dict(zip(("blocks_per_sm", "sms", "registers", "smem_bytes"),
-                                       plan))}
+    """K6's launch at this graph on the current card: its route, threads a
+    row (``_THREADS``, else :func:`k6_threads`'s choice), rows an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the card's SMs,
+    registers and local memory bytes a thread and dynamic shared memory.
+    Queried once a card, shape and team size; the query also raises the
+    kernel's shared-memory limit on the card, which the launch needs."""
+    route = k6_route(graph, product_sum)
+    key = (torch.cuda.current_device(), graph.mp, graph.np_, graph.L, graph.wr, graph.depth,
+           bool(product_sum), route == "device", full_rows(graph))
+    threads = int(_THREADS) or _choice(*key)
+    plan = _plan(*key, threads)
+    if plan["rows_per_sm"] < 1:
+        raise RuntimeError(f"K6 with {threads} threads a row fits no SM at {graph}")
+    return {"route": route, "threads": threads, **plan}
+
+
+def full_rows(graph: LiftedGraph) -> bool:
+    """Whether every block row has ``wr`` slots: K6 then unrolls its slot
+    loop without guards (row weights 4 to 8)."""
+    return all(len(row) == graph.wr for row in graph.edges)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(card: int, mp: int, np_: int, L: int, wr: int, depth: int, product_sum: bool,
-          device_route: bool) -> tuple:
-    out = (ctypes.c_int * 4)()
+          device_route: bool, full: bool, threads: int) -> dict:
+    out = (ctypes.c_int * 5)()
     err = _build.load().bp_lifted_plan(mp, np_, L, wr, depth, int(product_sum),
-                                       int(device_route), out)
+                                       int(device_route), int(full), threads, out)
     if err != 0:
-        raise RuntimeError(f"bp_lifted_plan failed: CUDA error {err}")
-    return tuple(out)
+        raise RuntimeError(f"bp_lifted_plan failed at {threads} threads a row: CUDA error {err}")
+    return dict(zip(("rows_per_sm", "sms", "registers", "smem_bytes", "local_bytes"), out))
+
+
+@functools.lru_cache(maxsize=None)
+def _choice(card: int, mp: int, np_: int, L: int, wr: int, depth: int, product_sum: bool,
+            device_route: bool, full: bool) -> int:
+    m, n = mp * L, np_ * L
+    rows = {T: _plan(card, mp, np_, L, wr, depth, product_sum, device_route, full,
+                     T)["rows_per_sm"]
+            for T in TEAM_SIZES if -(-m // T) <= _MAX_CHECKS_PER_THREAD}
+    return k6_threads(m, n, wr, depth, rows)
 
 
 def _check_args(graph: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor) -> None:
@@ -137,10 +201,11 @@ def bp_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor, method
         # the plan reads the current card, and the launch runs in its context
         with torch.cuda.device(dev):
             plan = bp_lifted_plan(graph, product_sum=product_sum)
-            grid = min(B, plan["sms"] * plan["blocks_per_sm"])
+            grid = min(B, plan["sms"] * plan["rows_per_sm"])
             scratch = None
             if plan["route"] == "device":
-                words = bp_lifted_state_words(graph.mp, graph.np_, graph.L, graph.wr)
+                words = bp_lifted_state_words(graph.mp, graph.np_, graph.L, graph.wr,
+                                              product_sum)
                 scratch = torch.empty(grid * words, dtype=torch.float32, device=dev)
             counter = torch.zeros(1, dtype=torch.int32, device=dev)
             alpha = 1.0 if product_sum else float(np.float32(ms_scaling_factor))
@@ -150,8 +215,9 @@ def bp_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor, method
                 synd.data_ptr(), llr0.data_ptr(), stride, slots.data_ptr(), blocks.data_ptr(),
                 hard.data_ptr(), llr.data_ptr(), conv.data_ptr(), iters.data_ptr(),
                 scratch.data_ptr() if scratch is not None else None, counter.data_ptr(),
-                B, grid, graph.mp, graph.np_, graph.L, graph.wr, graph.depth, max_iter,
-                int(product_sum), alpha, torch.cuda.current_stream(dev).cuda_stream,
+                B, grid, plan["threads"], graph.mp, graph.np_, graph.L, graph.wr, graph.depth,
+                int(full_rows(graph)), max_iter, int(product_sum), alpha,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
             if err != 0:
                 raise RuntimeError(f"bp_lifted launch failed: CUDA error {err}")

@@ -173,11 +173,16 @@ Phases, one line each (any failed check exits non-zero):
    to the device-memory route, on phase 8's 512 lift-400 rows at p = 0.005
    and p = 0.028, 512 rows at lift 60 and lift 100, a lift-400 batch of
    zero syndromes (every row converges at iteration 1), one of uniform
-   random syndromes (no row converges) and 64 rows of the lift-400
-   protograph's edges lifted to 1000 (the device-memory route by size); the
-   Python mirror of K6's shared memory equals the library's; K6, its
-   device-memory route and the plain version timed with CUDA events on
-   the p = 0.028 and p = 0.005 batches beside K6's bound, with its plan.
+   random syndromes (no row converges), and 64 rows of the lift-400
+   protograph's edges lifted to 942 and 943 (either side of the min-sum
+   shared route's boundary) and to 1000 (the device-memory route by size);
+   the heavy batch again at every team size of the plan's sweep
+   (``ops/cuda_lifted_bp.py:TEAM_SIZES``, forced through ``_THREADS``); the
+   Python mirror of K6's shared memory equals the library's; the plan
+   (threads a row, rows an SM, registers, shared and local memory) and the
+   sweep's heavy-batch times and a lone 100-iteration row's ms an
+   iteration; K6, its device-memory route and the plain version timed with
+   CUDA events on the p = 0.028 and p = 0.005 batches beside K6's bound.
 
 The helpers for timing, bounds and gates are those of
 ``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
@@ -1302,7 +1307,7 @@ def phase21(tag, qcode, fresh_l, heavy_l) -> dict:
           "phase 21: a uniform random syndrome converged")
     report.append(f"{LIFT_B} zero syndromes all converged at iteration 1; {LIFT_B} uniform "
                   f"random syndromes none, all 100 iterations")
-    # lifts 60 and 100, and the lift-400 edges lifted to 1000
+    # lifts 60 and 100
     for lift in (60, 100):
         q = lifted_hgp(PROTO, lift=lift)
         H_f = torch.as_tensor(q.hx.toarray(), dtype=torch.float32, device=dev)
@@ -1315,20 +1320,45 @@ def phase21(tag, qcode, fresh_l, heavy_l) -> dict:
         want, _ = held(g, synd, l0, f"lift {lift}")
         report.append(f"lift {lift} ({k6.k6_route(g)} route by size): "
                       f"{int(want[2].sum())}/{LIFT_B} converged")
-    g1k = LiftedGraph(qcode.hx_proto, 1000, dev)
-    check(k6.k6_route(g1k) == "device", f"lift 1000 takes the {k6.k6_route(g1k)} route")
-    rng = np.random.default_rng(SEED + 1000)
-    e1k = torch.as_tensor((rng.random((64, g1k.n)) < 0.01).astype(np.uint8), device=dev)
-    pad = torch.cat([e1k, e1k.new_zeros(64, 1)], 1)
-    s1k = (pad[:, g1k.chk_var].view(64, g1k.m, g1k.wr).sum(-1) & 1).to(torch.uint8)
-    l1k = llr_from_channel(np.full(g1k.n, 0.01)).to(dev).expand(64, g1k.n)
-    want, _ = held(g1k, s1k, l1k, "lift 1000", rules=rules[:1], routes=("device",))
-    report.append(f"lift 1000 (device route by size, min-sum 0.625): "
-                  f"{int(want[2].sum())}/64 converged")
-    mirror = all(k6.bp_lifted_smem_bytes(lg.mp, lg.np_, L, lg.wr, lg.depth, route)
-                 == lib.bp_lifted_smem_bytes(lg.mp, lg.np_, L, lg.wr, lg.depth, int(route))
-                 for L in (60, 100, 400, 1000) for route in (False, True))
+
+    def edges_lifted(lift):
+        """64 rows of the lift-400 protograph's edges lifted to ``lift``,
+        syndromes of errors at p = 0.01 routed through ``chk_var``."""
+        g = LiftedGraph(qcode.hx_proto, lift, dev)
+        rng = np.random.default_rng(SEED + lift)
+        e = torch.as_tensor((rng.random((64, g.n)) < 0.01).astype(np.uint8), device=dev)
+        pad = torch.cat([e, e.new_zeros(64, 1)], 1)
+        synd = (pad[:, g.chk_var].view(64, g.m, g.wr).sum(-1) & 1).to(torch.uint8)
+        return g, synd, llr_from_channel(np.full(g.n, 0.01)).to(dev).expand(64, g.n)
+
+    # the min-sum shared route's boundary (lift 942 | 943), and lift 1000
+    graphs = {}
+    for lift, route, rl in ((942, "shared", rules[:2]), (943, "device", rules[:2]),
+                            (1000, "device", rules[:1])):
+        g, synd, l0 = graphs[lift] = edges_lifted(lift)
+        check(k6.k6_route(g) == route, f"lift {lift} takes the {k6.k6_route(g)} route")
+        want, _ = held(g, synd, l0, f"lift {lift}", rules=rl,
+                       routes=("shared", "device") if route == "shared" else ("device",))
+        report.append(f"lift {lift} ({route} route by size, {len(rl)} min-sum rules): "
+                      f"{int(want[2].sum())}/64 converged")
+    mirror = all(k6.bp_lifted_smem_bytes(lg.mp, lg.np_, L, lg.wr, lg.depth, ps, route)
+                 == lib.bp_lifted_smem_bytes(lg.mp, lg.np_, L, lg.wr, lg.depth, int(ps),
+                                             int(route))
+                 for L in (60, 100, 400, 527, 528, 942, 943, 1000) for ps in (False, True)
+                 for route in (False, True))
     check(mirror, "K6's shared-memory mirror differs from the library")
+
+    # every team size of the plan's sweep, bit for bit on the heavy batch
+    synd_h, l0_h, _ = batches["p=0.028"]
+    sweep = {}
+    for T in k6.TEAM_SIZES:
+        k6._THREADS = T
+        try:
+            sweep[T] = {"plan": k6.bp_lifted_plan(lg)}
+            held(lg, synd_h, l0_h, f"lift {LIFT} p=0.028 at {T} threads a row",
+                 routes=("shared",))
+        finally:
+            k6._THREADS = 0
     check_s = time.perf_counter() - t0
 
     # times at the main path's shapes: K6, its device-memory route, the plain loop
@@ -1342,12 +1372,31 @@ def phase21(tag, qcode, fresh_l, heavy_l) -> dict:
             "bound": k6_bound(lg, want[3], prior_rows=1, device_route=False),
             "max_iterations": int(want[3].max())}
     plan = k6.bp_lifted_plan(lg)
-    plan_dev = k6.bp_lifted_plan(g1k)
+    plan_dev = k6.bp_lifted_plan(graphs[1000][0])
+    # the plan's team size against the others: the heavy batch, and one row
+    # of a uniform random syndrome (all 100 iterations), ms an iteration
+    lone, l0_lone = rand[:1], batches["p=0.028"][1][:1]
+    for T in k6.TEAM_SIZES:
+        k6._THREADS = T
+        try:
+            sweep[T]["heavy_ms"] = cuda_ms(
+                lambda: k6_run(lg, synd_h, l0_h, "minimum_sum", 0.625, "shared"), 5)
+            sweep[T]["lone_row_ms_per_iteration"] = cuda_ms(
+                lambda: k6_run(lg, lone, l0_lone, "minimum_sum", 0.625, "shared"), 5) / 100
+        finally:
+            k6._THREADS = 0
+    lone_ms_it = sweep[plan["threads"]]["lone_row_ms_per_iteration"]
     heavy = times["p=0.028"]
     print(f"phase 21 K6 vs _bp_rows on the card (min-sum 0.625, adaptive, product-sum; max_iter "
           f"100; shared and device-memory routes): hard/llr bits/converged/iterations "
           f"bit-identical on " + "; ".join(report) + f"; shared-memory mirror == library "
-          f"({check_s:.1f} s); plan {plan_line(plan)}; lift 1000 {plan_line(plan_dev)}; "
+          f"({check_s:.1f} s), every team size of the sweep included; plan "
+          f"{plan_line(plan)}; lift 1000 {plan_line(plan_dev)}; team sweep (threads a row: "
+          f"rows an SM, registers, local bytes; heavy-batch ms; lone-row ms an iteration): "
+          + "; ".join(f"{T}: {e['plan']['rows_per_sm']}, {e['plan']['registers']}, "
+                      f"{e['plan']['local_bytes']}; {e['heavy_ms']:.3f}; "
+                      f"{e['lone_row_ms_per_iteration']:.4f}" for T, e in sweep.items())
+          + "; "
           + "; ".join(f"{LIFT_B} rows {name}: K6 {t['ms']:.3f} ms (device-memory route "
                       f"{t['device_route_ms']:.3f}), plain {t['plain_ms']:.3f} ms, bound "
                       f"{t['bound'].detail()}, {100 * t['bound'].ms / t['ms']:.2f}% of it, rows "
@@ -1357,7 +1406,13 @@ def phase21(tag, qcode, fresh_l, heavy_l) -> dict:
             "bound": heavy["bound"], "p0005_ms": times["p=0.005"]["ms"],
             "p0005_plain_ms": times["p=0.005"]["plain_ms"],
             "p0005_bound_ms": times["p=0.005"]["bound"].ms,
-            "device_route_ms": heavy["device_route_ms"], "plan": plan}
+            "device_route_ms": heavy["device_route_ms"], "plan": plan,
+            "lone_row_ms_per_iteration": lone_ms_it,
+            "sweep": {str(T): {"threads": T, "rows_per_sm": e["plan"]["rows_per_sm"],
+                               "registers": e["plan"]["registers"],
+                               "heavy_ms": e["heavy_ms"],
+                               "lone_row_ms_per_iteration": e["lone_row_ms_per_iteration"]}
+                      for T, e in sweep.items()}}
 
 
 def rank_split(ranks: list[dict]) -> str:
@@ -1498,7 +1553,7 @@ def main() -> None:
     from bp_osd_tpu_torch.decoder.pipeline import _staged_bp
     from bp_osd_tpu_torch.ops.cuda_gf2 import (eliminate, gf2_elim_plan, gf2_elim_smem_bytes,
                                                gf2_elim_warp_smem_bytes, k4_fits, k4_placement)
-    from bp_osd_tpu_torch.ops.cuda_lifted_bp import bp_lifted
+    from bp_osd_tpu_torch.ops.cuda_lifted_bp import bp_lifted, bp_lifted_plan
     from bp_osd_tpu_torch.ops.cuda_osd import (k2_fits, osd_cs, osd_cs_plan,
                                                osd_cs_warp_smem_bytes, osd_e)
     from bp_osd_tpu_torch.ops.cuda_osd_large import (osd_large, osd_large_panel, osd_large_plan,
@@ -1850,11 +1905,13 @@ def main() -> None:
     k5_all_ms = cuda_ms(lambda: osd_large(gl, p_fail, s_fail, osd_order=LIFT_ORDER,
                                           pairs=pairs_l), 3)
     glue_ms = wall_h * 1e3 - hbp_ms - sort_ms - k5_all_ms
+    k6_plan = bp_lifted_plan(lgl)
     print(f"phase 8 lifted path: [[{nl},{qcode.K}]] lift {LIFT}, B={LIFT_B}, p={LIFT_P}: "
           f"all satisfied; {rate_l:.1f} syndromes/s (median of walls "
           f"{[round(w, 4) for w in walls_l]} s); converged fraction {conv_l:.4f}; lifted BP "
           f"(K6) {lbp_ms:.3f} ms per batch; p={LIFT_HEAVY_P}: {n_fail_h}/{LIFT_B} rows failed "
-          f"BP, all satisfied, wall {wall_h * 1e3:.3f} ms = lifted BP (K6) {hbp_ms:.3f} + argsort "
+          f"BP, all satisfied, wall {wall_h * 1e3:.3f} ms = lifted BP (K6, {k6_plan['threads']} "
+          f"threads a row, {k6_plan['rows_per_sm']} an SM) {hbp_ms:.3f} + argsort "
           f"{sort_ms:.3f} + K5 {k5_all_ms:.3f} ({k5_all_ms / max(n_fail_h, 1):.3f} ms per "
           f"failing row) + host glue {glue_ms:.3f} ms; K5 "
           f"on 1 row {k5_one_ms:.3f} ms, on 8 rows {k5_ms:.3f} ms vs plain "
@@ -2125,11 +2182,15 @@ def main() -> None:
             p0005_plain_ms=k6_line["p0005_plain_ms"],
             p0005_bound_ms=k6_line["p0005_bound_ms"],
             device_route_ms=k6_line["device_route_ms"], plan=k6_line["plan"],
+            lone_row_ms_per_iteration=k6_line["lone_row_ms_per_iteration"],
+            team_sweep=k6_line["sweep"],
             replaces_kind="the XLA jax.lax.while_loop of bp_decode_lifted (no Pallas kernel)",
-            design="persistent 1024-thread blocks take rows from a counter; a row's messages "
-                   "and totals in shared memory (device memory above it), updated in place; "
-                   "routing from the protograph's slot table and edge lists; three barriers "
-                   "an iteration, the last ORing the parity failures"),
+            design="K1's two-barrier order: the check update of t + 1 reads tot_t, takes "
+                   "the stop parity of t and forms v2c_t from the check's compressed "
+                   "min-sum message (m1a, m2a, sg), rewritten in place; a row's 3m + n words "
+                   "in shared memory (device memory above lift 942); persistent blocks of "
+                   "a team size chosen from the graph (k6_threads) take rows from a counter; "
+                   "routes from the protograph's tables, slot and edge loops unrolled"),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -654,6 +654,130 @@ def test_bp_lifted_batch_sizes_and_one_launch(dev, B):
     _bits_equal(k6.bp_lifted(g, synd, llr0.contiguous(), "minimum_sum", 50, 0.625), res)
 
 
+def _proto_case(lift, B, p, seed, dev, proto=None):
+    """A lifted graph of ``proto`` (default: the [[10000,420]] code's shape,
+    the lift-8 product's ``hx_proto``) at ``lift`` on the card, ``B``
+    syndromes of errors of rate ``p`` routed through ``chk_var`` (no dense
+    matrix is built) and the prior."""
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph
+
+    g = LiftedGraph(lifted_hgp(PROTO, lift=8).hx_proto if proto is None else proto, lift, dev)
+    rng = np.random.default_rng(seed)
+    err = torch.as_tensor((rng.random((B, g.n)) < p).astype(np.uint8), device=dev)
+    pad = torch.cat([err, err.new_zeros(B, 1)], 1)
+    synd = (pad[:, g.chk_var].view(B, g.m, g.wr).sum(-1) & 1).to(torch.uint8)
+    llr0 = llr_from_channel(np.full(g.n, p)).to(dev).expand(B, g.n)
+    return g, synd, llr0
+
+
+@pytest.mark.parametrize("lift,route", [(942, "shared"), (943, "device")])
+@pytest.mark.parametrize("method,msf", [("minimum_sum", 0.625), ("minimum_sum", 0.0)])
+def test_bp_lifted_route_boundary(dev, lift, route, method, msf):
+    """The lifts on either side of the min-sum shared route's boundary (the
+    row's 3 m + n words and the tables in 232,448 bytes) take their routes
+    by size and equal ``_bp_rows`` bit for bit."""
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+    from bp_osd_tpu_torch.decoder.lifted_bp import _bp_rows
+
+    g, synd, llr0 = _proto_case(lift, 48, 0.02, lift, dev)
+    assert k6.k6_route(g) == route
+    got = k6.bp_lifted(g, synd, llr0, method, 40, msf)
+    _bits_equal(got, _bp_rows(g, synd, llr0, method, 40, msf))
+    assert 0 < int(got[2].sum()) < 48
+
+
+@pytest.mark.parametrize("lift", [60, 400])
+@pytest.mark.parametrize("threads", [128, 256, 512, 1024])
+@pytest.mark.parametrize("method,msf", [("minimum_sum", 0.625), ("product_sum", 1.0)])
+def test_bp_lifted_team_sizes(dev, lift, threads, method, msf, monkeypatch):
+    """Every team size of the plan's sweep (forced through ``_THREADS``)
+    equals ``_bp_rows`` bit for bit; the plan reports the forced size."""
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+    from bp_osd_tpu_torch.decoder.lifted_bp import _bp_rows
+
+    monkeypatch.setattr(k6, "_THREADS", threads)
+    g, synd, llr0 = _proto_case(lift, 300, 0.03, threads, dev)
+    plan = k6.bp_lifted_plan(g, product_sum=method == "product_sum")
+    assert plan["threads"] == threads and plan["rows_per_sm"] >= 1
+    got = k6.bp_lifted(g, synd, llr0, method, 50, msf)
+    _bits_equal(got, _bp_rows(g, synd, llr0, method, 50, msf))
+    assert 0 < int(got[2].sum()) < 300
+
+
+def test_bp_lifted_two_rows_an_sm(dev, monkeypatch):
+    """At lift 400 a 512-thread min-sum row needs 100,024 bytes, so two rows
+    share an SM; on a batch of more rows than the card holds at once, with
+    rows of every iteration count, both stay bit for bit."""
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+    from bp_osd_tpu_torch.decoder.lifted_bp import _bp_rows
+
+    monkeypatch.setattr(k6, "_THREADS", 512)
+    g, synd, llr0 = _proto_case(400, 8, 0.03, 0, dev)
+    plan = k6.bp_lifted_plan(g)
+    assert plan["route"] == "shared" and plan["rows_per_sm"] == 2, plan
+    assert plan["smem_bytes"] == 100_024
+    B = 2 * plan["sms"] * plan["rows_per_sm"] + 37
+    g, synd, llr0 = _proto_case(400, B, 0.03, 1, dev)
+    got = k6.bp_lifted(g, synd, llr0, "minimum_sum", 100, 0.625)
+    _bits_equal(got, _bp_rows(g, synd, llr0, "minimum_sum", 100, 0.625))
+    assert 0 < int(got[2].sum()) < B and int(got[3].max()) == 100
+
+
+@pytest.mark.parametrize("B", [1, 100, 2000])
+def test_bp_lifted_lift400_batch_sizes(dev, B):
+    """At the [[10000,420]] code's shape, with the plan's own team size: one
+    row, fewer rows than SMs x rows an SM, and 2000 rows, each one launch
+    through ``bp_decode_lifted``, equal to ``_bp_rows``."""
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+    from bp_osd_tpu_torch.decoder.lifted_bp import _bp_rows, bp_decode_lifted
+
+    g, synd, llr0 = _proto_case(400, B, 0.01, B, dev)
+    plan = k6.bp_lifted_plan(g)
+    assert B == 2000 or B < plan["sms"] * plan["rows_per_sm"]
+    before = k6.bp_lifted.launches
+    res = bp_decode_lifted(g, synd, llr0[0], bp_method="ms", max_iter=60,
+                           ms_scaling_factor=0.625)
+    assert k6.bp_lifted.launches == before + 1
+    _bits_equal(res, _bp_rows(g, synd, llr0, "minimum_sum", 60, 0.625))
+
+
+def _shape_proto(shape):
+    """A protograph of each loop shape K6 compiles: ``wide`` (row weight 10,
+    depth 7: the generic loops), ``uneven`` (row weights 3 and 4: the slot
+    loop unrolled to 8 with guards), ``fullW`` (every block row of weight W:
+    the slot loop unrolled to W without guards)."""
+    rng = np.random.default_rng(7)
+    if shape == "wide":
+        return [[tuple(int(x) for x in rng.integers(0, 50, int(rng.integers(1, 3))))
+                 for _ in range(6)] for _ in range(4)]
+    if shape == "uneven":
+        return [[(0, 1), (2,), ()], [(3,), (0, 4), (1,)]]
+    w = int(shape[4:])
+    cols = [set(rng.permutation(8)[:w].tolist()) for _ in range(4)]
+    return [[(int(rng.integers(0, 50)),) if J in row else () for J in range(8)] for row in cols]
+
+
+@pytest.mark.parametrize("method,msf", [("minimum_sum", 0.625), ("minimum_sum", 0.0),
+                                        ("product_sum", 1.0)])
+@pytest.mark.parametrize("device_route", [False, True])
+@pytest.mark.parametrize("shape", ["wide", "uneven", "full4", "full5", "full6", "full8"])
+def test_bp_lifted_graph_shapes(dev, method, msf, device_route, shape, monkeypatch):
+    """Every loop shape K6 compiles (``_shape_proto``), bit for bit on both
+    routes."""
+    import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
+    from bp_osd_tpu_torch.decoder.lifted_bp import _bp_rows
+
+    monkeypatch.setattr(k6, "_FORCE_DEVICE_ROUTE", device_route)
+    g, synd, llr0 = _proto_case(50, 96, 0.02, 3, dev, proto=_shape_proto(shape))
+    if shape == "wide":
+        assert g.wr > 8 and g.depth > 4
+    else:
+        assert g.depth <= 4 and k6.full_rows(g) == (shape != "uneven")
+        assert g.wr == (4 if shape == "uneven" else int(shape[4:]))
+    got = k6.bp_lifted(g, synd, llr0, method, 40, msf)
+    _bits_equal(got, _bp_rows(g, synd, llr0, method, 40, msf))
+
+
 def test_bp_lifted_checks_inputs(dev):
     import bp_osd_tpu_torch.ops.cuda_lifted_bp as k6
 

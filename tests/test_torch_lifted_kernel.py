@@ -1,9 +1,10 @@
 """Kernel K6 (``csrc/bp_lifted.cu``, the whole lifted BP decode in one launch)
 on the CPU: its routing tables against the plain version's index tables, a
-torch emulation of its iteration (routed by those tables, in its order of
-operations) against the plain version and the JAX package, the Python mirror
-of its shared memory and route, and its wrapper on CPU tensors.  The card's
-side is ``tests/test_torch_kernels.py`` (marked ``gpu``) and
+torch emulation of the first design's three-pass iteration (routed by those
+tables) against the plain version and the JAX package, the Python mirror of
+its shared memory and route, and its wrapper on CPU tensors.  The kernel's
+own two-barrier order is emulated in ``tests/test_torch_k6_fused.py``.  The
+card's side is ``tests/test_torch_kernels.py`` (marked ``gpu``) and
 ``chip_smoke.py`` phase 21."""
 
 import jax
@@ -112,8 +113,10 @@ def test_route_tables_checked_by_from_reference(proto, lift, table, monkeypatch)
 # ---- (b) K6's iteration, emulated through the tables ------------------------
 
 def k6_emulation(g: LiftedGraph, synd, llr0, method: str, max_iter: int, msf: float):
-    """K6's iteration in torch, routed by ``slot_table``/``block_edges`` as
-    the kernel routes it: the min-sum check update as the kernel's running
+    """The first design of K6's iteration in torch (three passes: the check
+    update v2c -> c2v, the variable sum, then v2c = total - c2v with the
+    parity), routed by ``slot_table``/``block_edges`` as the kernel routes
+    it: the min-sum check update as the kernel's running
     two-minimum (first minimum over ascending slots, 1e30 cap, then alpha
     times the magnitude), the tanh rule with forward and backward products,
     the variable sum from +0.0 over each block's edge list, and the rows
@@ -246,32 +249,41 @@ def test_k6_emulation_takes_the_first_minimum_and_the_cap():
 # ---- (c) shared memory and route -----------------------------------------
 
 @pytest.mark.parametrize("lift,route", [(8, "shared"), (60, "shared"), (100, "shared"),
-                                        (400, "shared"), (1000, "device")])
+                                        (400, "shared"), (942, "shared"), (943, "device"),
+                                        (1000, "device")])
 def test_k6_shared_memory_mirror_and_route(lift, route):
-    """``4 (2 mp wr + 3 np depth + mp + 1 + mp L wr + np L)`` bytes on the
-    shared route (the tables, the row slot, the messages and the totals),
-    the tables and row slot alone on the device-memory route; the shared
-    route while that fits 232,448 bytes.  The [[10000,420]] code (lift 400)
-    needs 176,324; lift 1000 436,000 bytes of state.  The graph is the
-    lifted product's ``hx_proto`` (its lift-8 exponents: the sizes depend
-    on the protograph's shape and the lift alone)."""
+    """``4 (4 np depth + 2 mp wr + mp + np + 1)`` bytes of tables (the edges
+    as four words, the slots as two, the degrees of block rows and variable
+    blocks, the row slot) and, on the shared route, the row's state: ``3 m +
+    n`` words for min-sum (each check's compressed message and the totals),
+    ``m wr + n`` for product-sum.  The shared route while that fits 232,448
+    bytes: min-sum to lift 942 of this protograph, product-sum to lift 527.
+    The [[10000,420]] code (lift 400) needs 97,600 bytes of min-sum state
+    (100,024 with the tables, against the first design's 176,324), so two
+    rows fit an SM.  The graph is the lifted product's ``hx_proto`` (its
+    lift-8 exponents: the sizes depend on the protograph's shape and the
+    lift alone)."""
     g = LiftedGraph(lifted_hgp(PROTO, lift=8).hx_proto, lift, device="cpu")
     mp, np_, wr, depth = g.mp, g.np_, g.wr, g.depth
     assert (mp, np_, wr, depth) == (12, 25, 7, 4)
-    tables = 2 * mp * wr + 3 * np_ * depth + mp + 1
-    state = g.m * wr + g.n
-    assert k6.bp_lifted_state_words(mp, np_, lift, wr) == state
-    assert k6.bp_lifted_smem_bytes(mp, np_, lift, wr, depth, False) == 4 * (tables + state)
-    assert k6.bp_lifted_smem_bytes(mp, np_, lift, wr, depth, True) == 4 * tables
+    tables = 4 * np_ * depth + 2 * mp * wr + mp + np_ + 1
+    assert k6.bp_lifted_table_words(mp, np_, wr, depth) == tables
+    for product_sum, state in ((False, 3 * g.m + g.n), (True, g.m * wr + g.n)):
+        assert k6.bp_lifted_state_words(mp, np_, lift, wr, product_sum) == state
+        assert (k6.bp_lifted_smem_bytes(mp, np_, lift, wr, depth, product_sum, False)
+                == 4 * (tables + state))
+        assert k6.bp_lifted_smem_bytes(mp, np_, lift, wr, depth, product_sum, True) == 4 * tables
+        want = "shared" if 4 * (tables + state) <= _SMEM_LIMIT else "device"
+        assert k6.k6_route(g, product_sum) == want
+        assert (want == "shared") == (lift <= (527 if product_sum else 942))
     assert k6.k6_route(g) == route
-    assert (4 * (tables + state) <= _SMEM_LIMIT) == (route == "shared")
     if lift == 400:
-        assert 4 * state == 174_400 and 4 * (tables + state) == 176_324
+        assert 4 * (3 * g.m + g.n) == 97_600 and 4 * (tables + 3 * g.m + g.n) == 100_024
     if lift == 1000:
-        assert 4 * state == 436_000
+        assert 4 * (3 * g.m + g.n) == 244_000
     k6._FORCE_DEVICE_ROUTE = True
     try:
-        assert k6.k6_route(g) == "device"
+        assert k6.k6_route(g) == "device" and k6.k6_route(g, True) == "device"
     finally:
         k6._FORCE_DEVICE_ROUTE = False
 
