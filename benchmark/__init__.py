@@ -1,0 +1,11 @@
+"""The benchmark of ``bp_osd_tpu_torch`` on one NVIDIA H100.
+
+``benchmark/run.py`` runs one cell of ``BENCHMARK.json``.  What belongs to
+one configuration, one traffic mix or one per-layer metric sits in a file of
+its own (``configs/<config>.json``, ``traffic/<cell>.json``,
+``metrics/<metric>.py``), found by its name.  The yardstick lives here too:
+the code constructions (:mod:`.codes`), the plain reference that decides
+``correct`` (:mod:`.reference`), the traffic generator (:mod:`.traffic`),
+the needed-work counts and the table of peaks (:mod:`.work`) and the reading
+of the device trace (:mod:`.trace`).  Only :mod:`.cell` imports the program.
+"""
