@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import resolve_backend
+from ..utils import profiling
 from .tanner import TannerGraph
 
 __all__ = [
@@ -99,15 +100,17 @@ def as_syndromes(syndromes, m: int, device, what: str = "syndromes") -> torch.Te
     truncated or reduced mod 2.  A numpy array is checked on the host before
     it is copied; a card tensor costs one reduction and one host read.  Each
     public entry point calls this once on its input and hands the result to
-    private functions that do not check again.
+    private functions that do not check again.  The check and the copy are
+    the span ``sync.input``: on a card, one wait either way.
     """
     s = torch.as_tensor(syndromes)
     if s.dim() == 1:
         s = s[None, :]
     if s.dim() != 2 or s.shape[1] != m:
         raise ValueError(f"{what} must have shape [B, {m}], got {tuple(s.shape)}")
-    _check_binary(s, what)
-    return s.to(device=device, dtype=torch.uint8)
+    with profiling.sync("input"):
+        _check_binary(s, what)
+        return s.to(device=device, dtype=torch.uint8)
 
 
 def _check_binary(s: torch.Tensor, what: str) -> None:

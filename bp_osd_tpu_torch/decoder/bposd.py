@@ -35,6 +35,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops import BACKENDS, resolve_backend
+from ..utils import profiling
 from .bp import BPResult, _bp_decode, as_syndromes, llr_from_channel, normalize_bp_method
 from .layered import LayeredTannerGraph, _bp_decode_layered
 from .lifted_bp import LiftedGraph, _bp_decode_lifted
@@ -155,7 +156,10 @@ class BpDecoder:
 
     def _llr0(self, channel_probs=None) -> torch.Tensor:
         probs = self.channel_probs if channel_probs is None else channel_probs
-        return llr_from_channel(probs).to(self.device)
+        with profiling.span("prior"):
+            llr = llr_from_channel(probs)
+            with profiling.sync("prior"):
+                return llr.to(self.device)
 
     def _resolve_input(self, vectors):
         """Map decode() input to ``(syndromes [B, m] uint8, received [B, n]
@@ -166,36 +170,43 @@ class BpDecoder:
         if torch.is_tensor(vectors) and vectors.device != self.device:
             raise ValueError(
                 f"input is on {vectors.device}, the decoder on {self.device}")
-        if self.input_vector_type == "syndrome":
-            return as_syndromes(vectors, self.m, self.device), None
-        rec = as_syndromes(vectors, self.n, self.device, what="received vectors")
-        # f32 counts are exact far beyond any row weight
-        synd = torch.remainder(rec.to(torch.float32) @ self._H_f32.T, 2)
-        return synd.to(torch.uint8), rec
+        with profiling.span("input"):
+            if self.input_vector_type == "syndrome":
+                return as_syndromes(vectors, self.m, self.device), None
+            rec = as_syndromes(vectors, self.n, self.device, what="received vectors")
+            # f32 counts are exact far beyond any row weight
+            synd = torch.remainder(rec.to(torch.float32) @ self._H_f32.T, 2)
+            return synd.to(torch.uint8), rec
 
     @staticmethod
     def _out(x: torch.Tensor, outputs: str):
-        return x.cpu().numpy() if outputs == "host" else x
+        if outputs != "host":
+            return x
+        with profiling.sync("outputs"):
+            return x.cpu().numpy()
 
     def decode_batch(self, syndromes, channel_probs=None, outputs: str = "host"):
         if outputs not in ("host", "device"):
             raise ValueError(f"outputs must be host/device, got {outputs!r}")
-        synd, received = self._resolve_input(syndromes)
-        kw = dict(bp_method=self.bp_method, max_iter=self.max_iter,
-                  ms_scaling_factor=self.ms_scaling_factor)
-        if self._lifted is not None:
-            res: BPResult = _bp_decode_lifted(self._lifted, synd,
-                                              self._llr0(channel_probs), **kw)
-        elif self._layered is not None:
-            res = _bp_decode_layered(self._layered, synd, self._llr0(channel_probs), **kw)
-        else:
-            res = _bp_decode(self.graph, synd, self._llr0(channel_probs),
-                             backend=self.backend, **kw)
-        hard = res.hard if received is None else res.hard ^ received
-        self.bp_decoding_batch = self._out(hard, outputs)
-        self.log_prob_ratios_batch = self._out(res.llr, outputs)
-        self.converge_batch = self._out(res.converged, outputs)
-        self.iter_batch = self._out(res.iterations, outputs)
+        with profiling.span("decode_batch") as top:
+            synd, received = self._resolve_input(syndromes)
+            top.set(rows=synd.shape[0])
+            llr0 = self._llr0(channel_probs)
+            kw = dict(bp_method=self.bp_method, max_iter=self.max_iter,
+                      ms_scaling_factor=self.ms_scaling_factor)
+            with profiling.span("bp"):
+                if self._lifted is not None:
+                    res: BPResult = _bp_decode_lifted(self._lifted, synd, llr0, **kw)
+                elif self._layered is not None:
+                    res = _bp_decode_layered(self._layered, synd, llr0, **kw)
+                else:
+                    res = _bp_decode(self.graph, synd, llr0, backend=self.backend, **kw)
+            with profiling.span("outputs"):
+                hard = res.hard if received is None else res.hard ^ received
+                self.bp_decoding_batch = self._out(hard, outputs)
+                self.log_prob_ratios_batch = self._out(res.llr, outputs)
+                self.converge_batch = self._out(res.converged, outputs)
+                self.iter_batch = self._out(res.iterations, outputs)
         return self.bp_decoding_batch
 
     def decode(self, syndrome) -> np.ndarray:
@@ -279,28 +290,31 @@ class BpOsdDecoder(BpDecoder):
             )
         if chunk_size is None:
             chunk_size = _CHUNK_CARD if self.device.type == "cuda" else _CHUNK_CPU
-        synd, received = self._resolve_input(syndromes)
-        llr0 = self._llr0(channel_probs)
-        outs = []
-        for lo in range(0, synd.shape[0], chunk_size):
-            outs.append(_decode_pipeline(
-                self.graph, synd[lo : lo + chunk_size], llr0,
-                bp_method=self.bp_method, max_iter=self.max_iter,
-                ms_scaling_factor=self.ms_scaling_factor,
-                osd_method=self.osd_method, osd_order=self.osd_order,
-                consts=self._osd_consts, backend=self.backend, lifted=self._lifted,
-                layered=self._layered,
-            ))
-        cat = [torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*outs)]
-        osdw, osd0, hard, conv, iters, llr = cat
-        if received is not None:
-            hard, osd0, osdw = hard ^ received, osd0 ^ received, osdw ^ received
-        self.bp_decoding_batch = self._out(hard, outputs)
-        self.log_prob_ratios_batch = self._out(llr, outputs)
-        self.converge_batch = self._out(conv, outputs)
-        self.iter_batch = self._out(iters, outputs)
-        self.osd0_decoding_batch = self._out(osd0, outputs)
-        self.osdw_decoding_batch = self._out(osdw, outputs)
+        with profiling.span("decode_batch") as top:
+            synd, received = self._resolve_input(syndromes)
+            top.set(rows=synd.shape[0])
+            llr0 = self._llr0(channel_probs)
+            outs = []
+            for lo in range(0, synd.shape[0], chunk_size):
+                outs.append(_decode_pipeline(
+                    self.graph, synd[lo : lo + chunk_size], llr0,
+                    bp_method=self.bp_method, max_iter=self.max_iter,
+                    ms_scaling_factor=self.ms_scaling_factor,
+                    osd_method=self.osd_method, osd_order=self.osd_order,
+                    consts=self._osd_consts, backend=self.backend, lifted=self._lifted,
+                    layered=self._layered,
+                ))
+            with profiling.span("outputs"):
+                cat = [torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*outs)]
+                osdw, osd0, hard, conv, iters, llr = cat
+                if received is not None:
+                    hard, osd0, osdw = hard ^ received, osd0 ^ received, osdw ^ received
+                self.bp_decoding_batch = self._out(hard, outputs)
+                self.log_prob_ratios_batch = self._out(llr, outputs)
+                self.converge_batch = self._out(conv, outputs)
+                self.iter_batch = self._out(iters, outputs)
+                self.osd0_decoding_batch = self._out(osd0, outputs)
+                self.osdw_decoding_batch = self._out(osdw, outputs)
         return self.osdw_decoding_batch
 
     def decode(self, syndrome) -> np.ndarray:

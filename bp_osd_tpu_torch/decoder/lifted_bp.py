@@ -44,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .bp import (
     BPResult,
     _alpha,
@@ -216,13 +217,15 @@ def _bp_decode_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0, *, bp_method
 
         if llr0.stride(0) != 0:  # K6 reads one broadcast row or contiguous rows
             llr0 = llr0.contiguous()
-        hard, llr, conv, iters = bp_lifted(graph, synd, llr0, method, int(max_iter),
-                                           float(ms_scaling_factor))
+        with profiling.span("bp.lifted", rows=B):
+            hard, llr, conv, iters = bp_lifted(graph, synd, llr0, method, int(max_iter),
+                                               float(ms_scaling_factor))
         return BPResult(hard=hard, llr=llr, converged=conv, iterations=iters)
     rows = max(1, _MSG_BUDGET // (graph.m * graph.wr))
-    parts = [_bp_rows(graph, synd[lo : lo + rows], llr0[lo : lo + rows], method,
-                      int(max_iter), float(ms_scaling_factor))
-             for lo in range(0, max(B, 1), rows)]
+    with profiling.span("bp.lifted", rows=B):
+        parts = [_bp_rows(graph, synd[lo : lo + rows], llr0[lo : lo + rows], method,
+                          int(max_iter), float(ms_scaling_factor))
+                 for lo in range(0, max(B, 1), rows)]
     hard, llr, conv, iters = (torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*parts))
     return BPResult(hard=hard, llr=llr, converged=conv, iterations=iters)
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import resolve_backend
+from ..utils import profiling
 from .bp import as_f32, as_syndromes
 from .tanner import TannerGraph
 
@@ -433,7 +434,9 @@ def _osd_decode(graph: TannerGraph, synd: torch.Tensor, llr, *, osd_method: str,
         raise ValueError(f"llr must have shape [{synd.shape[0]}, {graph.n}]")
     if skip is not None:
         skip = torch.as_tensor(skip).to(device=device, dtype=torch.bool)
-    perm = torch.argsort(llr, dim=1, stable=True).to(torch.int32)
+    B = synd.shape[0]
+    with profiling.span("osd.argsort", rows=B):
+        perm = torch.argsort(llr, dim=1, stable=True).to(torch.int32)
     order = 0 if method == "osd0" else int(osd_order)
     if resolve_backend(backend, device) == "cuda":
         from ..ops.cuda_gf2 import eliminate
@@ -441,18 +444,21 @@ def _osd_decode(graph: TannerGraph, synd: torch.Tensor, llr, *, osd_method: str,
         from ..ops.cuda_osd_large import osd_large
 
         route = osd_route(graph, method, order)
-        if route == "k3":
-            e0, ew = osd_e(graph, perm, synd, osd_order=order, skip=skip)
-        elif route == "k4":
-            e0, ew = osd_after_elimination(eliminate(graph, perm, synd, skip=skip), perm,
-                                           method=method, osd_order=order, skip=skip)
-        else:
-            kernel = osd_cs if route == "k2" else osd_large
-            e0, ew = kernel(graph, perm, synd, osd_order=order,
-                            pairs=consts.pairs, skip=skip)
+        with profiling.span("osd.kernel", route=route, rows=B):
+            if route == "k3":
+                e0, ew = osd_e(graph, perm, synd, osd_order=order, skip=skip)
+            elif route == "k4":
+                e0, ew = osd_after_elimination(eliminate(graph, perm, synd, skip=skip),
+                                               perm, method=method, osd_order=order,
+                                               skip=skip)
+            else:
+                kernel = osd_cs if route == "k2" else osd_large
+                e0, ew = kernel(graph, perm, synd, osd_order=order,
+                                pairs=consts.pairs, skip=skip)
     else:
-        e0, ew = osd_decode_plain(graph, perm, synd, method=method,
-                                  osd_order=order, pairs=consts.pairs, skip=skip)
+        with profiling.span("osd.kernel", route="torch", rows=B):
+            e0, ew = osd_decode_plain(graph, perm, synd, method=method,
+                                      osd_order=order, pairs=consts.pairs, skip=skip)
     return OsdResult(osd0=e0, osdw=ew)
 
 

@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from .bp import _bp_decode, as_f32, as_syndromes, normalize_bp_method
 from .layered import LayeredTannerGraph, _bp_decode_layered
 from .lifted_bp import LiftedGraph, _bp_decode_lifted
@@ -36,13 +37,14 @@ from .tanner import TannerGraph
 __all__ = ["BpOsdBatch", "auto_stage_schedule", "decode_pipeline", "stage_caps"]
 
 
-def _partition_order(conv: torch.Tensor):
+def _partition_order(conv: torch.Tensor, site: str = "bp_partition"):
     """Failure-clustered order and the failure count: non-converged rows
     first, each group in original index order (= a stable argsort of
-    ``conv``)."""
+    ``conv``).  Reading the count is the host sync ``sync.<site>``."""
     B = conv.shape[0]
     c = conv.to(torch.int64)
-    nfail = B - int(c.sum())
+    with profiling.sync(site):
+        nfail = B - int(c.sum())
     pos = torch.where(conv, nfail + torch.cumsum(c, 0) - 1, torch.cumsum(1 - c, 0) - 1)
     order = torch.empty_like(pos)
     order[pos] = torch.arange(B, device=conv.device)
@@ -142,23 +144,28 @@ def _decode_pipeline(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method:
     B, n = synd.shape[0], graph.n
     llr0 = as_f32(llr0, device).expand(B, n)
     bp_kw = dict(bp_method=method, max_iter=max_iter, ms_scaling_factor=ms_scaling_factor)
-    if lifted is not None:
-        hard, llr, conv, iters = _bp_decode_lifted(lifted, synd, llr0, **bp_kw)
-    elif layered is not None:
-        hard, llr, conv, iters = _bp_decode_layered(layered, synd, llr0, **bp_kw)
-    else:
-        hard, llr, conv, iters = _staged_bp(graph, synd, llr0, method, max_iter,
-                                            ms_scaling_factor, backend, stage1_iters)
+    with profiling.span("bp"):
+        if lifted is not None:
+            hard, llr, conv, iters = _bp_decode_lifted(lifted, synd, llr0, **bp_kw)
+        elif layered is not None:
+            hard, llr, conv, iters = _bp_decode_layered(layered, synd, llr0, **bp_kw)
+        else:
+            hard, llr, conv, iters = _staged_bp(graph, synd, llr0, method, max_iter,
+                                                ms_scaling_factor, backend, stage1_iters)
 
-    osdw = hard.clone()
-    osd0 = hard.clone()
-    order, nfail = _partition_order(conv)
-    if nfail:
-        sel = order[:nfail]
-        o = _osd_decode(graph, synd[sel], llr[sel], osd_method=osd_method,
-                        osd_order=osd_order, consts=consts, backend=backend)
-        osdw[sel] = o.osdw
-        osd0[sel] = o.osd0
+    with profiling.span("osd"):
+        osdw = hard.clone()
+        osd0 = hard.clone()
+        with profiling.span("osd.partition"):
+            order, nfail = _partition_order(conv, "osd_partition")
+        if nfail:
+            profiling.count("osd.rows", nfail)
+            sel = order[:nfail]
+            o = _osd_decode(graph, synd[sel], llr[sel], osd_method=osd_method,
+                            osd_order=osd_order, consts=consts, backend=backend)
+            with profiling.span("osd.scatter"):
+                osdw[sel] = o.osdw
+                osd0[sel] = o.osd0
     return BpOsdBatch(osdw=osdw, osd0=osd0, bp_hard=hard, converged=conv,
                       iterations=iters, llr=llr)
 
@@ -166,29 +173,40 @@ def _decode_pipeline(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method:
 def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend,
                stage1_iters=None):
     """BP in the stages of :func:`stage_caps`, each resuming the failures of
-    the one before; returns ``(hard, llr, converged, iterations)``."""
+    the one before; returns ``(hard, llr, converged, iterations)``.  Stage
+    ``i`` (from 1) is the span ``bp.stage`` and adds its rows to the counter
+    ``bp.stage_rows.<i>``."""
     caps = stage_caps(max_iter, stage1_iters)
     bp_kw = dict(bp_method=method, ms_scaling_factor=ms_scaling_factor,
                  backend=backend)
 
     emit = caps[0] < max_iter
-    out = _bp_decode(graph, synd, llr0, max_iter=caps[0], emit_state=emit, **bp_kw)
+    B = synd.shape[0]
+    profiling.count("bp.stage_rows.1", B)
+    with profiling.span("bp.stage", stage=1, rows=B):
+        out = _bp_decode(graph, synd, llr0, max_iter=caps[0], emit_state=emit, **bp_kw)
     bp, v2c = out if emit else (out, None)
     hard, llr = bp.hard, bp.llr
     conv, iters = bp.converged, bp.iterations
-    for s_prev, s_next in zip(caps, caps[1:]):
-        order, nfail = _partition_order(conv)
+    for stage, (s_prev, s_next) in enumerate(zip(caps, caps[1:]), 2):
+        with profiling.span("bp.partition"):
+            order, nfail = _partition_order(conv, "bp_partition")
         if nfail == 0:
             break
-        sel = order[:nfail]
+        profiling.count(f"bp.stage_rows.{stage}", nfail)
+        with profiling.span("bp.gather"):
+            sel = order[:nfail]
+            synd_sel, llr0_sel, v2c_init = synd[sel], llr0[sel], v2c[sel]
         emit = s_next < max_iter
-        out = _bp_decode(graph, synd[sel], llr0[sel], max_iter=s_next,
-                         v2c_init=v2c[sel], it0=s_prev, emit_state=emit, **bp_kw)
+        with profiling.span("bp.stage", stage=stage, rows=nfail):
+            out = _bp_decode(graph, synd_sel, llr0_sel, max_iter=s_next,
+                             v2c_init=v2c_init, it0=s_prev, emit_state=emit, **bp_kw)
         res, v2c_sel = out if emit else (out, None)
-        hard[sel] = res.hard
-        llr[sel] = res.llr
-        conv[sel] = res.converged
-        iters[sel] = res.iterations
-        if emit:
-            v2c[sel] = v2c_sel
+        with profiling.span("bp.scatter"):
+            hard[sel] = res.hard
+            llr[sel] = res.llr
+            conv[sel] = res.converged
+            iters[sel] = res.iterations
+            if emit:
+                v2c[sel] = v2c_sel
     return hard, llr, conv, iters

@@ -20,21 +20,24 @@ plain torch version, in the matching ``decoder`` module, for CPU tensors:
 The check-node rules K1 and K6 share are in ``csrc/bp_check.cuh``.
 
 Each wrapper counts its launches in ``<wrapper>.launches`` and, by card
-index, in ``<wrapper>.launches_on`` (:func:`count_launch`).
+index, in ``<wrapper>.launches_on`` (:func:`count_launch`); while the
+recorder of :mod:`bp_osd_tpu_torch.utils.profiling` is on, also in its
+counter ``launches.<wrapper>``.
 """
 
 from __future__ import annotations
 
 import collections
-import threading
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["BACKENDS", "count_launch", "launch_counter", "resolve_backend"]
 
-# one lock for every wrapper's counts: shards on several cards launch from
-# several threads, and ``+= 1`` on an attribute is not atomic
-_COUNT_LOCK = threading.Lock()
+# one lock for every wrapper's counts and the recorder's: shards on several
+# cards launch from several threads, and ``+= 1`` on an attribute is not atomic
+_COUNT_LOCK = profiling.COUNT_LOCK
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -75,9 +78,11 @@ def count_launch(wrapper, device: torch.device, *also: str) -> None:
     """Add one launch on ``device`` to ``wrapper.launches``, to
     ``wrapper.launches_on[device.index]`` and to each attribute named in
     ``also``, under one lock, so the counts stay exact when shards launch
-    from several threads."""
+    from several threads; while the recorder is on, also to its counter
+    ``launches.<wrapper>``."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.launches_on[device.index] += 1
         for name in also:
             setattr(wrapper, name, getattr(wrapper, name) + 1)
+    profiling.count("launches." + wrapper.__name__)

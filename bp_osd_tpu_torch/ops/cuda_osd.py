@@ -19,6 +19,7 @@ import torch
 
 from ..decoder.osd import osd_decode_plain
 from ..decoder.tanner import TannerGraph
+from ..utils import profiling
 from . import _build, count_launch, launch_counter
 from .cuda_bp import _SMEM_LIMIT, _check
 
@@ -91,10 +92,15 @@ def warp_plan(graph, B: int, lam: int, mode: int) -> dict:
 
 def pairs_on(pairs, n_pairs: int, dev: torch.device) -> torch.Tensor | None:
     """``pairs [n_pairs, 2]`` (numpy, or a tensor already on ``dev``, which is
-    not copied) as flat int32 on ``dev``; None when ``n_pairs`` is 0."""
+    not copied) as flat int32 on ``dev``; None when ``n_pairs`` is 0.  A copy
+    to the card is the host sync ``sync.pairs``."""
     if not n_pairs:
         return None
-    t = torch.as_tensor(pairs, dtype=torch.int32, device=dev)
+    if torch.is_tensor(pairs) and pairs.device == dev:
+        t = pairs.to(torch.int32)
+    else:
+        with profiling.sync("pairs"):
+            t = torch.as_tensor(pairs, dtype=torch.int32, device=dev)
     if tuple(t.shape) != (n_pairs, 2):
         raise ValueError(f"pairs: expected ({n_pairs}, 2), got {tuple(t.shape)}")
     return t.reshape(-1).contiguous()

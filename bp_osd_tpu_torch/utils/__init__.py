@@ -1,4 +1,4 @@
-"""Utilities: profiling, timing."""
+"""Utilities: profiling, the span and counter recorder, timing."""
 
 from .profiling import Timer, block, trace
 
