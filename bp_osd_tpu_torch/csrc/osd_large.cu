@@ -11,7 +11,8 @@
 //   1. copy the column-permuted matrix into this block's slice of a global
 //      scratch buffer: column t is H[:, perm[t]] as Wm = ceil(m/32) words
 //      (one row of the column-packed H); the syndrome is column n.  Word w of
-//      column c sits at w * (n + 1) + c (word-major);
+//      column c sits at w * ns + c (word-major; the stride ns is n + 1
+//      rounded up to a multiple of four);
 //   2. Gauss-Jordan over columns t = 0, 1, ...: the pivot row is the first
 //      unused row carrying column t; S is column t without the pivot bit;
 //      every column c in (t, n] carrying the pivot row gets S XORed in ("add
@@ -26,36 +27,58 @@
 //   5. osd0 and osdw are scattered to original coordinates through perm.
 // Weights count every row, as in K2 and the plain version.
 //
-// What bounds it on an H100: the elimination's chain of ~n dependent column
-// steps a sample (one SM each), and the bytes of each pivot step.  One
-// sample's matrix is (n + 1) * Wm * 4 bytes (6.0 MB at the [[10000,420]]
-// code), far above a block's 227 KB of shared memory, and a heavy batch's
-// matrices (~129 x 6 MB) are far above the 50 MB L2.  The first design (a
-// step = a device read of column t by warp 0, up to three block barriers, a
-// hit test reading one 32-byte sector per later column of the column-major
-// layout) spent ~3.5-4 us a step.  This design:
-//   - keeps a window of two panels of P columns in shared memory (P = 16
-//     by the wrapper's choice: a wider window cost warp 0 more than the
-//     panel changes it saved), column-major with an odd stride (one word of
-//     every panel column is read without bank conflicts).  Warp 0 owns the
-//     window: it searches the pivot of each column there (its lanes keep the
-//     column's words and the used-row mask in registers), runs the hit test
-//     and the XOR on the window's columns, and walks the dependent columns
-//     (no pivot) with no block barrier.  A column in the window is updated
-//     there only.  When warp 0 leaves a panel, warps 1-31 write it back (its
-//     columns are final) and load the panel after the window into the freed
-//     buffer with cp.async while warp 0 works on; the loads complete before
-//     the next pivot step's barrier.
-//   - warps 1-31 own the columns after the window: at a pivot step they test
-//     word pw of each (in the word-major layout a coalesced run, 4 bytes a
-//     column), list the hits, and after a second barrier XOR S into them
-//     while warp 0 already searches the next columns.
-//   - the event scalars, S and the hit counter are double-buffered (by the
-//     parity of the event or of the pivot count), so a pivot step costs two
-//     block barriers, a panel change one and a dependent step none.
-// Shared memory: the two panels, S twice, the syndromes, the T columns, the
-// pivot row of each column and the hit list (int16, so m and n are below
-// 32768).  A skip sample writes zeros and returns.
+// What bounds it on an H100: one sample's matrix is (n + 1) * Wm * 4 bytes
+// (6.0 MB at the [[10000,420]] code), far above a block's 227 KB of shared
+// memory, and a heavy batch's matrices (~129 x 6 MB) far above the 50 MB L2;
+// its elimination is a chain of ~n dependent column steps on one SM.  The
+// design before this one took each pivot to the later columns at once: two
+// block barriers and two or three dependent device-memory round trips a
+// pivot, ~9,600 barriers a lift-400 row.  This design is a blocked,
+// right-looking Gauss-Jordan with a delayed trailing update:
+//   - the elimination walks panels of P <= 32 columns (the wrapper's
+//     osd_large_panel).  Warp 0 factorises panel k in its shared-memory
+//     buffer with no block barrier: the pivot search in registers, the pivot
+//     bit cleared in place (the column is then S_i), S_i XORed into the
+//     panel's later columns carrying row r_i, the dependent columns passed
+//     over.  It records each of the panel's q pivots: r_i, the column's
+//     place, the row L[i] of the bit table L[i][j] = S_j[r_i] (j < i) and,
+//     from it, the columns N[j] of (I + L)^-1; at the panel's end, the
+//     distinct words of the pivot rows and the words where some S_i is
+//     nonzero (the union);
+//   - warps 1-31 take a factorised panel to the columns after it in one
+//     trailing pass: for column c, cb_i = c[r_i] (the words at the pivot
+//     rows, 16-byte loads coalesced across neighbouring columns), g = XOR of
+//     N[j] over the bits j of cb, which is g_i = cb_i ^ parity(g & L[i]) in
+//     pivot order, then c ^= XOR of the S_i with g_i = 1.  That is the
+//     per-pivot sequence exactly: XOR commutes, and whether c takes S_i
+//     depends only on c's bit r_i after the earlier S_j.  A column that
+//     takes one S_i gets its nonzero words, one that takes more the union's
+//     words where they are nonzero, merged, each word XORed once by a
+//     red.global.xor, which the L2 applies while the warp goes on;
+//   - look-ahead: panel j lives in buffer j % 3.  While warp 0 factorises
+//     panel k, the workers write panel k - 1 back, load panel k + 1
+//     (cp.async), take panel k - 1 to the columns after panel k + 1 in device
+//     memory (chunks of kChunk columns: the hits at the pivot rows, each hit
+//     column's g, the XORs; named barriers among the workers only) and take
+//     panel k + 1 past panel k - 1 in shared memory.  After the barrier every
+//     warp takes a column of panel k + 1 past panel k; after a second,
+//     warp 0 goes on to panel k + 1.  So a panel costs two block barriers.
+//     The records of two panels are kept (by the panel's parity), and S_i is
+//     read from panel k's buffer until panel k + 3 replaces it.
+// Lift 400, panels of 32 (NVIDIA H100 80GB HBM3, 700 W; the design before
+// in the same calls): a lone BP-failing row 5.7 ms at p = 0.028 (11.5) and
+// 6.3 ms at p = 0.005 (12.7), 8 rows 7.9 ms (15.1), 129 rows 15.2 ms (25.6);
+// ~281 trailing passes a row for 4,790 pivots.  Warp 0's chain takes most
+// of a lone row (~250 cycles a column step, ~1,200 a pivot with its panel
+// updates, slower while warps 1-31 issue on its scheduler); 129 rows move
+// ~2.5 TB/s of device memory.
+// Shared memory: the three panel buffers (column-major, odd stride: one word
+// of every panel column is read without bank conflicts), two panel records,
+// the syndromes, a chunk's hit bits and g, two chunks' hit lists, the T
+// columns and the pivot row of each column (int16, so m and n are below
+// 32768).  A skip sample writes zeros and returns.  While the profiler's
+// recorder is on, each block adds its pivots and its trailing passes to
+// `stats` (one atomic each).
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -65,24 +88,85 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWorkers = kThreads - 32;  // warps 1-31
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBatch = 4;  // independent XOR loads a thread issues before using them
-// hit tests a worker issues at once (12 spilled registers and ran slower)
-constexpr int kScan = 4;
-
-// the events warp 0 publishes
-constexpr int kPivot = 0;
-constexpr int kPanelEnd = 1;
-constexpr int kDone = 2;
+constexpr int kWorkWarps = kWarps - 1;  // warps 1-31 make the trailing passes
+constexpr int kWorkers = 32 * kWorkWarps;
+constexpr int kMaxPanel = 32;  // a panel's pivots are the bits of a 32-bit word
+constexpr int kChunk = 4096;   // columns a trailing pass takes at once
+constexpr int kScan = 4;       // 16-byte loads of pivot-row words a worker issues at once
 
 __host__ __device__ inline int panel_stride(int Wm) { return Wm | 1; }
 
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long x) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long y = __shfl_down_sync(kFull, x, off);
-    x = y < x ? y : x;
-  }
+// words between word w and word w + 1 of a column in the scratch: n + 1
+// columns rounded up to a multiple of four, so four neighbouring columns
+// from a multiple of four are one aligned 16-byte load
+__host__ __device__ inline int scratch_stride(int n) { return (n + 4) & ~3; }
+
+// words of one panel record: N, tc, pw, pm, cnt [P], Unz, Uw [Wm], the
+// header {q, D, nU, -}, piv [P][32] bytes and Sidx [P][Wm] int16
+__host__ __device__ inline size_t record_words(int P, int Wm) {
+  return ((size_t)P * Wm + 1) / 2 + 13 * (size_t)P + 2 * (size_t)Wm + 4;
+}
+
+// A factorised panel of q <= P pivots, in shared memory: what a trailing
+// pass needs to bring a column past all of them at once.
+struct Panel {
+  // S_i, pivot column t_i at its step without the pivot bit, is that
+  // column of the panel's buffer (warp 0 clears the pivot bit there; a
+  // pivot column is never read after the elimination): word w at
+  // Sb[tc[i] * Wp + w]
+  const uint32_t* Sb;
+  int Wp;
+  int32_t* tc;     // [q] the pivot columns' places in the panel
+  // [q] column j of (I + L)^-1, L[i][j] = S_j[r_i] (j < i): g = XOR of N[j]
+  // over the bits j of cb
+  uint32_t* N;
+  int32_t* pw;     // [D] the distinct words of the pivot rows
+  uint32_t* pm;    // [D] the pivot-row bits of each
+  int32_t* cnt;    // [q] nonzero words of S_i (the workers' lists)
+  uint32_t* Unz;   // [nU] for each word of the union of the S_i: which S_i are nonzero there
+  int32_t* Uw;     // [nU] the union's words
+  int32_t* hdr;    // q, D, nU
+  uint8_t* piv;    // [D][32] the pivot index of bit b of distinct word d
+  int16_t* Sidx;   // [q][Wm] the nonzero words of S_i (the workers' lists)
+};
+
+__device__ __forceinline__ Panel panel_at(uint32_t* base, const uint32_t* Sb, int P, int Wm) {
+  Panel R;
+  R.Sb = Sb;
+  R.Wp = panel_stride(Wm);
+  R.N = base;
+  R.tc = reinterpret_cast<int32_t*>(R.N + P);
+  R.pw = R.tc + P;
+  R.pm = reinterpret_cast<uint32_t*>(R.pw + P);
+  R.cnt = reinterpret_cast<int32_t*>(R.pm + P);
+  R.Unz = reinterpret_cast<uint32_t*>(R.cnt + P);
+  R.Uw = reinterpret_cast<int32_t*>(R.Unz + Wm);
+  R.hdr = R.Uw + Wm;
+  R.piv = reinterpret_cast<uint8_t*>(R.hdr + 4);
+  R.Sidx = reinterpret_cast<int16_t*>(R.piv + 32 * (size_t)P);
+  return R;
+}
+
+// the pivot indices (bits of the result) of the pivot-row bits x of distinct word d
+__device__ __forceinline__ uint32_t pivot_bits(uint32_t x, const uint8_t* piv_d) {
+  uint32_t cb = 0u;
+  for (; x; x &= x - 1u) cb |= 1u << piv_d[__ffs(x) - 1];
+  return cb;
+}
+
+// g from cb, a column's bits at the pivot rows before the panel: the
+// pivots whose S the column takes in turn, g_i = cb_i ^ parity(g & L[i])
+__device__ __forceinline__ uint32_t g_of(uint32_t cb, const uint32_t* N) {
+  uint32_t g = 0u;
+  for (; cb; cb &= cb - 1u) g ^= N[__ffs(cb) - 1];
+  return g;
+}
+
+// XOR of the S_i that gm selects, at word w
+__device__ __forceinline__ uint32_t s_word(const Panel& R, uint32_t gm, int w) {
+  uint32_t x = 0u;
+  for (; gm; gm &= gm - 1u) x ^= R.Sb[(size_t)R.tc[__ffs(gm) - 1] * R.Wp + w];
   return x;
 }
 
@@ -95,26 +179,45 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// word w of column c in the word-major scratch of n1 = n + 1 columns
-__device__ __forceinline__ size_t at(int c, int w, int n1) { return (size_t)w * n1 + c; }
+__device__ __forceinline__ void workers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWorkers) : "memory");
+}
+
+// a fire-and-forget XOR into device memory (done in the L2)
+__device__ __forceinline__ void red_xor(uint32_t* p, uint32_t v) {
+  asm volatile("red.global.xor.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long x) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long y = __shfl_down_sync(kFull, x, off);
+    x = y < x ? y : x;
+  }
+  return x;
+}
+
+// word w of column c in the word-major scratch of stride ns
+__device__ __forceinline__ size_t at(int c, int w, int ns) { return (size_t)w * ns + c; }
 
 // kLW >= ceil(Wm / 32): words of a column each lane of warp 0 keeps in
 // registers for the pivot search, with the used-row mask (5: m <= 5120, the
 // [[10000,420]] code; 8: m <= 8192; 32: m < 32768, which spills).  Every
-// thread holds them, so they and the XOR batch share the 64 registers a
-// 1024-thread block allows: 8 words and a batch of 8 loads spilled and ran
-// the lift-400 rows slower.
+// thread holds them, so they share the 64 registers a 1024-thread block
+// allows with the workers' loads in flight.
 template <int kLW>
 __global__ void __launch_bounds__(kThreads)
 osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__ perm,
                  const uint8_t* __restrict__ synd, const uint8_t* __restrict__ skip,
                  const int32_t* __restrict__ pairs, uint32_t* scratch,
                  uint8_t* __restrict__ e0, uint8_t* __restrict__ ew, int row0, int m, int n,
-                 int Wm, int rank, int lam, int n_pairs, int sweep, int P) {
+                 int Wm, int rank, int lam, int n_pairs, int sweep, int P,
+                 unsigned long long* stats) {
   const int b = row0 + blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int ww = warp - 1;      // a worker's warp index
+  const int wid = 32 * ww + lane;  // a worker's index
   const unsigned lt_mask = (1u << lane) - 1u;
 
   if (skip && skip[b]) {
@@ -126,27 +229,31 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
   }
 
   const int n1 = n + 1;
+  const int ns = scratch_stride(n);
   const int Wp = panel_stride(Wm);
-  uint32_t* M = scratch + (size_t)blockIdx.x * n1 * Wm;
+  uint32_t* M = scratch + (size_t)blockIdx.x * ns * Wm;
   const int32_t* pb = perm + (size_t)b * n;
 
   extern __shared__ unsigned long long smem64[];
-  unsigned long long* s_red = smem64;                                 // [kWarps]
-  uint32_t* s_panel = reinterpret_cast<uint32_t*>(s_red + kWarps);    // [2][P][Wp]
-  uint32_t* s_Sval = s_panel + 2 * (size_t)P * Wp;                    // [2][Wm]
-  int32_t* s_Sidx = reinterpret_cast<int32_t*>(s_Sval + 2 * Wm);      // [2][Wm]
-  uint32_t* s_syn = reinterpret_cast<uint32_t*>(s_Sidx + 2 * Wm);     // [Wm]
-  uint32_t* s_best = s_syn + Wm;                                      // [Wm]
-  int32_t* s_tcol = reinterpret_cast<int32_t*>(s_best + Wm);          // [max(lam, 1)]
-  int32_t* s_misc = s_tcol + (lam > 0 ? lam : 1);                     // [10]
-  int16_t* s_prow = reinterpret_cast<int16_t*>(s_misc + 10);          // [n]
-  int16_t* s_hits = s_prow + n;                                       // [n + 1]
-  // s_misc: two events {kind, t, pivot row, |S|} by event parity, then the
-  // hit counts of two pivots by pivot parity
-  int32_t* s_count = s_misc + 8;
+  unsigned long long* s_red = smem64;                               // [kWarps]
+  uint32_t* s_panel = reinterpret_cast<uint32_t*>(s_red + kWarps);  // [3][P][Wp]
+  uint32_t* s_rec = s_panel + 3 * (size_t)P * Wp;                   // [2][record_words]
+  uint32_t* s_syn = s_rec + 2 * record_words(P, Wm);                // [Wm]
+  uint32_t* s_best = s_syn + Wm;                                    // [Wm]
+  uint32_t* s_cb = s_best + Wm;                                     // [kChunk]
+  uint32_t* s_hg = s_cb + kChunk;                                   // [kChunk]
+  int32_t* s_tcol = reinterpret_cast<int32_t*>(s_hg + kChunk);      // [max(lam, 1)]
+  int32_t* s_misc = s_tcol + (lam > 0 ? lam : 1);                   // [4]
+  int16_t* s_hc = reinterpret_cast<int16_t*>(s_misc + 4);           // [2][kChunk]
+  int16_t* s_prow = s_hc + 2 * kChunk;                              // [n]
+  // s_misc: the done flag, then the hit counts of two chunks by parity
 
-  auto slot = [&](int c) {  // column c of the window in shared memory
-    return s_panel + ((size_t)((c / P) & 1) * P + c % P) * Wp;
+  auto slot = [&](int c) {  // column c of the window: panel c / P in buffer (c / P) % 3
+    return s_panel + ((size_t)((c / P) % 3) * P + c % P) * Wp;
+  };
+  auto record = [&](int k) {  // panel k's record; its S_i are in panel k's buffer
+    return panel_at(s_rec + (k & 1) * record_words(P, Wm), s_panel + (size_t)(k % 3) * P * Wp, P,
+                    Wm);
   };
 
   // ---- 1. column-permuted, row-packed matrix; syndrome as column n ----
@@ -155,7 +262,7 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
     const int c = c0 + lane;
     if (c < n) {
       const int32_t* src = h_cols + (size_t)pb[c] * Wm;
-      for (int w = 0; w < Wm; ++w) M[at(c, w, n1)] = (uint32_t)__ldg(src + w);
+      for (int w = 0; w < Wm; ++w) M[at(c, w, ns)] = (uint32_t)__ldg(src + w);
     }
   }
   for (int w = tid; w < Wm; w += kThreads) {
@@ -164,39 +271,186 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
       const int row = w * 32 + bit;
       if (row < m) word |= (uint32_t)(synd[(size_t)b * m + row] & 1) << bit;
     }
-    M[at(n, w, n1)] = word;
+    M[at(n, w, ns)] = word;
   }
   for (int t = tid; t < n; t += kThreads) s_prow[t] = -1;
+  for (int i = tid; i < kChunk; i += kThreads) s_cb[i] = 0u;
+  if (tid == 0) s_misc[1] = 0;
   __syncthreads();
-
   // Element e of a panel is column e % P, word e / P: neighbouring threads
-  // take neighbouring columns (coalesced in the word-major layout).  A thread
-  // writes back and then reloads the same elements of a buffer.
-  const int panel_items = P * Wm;
-  for (int i = tid; i < 2 * panel_items; i += kThreads) {  // panels 0 and 1
-    const int c = (i / panel_items) * P + i % P;
-    const int w = (i % panel_items) / P;
-    if (c < n) slot(c)[w] = M[at(c, w, n1)];
+  // take neighbouring columns (coalesced in the word-major layout).
+  for (int i = tid; i < P * Wm; i += kThreads) {
+    const int c = i % P, w = i / P;
+    if (c < n) slot(c)[w] = M[at(c, w, ns)];
   }
   __syncthreads();
 
-  // ---- 2. Gauss-Jordan in reliability order ----
-  int k = 0;   // the panel warp 0 is in: the window is columns [k P, (k + 2) P)
-  int t = 0;   // warp 0's next column
-  int rr = 0;  // pivots found (warp 0: published; warps 1-31: processed)
+  // panel j's columns in shared memory past panel R's pivots: a warp a
+  // column (helper warp hw of nw), g from the words at the pivot rows, then
+  // the union's words
+  auto panel_apply = [&](const Panel& R, int j, int hw, int nw) {
+    const int D = R.hdr[1], nU = R.hdr[2];
+    for (int jj = hw; jj < P; jj += nw) {
+      const int c = j * P + jj;
+      if (c >= n) break;
+      uint32_t* col = slot(c);
+      uint32_t cb = 0u;
+      if (lane < D) cb = pivot_bits(col[R.pw[lane]] & R.pm[lane], R.piv + 32 * lane);
+      cb = __reduce_or_sync(kFull, cb);
+      if (cb == 0u) continue;
+      const uint32_t g = g_of(cb, R.N);
+      for (int u0 = lane; u0 < nU; u0 += 128) {  // four union words a lane at once
+        uint32_t x[4], v[4];
+        int w[4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int u = u0 + 32 * s;
+          const uint32_t gm = u < nU ? g & R.Unz[u] : 0u;
+          w[s] = u < nU ? R.Uw[u] : 0;
+          x[s] = gm ? s_word(R, gm, w[s]) : 0u;
+          v[s] = x[s] ? col[w[s]] : 0u;
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          if (x[s]) col[w[s]] = v[s] ^ x[s];
+      }
+    }
+  };
+
+  // ---- the trailing pass of panel R over columns [cstart, n] in device
+  // memory (workers): chunks of kChunk columns, each in three steps ----
+  int chunk = 0;  // chunks passed so far (the parity of the hit list)
+  auto trailing_pass = [&](const Panel& R, int cstart) {
+    const int q = R.hdr[0], D = R.hdr[1], nU = R.hdr[2];
+    // the nonzero words of each S_i, for the hit columns that take one S_i
+    // (a warp a pivot)
+    for (int i = ww; i < q; i += kWorkWarps) {
+      int cnt = 0;
+      for (int u0 = 0; u0 < nU; u0 += 32) {
+        const int u = u0 + lane;
+        const bool has = u < nU && ((R.Unz[u] >> i) & 1u);
+        const unsigned mk = __ballot_sync(kFull, has);
+        if (has) R.Sidx[(size_t)i * Wm + cnt + __popc(mk & lt_mask)] = (int16_t)R.Uw[u];
+        cnt += __popc(mk);
+      }
+      if (lane == 0) R.cnt[i] = cnt;
+    }
+    for (int c0 = cstart & ~3; c0 <= n; c0 += kChunk, ++chunk) {
+      const int C = min(kChunk, n1 - c0);  // columns c0 + c, c < C; those before cstart stay
+      const int G = (C + 3) >> 2;          // groups of four columns
+      int32_t* count = s_misc + 1 + (chunk & 1);
+      int16_t* hc = s_hc + (chunk & 1) * kChunk;
+      // (a) each column's words at the pivot rows: item (four columns,
+      // distinct word), columns fastest, so a warp reads a coalesced run of
+      // one word, 16 bytes a thread; a column's pivot bits gather in s_cb,
+      // and the first hit lists the column
+      {
+        const int dd = kWorkers / G, dg = kWorkers - dd * G;
+        int d = wid / G, g = wid - d * G;
+        while (d < D) {
+          uint4 x[kScan];
+          int key[kScan];
+#pragma unroll
+          for (int u = 0; u < kScan; ++u) {
+            key[u] = d < D ? g | d << 16 : -1;
+            x[u] = d < D ? *reinterpret_cast<const uint4*>(M + at(c0 + 4 * g, R.pw[d], ns))
+                         : make_uint4(0u, 0u, 0u, 0u);
+            g += dg;
+            d += dd;
+            if (g >= G) {
+              g -= G;
+              ++d;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kScan; ++u) {
+            if (key[u] < 0) continue;
+            const int dk = key[u] >> 16, c4 = 4 * (key[u] & 0xffff);
+            const uint32_t pm = R.pm[dk];
+            const uint32_t hit[4] = {x[u].x & pm, x[u].y & pm, x[u].z & pm, x[u].w & pm};
+            if ((hit[0] | hit[1] | hit[2] | hit[3]) == 0u) continue;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (hit[j] && c4 + j < C && c0 + c4 + j >= cstart) {
+                const uint32_t old = atomicOr(&s_cb[c4 + j], pivot_bits(hit[j], R.piv + 32 * dk));
+                if (old == 0u) hc[atomicAdd(count, 1)] = (int16_t)(c0 + c4 + j);
+              }
+          }
+        }
+      }
+      workers_sync();
+      // (b) each listed column's g
+      if (wid == 0) s_misc[1 + ((chunk + 1) & 1)] = 0;
+      const int nh = *count;
+      for (int h = wid; h < nh; h += kWorkers) {
+        const int c = hc[h] - c0;
+        s_hg[h] = g_of(s_cb[c], R.N);
+        s_cb[c] = 0u;
+      }
+      workers_sync();
+      // (c) the S_i each listed column takes, XORed in device memory with
+      // no wait: a warp a column; one S_i: its nonzero words; more: the
+      // union's words where they are nonzero, merged
+      for (int h = ww; h < nh; h += kWorkWarps) {
+        const uint32_t g = s_hg[h];
+        uint32_t* col = M + hc[h];
+        if ((g & (g - 1u)) == 0u) {
+          const int i = __ffs(g) - 1;
+          const int16_t* idx = R.Sidx + (size_t)i * Wm;
+          const uint32_t* Si = R.Sb + (size_t)R.tc[i] * Wp;
+          for (int e = lane; e < R.cnt[i]; e += 32) {
+            const int w = idx[e];
+            red_xor(col + (size_t)w * ns, Si[w]);
+          }
+        } else {
+          for (int u = lane; u < nU; u += 32) {
+            const uint32_t gm = g & R.Unz[u];
+            if (gm == 0u) continue;
+            const int w = R.Uw[u];
+            const uint32_t x = s_word(R, gm, w);
+            if (x) red_xor(col + (size_t)w * ns, x);
+          }
+        }
+      }
+    }
+  };
+
+  // ---- 2. Gauss-Jordan in reliability order, a panel of P columns at a
+  // time.  Panel j lives in buffer j % 3.  While warp 0 factorises panel k,
+  // the workers write panel k - 1 back, load panel k + 1, take panel k - 1
+  // to the columns after panel k + 1 in device memory and take panel k + 1
+  // past it; after the barrier every warp takes a column of panel k + 1
+  // past panel k, and after a second warp 0 goes on to it ----
+  int t = 0;       // warp 0's next column
+  int rr = 0;      // warp 0: pivots found
+  int passes = 0;  // warp 0: panels with a pivot
   uint32_t used[kLW];  // warp 0, lane l: the pivot rows in words l, l + 32, ...
 #pragma unroll
   for (int i = 0; i < kLW; ++i) used[i] = 0u;
-  for (int ev = 0;; ++ev) {
-    int32_t* event = s_misc + 4 * (ev & 1);
+  for (int k = 0;; ++k) {
+    const Panel R = record(k);
     if (warp == 0) {
-      const int tend = min(n, (k + 1) * P);
-      const uint32_t* col = s_panel + ((size_t)(k & 1) * P + (t - k * P)) * Wp;
-      uint32_t cw[kLW];  // the lane's words of column t
-      int pr = -1;
-      for (; t < tend && rr < rank; ++t, col += Wp) {
+      const int k0 = k * P;
+      const int tend = min(n, k0 + P);
+      uint32_t* buf = s_panel + (size_t)(k % 3) * P * Wp;
+      uint32_t nzr[kLW];  // lane l, word l + 32 i: which of the panel's S_i are nonzero there
+#pragma unroll
+      for (int i = 0; i < kLW; ++i) nzr[i] = 0u;
+      // lane j, for the panel's pivot j: its row, its place in the panel and
+      // its row of (I + L)^-1 (e_j XOR the rows j' that L[j] names); and
+      // column j of (I + L)^-1
+      int my_r = 0, my_tc = 0;
+      uint32_t my_N = 0u, my_Ncol = 0u;
+      int q = 0;
+      for (; t < tend && rr < rank; ++t) {
+        uint32_t* col = buf + (size_t)(t - k0) * Wp;
+        uint32_t cw[kLW];  // the lane's words of column t
 #pragma unroll
         for (int i = 0; i < kLW; ++i) cw[i] = lane + 32 * i < Wm ? col[lane + 32 * i] : 0u;
+        uint32_t any = 0u;
+#pragma unroll
+        for (int i = 0; i < kLW; ++i) any |= cw[i] & ~used[i];
+        if (!__any_sync(kFull, any != 0u)) continue;  // a dependent column: on to the next
         int fw = INT_MAX;
         uint32_t fx = 0u;
 #pragma unroll
@@ -207,148 +461,141 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
             fx = x;
           }
         }
-        const int wmin = __reduce_min_sync(kFull, fw);
-        if (wmin == INT_MAX) continue;  // a dependent column: on to the next
-        const unsigned src = __ballot_sync(kFull, fw == wmin);
+        const int pw = __reduce_min_sync(kFull, fw);
+        const unsigned src = __ballot_sync(kFull, fw == pw);
         const uint32_t xs = __shfl_sync(kFull, fx, __ffs(src) - 1);
-        pr = wmin * 32 + (__ffs(xs) - 1);
-        break;
-      }
-      int kind = kDone;
-      if (pr >= 0) {
-        // S: column t without the pivot bit, compacted to its nonzero words
-        const int pw = pr >> 5;
+        const int pr = pw * 32 + (__ffs(xs) - 1);
         const uint32_t pbit = 1u << (pr & 31);
-        uint32_t* Sval = s_Sval + (rr & 1) * Wm;
-        int32_t* Sidx = s_Sidx + (rr & 1) * Wm;
-        int cnt = 0;
+        // S_q: column t without the pivot bit, left in the buffer
 #pragma unroll
         for (int i = 0; i < kLW; ++i) {
-          const int w = lane + 32 * i;
-          const uint32_t x = w == pw ? cw[i] & ~pbit : cw[i];
-          if (w == pw) used[i] |= pbit;
-          const unsigned nz = __ballot_sync(kFull, x != 0u);
-          if (x != 0u) {
-            const int pos = cnt + __popc(nz & lt_mask);
-            Sidx[pos] = w;
-            Sval[pos] = x;
+          if (lane + 32 * i == pw) {
+            cw[i] &= ~pbit;
+            used[i] |= pbit;
+            col[pw] = cw[i];
           }
-          cnt += __popc(nz);
+          nzr[i] |= (uint32_t)(cw[i] != 0u) << q;
         }
-        kind = kPivot;
-        if (lane == 0) {
-          s_prow[t] = (int16_t)pr;
-          s_count[rr & 1] = 0;
-          event[3] = cnt;
+        // row q of L (the panel's earlier S_j that carry row pr, lanes j),
+        // and row q of (I + L)^-1: e_q XOR the rows j that L[q] names
+        const bool lbit = lane < q && ((buf[(size_t)my_tc * Wp + pw] >> (pr & 31)) & 1u);
+        const unsigned Nq = __reduce_xor_sync(kFull, lbit ? my_N : 0u) ^ (1u << q);
+        my_Ncol |= ((Nq >> lane) & 1u) << q;
+        if (lane == q) {
+          my_r = pr;
+          my_tc = t - k0;
+          my_N = Nq;
         }
-      } else if (t < n && rr < rank) {
-        kind = kPanelEnd;
+        if (lane == 0) s_prow[t] = (int16_t)pr;
+        // the panel's columns after t that carry row pr take S_q now
+        for (int c0 = t + 1; c0 < tend; c0 += 32) {
+          const int c = c0 + lane;
+          unsigned hm =
+              __ballot_sync(kFull, c < tend && (buf[(size_t)(c - k0) * Wp + pw] & pbit) != 0u);
+          while (hm) {
+            uint32_t* hit = buf + (size_t)(c0 + __ffs(hm) - 1 - k0) * Wp;
+            hm &= hm - 1u;
+#pragma unroll
+            for (int i = 0; i < kLW; ++i)
+              if (lane + 32 * i < Wm && cw[i]) hit[lane + 32 * i] ^= cw[i];
+          }
+        }
+        __syncwarp();
+        ++q;
+        ++rr;
+      }
+      __syncwarp();
+      // the record: the pivots, the columns of (I + L)^-1, the distinct words
+      // of the pivot rows, and the words where some S_i is nonzero
+      const bool has = lane < q;
+      if (has) {
+        R.tc[lane] = my_tc;
+        R.N[lane] = my_Ncol;
+      }
+      const unsigned grp = __match_any_sync(kFull, has ? my_r >> 5 : -1 - lane);
+      const int leader = __ffs(grp) - 1;
+      const unsigned leaders = __ballot_sync(kFull, has && leader == lane);
+      const int d = __popc(leaders & ((1u << leader) - 1u));
+      if (has && leader == lane) {
+        R.pw[d] = my_r >> 5;
+        R.pm[d] = 0u;
+      }
+      __syncwarp();
+      if (has) {
+        atomicOr(&R.pm[d], 1u << (my_r & 31));
+        R.piv[32 * d + (my_r & 31)] = (uint8_t)lane;
+      }
+      int nU = 0;
+#pragma unroll
+      for (int i = 0; i < kLW; ++i) {
+        const int w = lane + 32 * i;
+        const uint32_t nz = w < Wm ? nzr[i] : 0u;
+        const unsigned mk = __ballot_sync(kFull, nz != 0u);
+        if (nz) {
+          const int pos = nU + __popc(mk & lt_mask);
+          R.Uw[pos] = w;
+          R.Unz[pos] = nz;
+        }
+        nU += __popc(mk);
       }
       if (lane == 0) {
-        event[0] = kind;
-        event[1] = t;
-        event[2] = pr;
+        R.hdr[0] = q;
+        R.hdr[1] = __popc(leaders);
+        R.hdr[2] = nU;
+        s_misc[0] = t >= n || rr >= rank;
       }
-      __syncwarp();
+      passes += q > 0;
     } else {
-      cp_async_wait_all();  // this thread's loads of the next panel
-    }
-    __syncthreads();
-    const int kind = event[0];
-    if (kind == kDone) break;
-    if (kind == kPanelEnd) {
-      if (warp != 0) {  // write back panel k; load panel k + 2 into its buffer
-        for (int i = tid - 32; i < panel_items; i += kWorkers) {
-          const int j = i % P, w = i / P;
-          const int c = k * P + j, c2 = c + 2 * P;
-          uint32_t* s = slot(c) + w;
-          if (c < n) M[at(c, w, n1)] = *s;
-          if (c2 < n) cp_async4(s, M + at(c2, w, n1));
+      // panel k - 1 back to device memory; panel k + 1 on its way into its
+      // buffer (element e: column e % P, word e / P) while panel k - 1 goes
+      // to the columns after panel k + 1; then panel k + 1 past panel k - 1
+      const uint32_t* prev = s_panel + (size_t)((k + 2) % 3) * P * Wp;
+      uint32_t* next = s_panel + (size_t)((k + 1) % 3) * P * Wp;
+      const int dw = kWorkers / P, dj = kWorkers - dw * P;
+      for (int j = wid % P, w = wid / P; w < Wm;) {
+        const int c = (k - 1) * P + j, c2 = (k + 1) * P + j;
+        if (k > 0 && c < n) M[at(c, w, ns)] = prev[j * Wp + w];
+        if (c2 < n) cp_async4(next + j * Wp + w, M + at(c2, w, ns));
+        j += dj;
+        w += dw;
+        if (j >= P) {
+          j -= P;
+          ++w;
         }
       }
-      ++k;
-      continue;
-    }
-
-    // a pivot at column tp, row pr
-    const int tp = event[1], pr = event[2], nS = event[3];
-    const int par = rr & 1;
-    const uint32_t* Sval = s_Sval + par * Wm;
-    const int32_t* Sidx = s_Sidx + par * Wm;
-    const int pw = pr >> 5;
-    const uint32_t pbit = 1u << (pr & 31);
-    const int wend = min(n, (k + 2) * P);  // the window ends here
-    if (warp == 0) {
-      ++t;
-      ++rr;
-      // the window's columns after tp that carry the pivot row
-      for (int c0 = tp + 1; c0 < wend; c0 += 32) {
-        const int c = c0 + lane;
-        unsigned hm = __ballot_sync(kFull, c < wend && (slot(c)[pw] & pbit) != 0u);
-        while (hm) {
-          uint32_t* col = slot(c0 + __ffs(hm) - 1);
-          hm &= hm - 1;
-          for (int q = lane; q < nS; q += 32) col[Sidx[q]] ^= Sval[q];
-        }
-      }
-      __syncwarp();
-    } else {
-      // the columns after the window (syndrome included) that carry it
-      for (int c0 = wend + (warp - 1) * 32; c0 <= n; c0 += kScan * kWorkers) {
-        bool hit[kScan];
-#pragma unroll
-        for (int u = 0; u < kScan; ++u) {
-          const int c = c0 + u * kWorkers + lane;
-          hit[u] = c <= n && (M[at(c, pw, n1)] & pbit) != 0u;
-        }
-#pragma unroll
-        for (int u = 0; u < kScan; ++u) {
-          const unsigned hm = __ballot_sync(kFull, hit[u]);
-          if (hm == 0u) continue;
-          int base = 0;
-          if (lane == 0) base = atomicAdd(&s_count[par], __popc(hm));
-          base = __shfl_sync(kFull, base, 0);
-          if (hit[u]) s_hits[base + __popc(hm & lt_mask)] = (int16_t)(c0 + u * kWorkers + lane);
-        }
+      const Panel Rp = record(max(k - 1, 0));
+      const bool pass = k > 0 && Rp.hdr[0] > 0;
+      if (pass) trailing_pass(Rp, min(n, (k + 2) * P));
+      cp_async_wait_all();
+      if (pass) {
+        workers_sync();
+        panel_apply(Rp, k + 1, ww, kWorkWarps);
       }
     }
     __syncthreads();
-    if (warp != 0) {
-      // XOR S into every hit column; the (column, word) items are distinct.
-      // Neighbouring threads take neighbouring hit columns of one word.
-      const int nh = s_count[par];
-      const int work = nh * nS;
-      for (int i0 = tid - 32; i0 < work; i0 += kBatch * kWorkers) {
-        uint32_t* p[kBatch];
-        uint32_t v[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = i0 + u * kWorkers;
-          p[u] = nullptr;
-          if (i < work) {
-            const int h = i % nh;
-            const int q = i / nh;
-            p[u] = M + at(s_hits[h], Sidx[q], n1);
-            v[u] = *p[u] ^ Sval[q];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          if (p[u]) *p[u] = v[u];
+    const bool done = s_misc[0] != 0;
+    const int q = R.hdr[0];
+    if (q > 0) panel_apply(R, k + 1, warp, kWarps);
+    __syncthreads();
+    if (done) {
+      // panels k and k + 1 back to device memory; panel k to the columns after them
+      for (int i = tid; i < 2 * P * Wm; i += kThreads) {
+        const int j = i % (2 * P), w = i / (2 * P);
+        const int c = k * P + j;
+        if (c < n) M[at(c, w, ns)] = slot(c)[w];
       }
-      ++rr;
+      if (warp != 0 && q > 0) trailing_pass(R, min(n, (k + 2) * P));
+      __syncthreads();
+      break;
     }
   }
-  // the window's columns are the last of the matrix not yet in device memory
-  for (int i = tid; i < 2 * panel_items; i += kThreads) {
-    const int c = k * P + (i / panel_items) * P + i % P;
-    const int w = (i % panel_items) / P;
-    if (c < n) M[at(c, w, n1)] = slot(c)[w];
+  if (stats && tid == 0) {
+    atomicAdd(stats, (unsigned long long)rr);
+    atomicAdd(stats + 1, (unsigned long long)passes);
   }
-  __syncthreads();
 
   // ---- T: the first lam non-pivot columns, in reliability order ----
-  for (int w = tid; w < Wm; w += kThreads) s_syn[w] = M[at(n, w, n1)];
+  for (int w = tid; w < Wm; w += kThreads) s_syn[w] = M[at(n, w, ns)];
   if (warp == 0) {
     int cnt = 0;
     for (int base = 0; base < n && cnt < lam; base += 32) {
@@ -366,11 +613,11 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
   if (t_shared)
     for (int i = tid; i < lam * Wm; i += kThreads) {
       const int j = i / Wm, w = i - j * Wm;
-      s_panel[(size_t)j * Wp + w] = M[at(s_tcol[j], w, n1)];
+      s_panel[(size_t)j * Wp + w] = M[at(s_tcol[j], w, ns)];
     }
   __syncthreads();
   auto tword = [&](int j, int w) {
-    return t_shared ? s_panel[(size_t)j * Wp + w] : M[at(s_tcol[j], w, n1)];
+    return t_shared ? s_panel[(size_t)j * Wp + w] : M[at(s_tcol[j], w, ns)];
   };
 
   // ---- 4. candidate sweep ----
@@ -386,7 +633,7 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
     for (int c = tid; c < n; c += kThreads) {
       if (s_prow[c] >= 0) continue;
       int wt = 1;
-      for (int w = 0; w < Wm; ++w) wt += __popc(s_syn[w] ^ M[at(c, w, n1)]);
+      for (int w = 0; w < Wm; ++w) wt += __popc(s_syn[w] ^ M[at(c, w, ns)]);
       const unsigned long long key = ((unsigned long long)wt << 32) | (unsigned)(1 + c);
       best = key < best ? key : best;
     }
@@ -418,8 +665,8 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
   }
   for (int w = tid; w < Wm; w += kThreads) {
     uint32_t x = s_syn[w];
-    if (bt1 >= 0) x ^= M[at(bt1, w, n1)];
-    if (bt2 >= 0) x ^= M[at(bt2, w, n1)];
+    if (bt1 >= 0) x ^= M[at(bt1, w, ns)];
+    if (bt2 >= 0) x ^= M[at(bt2, w, ns)];
     s_best[w] = x;
   }
   __syncthreads();
@@ -442,7 +689,7 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
 
 using LargeKernel = void (*)(const int32_t*, const int32_t*, const uint8_t*, const uint8_t*,
                              const int32_t*, uint32_t*, uint8_t*, uint8_t*, int, int, int, int,
-                             int, int, int, int, int);
+                             int, int, int, int, int, unsigned long long*);
 
 LargeKernel large_kernel(int Wm) {
   if (Wm <= 5 * 32) return osd_large_kernel<5>;
@@ -452,24 +699,29 @@ LargeKernel large_kernel(int Wm) {
 
 }  // namespace
 
-// Shared memory of one block: the two panels of P columns (odd stride), S
-// twice, the used-row mask, the syndromes, the T columns and the event
-// words; the pivot rows and the hit list as int16.
+// Shared memory of one block: the reduction slots, three panels of P
+// columns (odd stride), two panel records, the syndromes, a chunk's hit
+// bits and g, the T columns and four flag words; two chunks' hit lists and
+// the pivot rows as int16.
 extern "C" size_t osd_large_smem_bytes(int n, int Wm, int lam, int P) {
   return 8 * (size_t)kWarps +
-         4 * (2 * (size_t)P * panel_stride(Wm) + 6 * (size_t)Wm + (lam > 0 ? lam : 1) + 10) +
-         2 * (2 * (size_t)n + 1);
+         4 * (3 * (size_t)P * panel_stride(Wm) + 2 * record_words(P, Wm) + 2 * (size_t)Wm +
+              2 * (size_t)kChunk + (lam > 0 ? lam : 1) + 4) +
+         2 * (2 * (size_t)kChunk + n);
 }
 
 // Launches blocks for samples row0 .. row0 + rows - 1 on `stream`, panels of
-// P columns; block i works in scratch[i * (n + 1) * Wm ...].  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel does
-// not take.
+// P columns; block i works in scratch[i * Wm * ns ...], ns = n + 1 rounded
+// up to a multiple of four (scratch_stride).  `stats` is
+// null or two int64 the blocks add their pivots and trailing passes to.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
+// kernel does not take.
 extern "C" int osd_large_launch(const void* h_cols, const void* perm, const void* synd,
                                 const void* skip, const void* pairs, void* scratch, void* e0,
                                 void* ew, int row0, int rows, int m, int n, int Wm, int rank,
-                                int lam, int n_pairs, int sweep, int P, void* stream) {
-  if (P < 1 || m > 32767 || n > 32767) return (int)cudaErrorInvalidValue;
+                                int lam, int n_pairs, int sweep, int P, void* stats,
+                                void* stream) {
+  if (P < 1 || P > kMaxPanel || m > 32767 || n > 32767) return (int)cudaErrorInvalidValue;
   const size_t smem = osd_large_smem_bytes(n, Wm, lam, P);
   auto kernel = large_kernel(Wm);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -478,7 +730,7 @@ extern "C" int osd_large_launch(const void* h_cols, const void* perm, const void
   kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)h_cols, (const int32_t*)perm, (const uint8_t*)synd, (const uint8_t*)skip,
       (const int32_t*)pairs, (uint32_t*)scratch, (uint8_t*)e0, (uint8_t*)ew, row0, m, n, Wm,
-      rank, lam, n_pairs, sweep, P);
+      rank, lam, n_pairs, sweep, P, (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 

@@ -158,7 +158,7 @@ def load() -> ctypes.CDLL:
     lib.gf2_elim_warp_smem_bytes.argtypes = [I, I, I]
     lib.gf2_elim_warp_smem_bytes.restype = SZ
     lib.osd_large_launch.argtypes = [P, P, P, P, P, P, P, P,
-                                     I, I, I, I, I, I, I, I, I, I, P]
+                                     I, I, I, I, I, I, I, I, I, I, P, P]
     lib.osd_large_launch.restype = I
     lib.osd_large_smem_bytes.argtypes = [I, I, I, I]
     lib.osd_large_smem_bytes.restype = SZ

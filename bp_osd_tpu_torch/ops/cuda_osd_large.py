@@ -6,11 +6,15 @@ tensors go to the kernel; CPU tensors to the plain torch version,
 :func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain` (the same as for K2).
 Each sample's ``(n + 1) x ceil(m/32)`` matrix lives in a scratch buffer that
 this wrapper allocates, word-major (word ``w`` of every column contiguous);
-the kernel works on a window of two panels of :func:`osd_large_panel`
-columns in shared memory.  Rows are launched in chunks so the scratch stays
-within ``_SCRATCH_BYTES``, with the tensors' card current.
-``osd_large.launches`` counts kernel launches (``osd_large.launches_on`` by
-card).
+the kernel eliminates it a panel of :func:`osd_large_panel` columns at a
+time in shared memory and takes each panel's pivots to the later columns
+in one trailing pass.  Rows are launched in
+chunks so the scratch stays within ``_SCRATCH_BYTES``, with the tensors'
+card current.  ``osd_large.launches`` counts kernel launches
+(``osd_large.launches_on`` by card); while the recorder of
+:mod:`bp_osd_tpu_torch.utils.profiling` is on, the kernel adds its pivots
+and its trailing passes to the counters ``osd_large.pivots`` and
+``osd_large.panel_passes``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from ..decoder.osd import osd_decode_plain
 from ..decoder.tanner import TannerGraph
+from ..utils import profiling
 from . import _build, count_launch, launch_counter
 from .cuda_bp import _SMEM_LIMIT, _check
 from .cuda_osd import pairs_on
@@ -28,31 +33,44 @@ from .cuda_osd import pairs_on
 __all__ = ["osd_large", "osd_large_panel", "osd_large_plan", "osd_large_smem_bytes"]
 
 _SCRATCH_BYTES = 3 << 30  # 3 GiB: 512 samples of the [[10000,420]] code
-# columns a panel, at most: on the H100 panels of 8-16 columns ran the
-# [[10000,420]] code fastest, 64 the slowest (chip_smoke.py phase 7)
-_MAX_PANEL = 16
+# columns a panel, at most: the kernel takes up to 32 (a panel's pivots are
+# the bits of a word).  A wider panel means fewer trailing passes and block
+# barriers for the same pivots, and more columns for warp 0 alone between
+# two barriers; on an H100 the widest ran every lift-400 case fastest, each
+# step of 4 from 20 to 32 columns 2-5% faster (BP-failing rows at p = 0.028:
+# a lone row 6.6 -> 5.7 ms, 129 rows 16.9 -> 15.2 ms)
+_MAX_PANEL = 32
 _PANEL = 0  # a panel width to force (tests only); 0: osd_large_panel
 _MAX_INDEX = 32767  # pivot rows and hit columns are int16 in shared memory
+_CHUNK = 4096  # columns of a trailing pass at once (``kChunk``)
+_COUNTERS = ("osd_large.pivots", "osd_large.panel_passes")
 
 
 def osd_large_smem_bytes(m: int, n: int, lam: int, panel: int) -> int:
     """Shared memory of one K5 block, as ``csrc/osd_large.cu:osd_large_smem_bytes``
-    computes it (``chip_smoke.py`` holds the two equal on the card): two
-    panels of ``panel`` columns at an odd stride of ``Wm | 1`` words, S twice
-    (words and indices), the syndromes, the T columns and ten event words, then the pivot row of each column and the hit list as
-    int16, after the 32 warps' reduction slots."""
+    computes it (``chip_smoke.py`` holds the two equal on the card): after
+    the 32 warps' reduction slots, three panels of ``panel`` columns at an
+    odd stride of ``Wm | 1`` words, two panel records (the nonzero words of
+    each S_i as int16, ``panel * Wm / 2`` words, the union's words and
+    masks, ``2 Wm``, and ``13 panel + 4`` words of tables), the syndromes, a
+    chunk's hit bits and g, the T columns and four flag words; then two
+    chunks' hit lists and the pivot row of each column as int16."""
     Wm = -(-m // 32)
-    return 8 * 32 + 4 * (2 * panel * (Wm | 1) + 6 * Wm + max(lam, 1) + 10) + 2 * (2 * n + 1)
+    record = (panel * Wm + 1) // 2 + 13 * panel + 2 * Wm + 4
+    return (8 * 32 + 4 * (3 * panel * (Wm | 1) + 2 * record + 2 * Wm + 2 * _CHUNK
+                          + max(lam, 1) + 4) + 2 * (2 * _CHUNK + n))
 
 
 def _row_words(m: int, n: int) -> int:
-    """Scratch words of one sample: ``ceil(m/32)`` words of n + 1 columns."""
-    return -(-m // 32) * (n + 1)
+    """Scratch words of one sample: ``ceil(m/32)`` words of n + 1 columns,
+    the stride rounded up to a multiple of four (16-byte loads)."""
+    return -(-m // 32) * ((n + 4) // 4 * 4)
 
 
 def osd_large_panel(m: int, n: int, lam: int) -> int:
-    """K5's panel width: the most columns, up to 16 (and n), whose two
-    panels fit a block's shared memory with the rest; 0 if none does."""
+    """K5's panel width: the most columns, up to ``_MAX_PANEL`` (and n),
+    whose three panels and two records fit a block's shared memory with
+    the rest; 0 if none does."""
     for panel in range(min(_MAX_PANEL, n), 0, -1):
         if osd_large_smem_bytes(m, n, lam, panel) <= _SMEM_LIMIT:
             return panel
@@ -115,6 +133,7 @@ def osd_large(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
             scratch = torch.empty(rows * per_row, dtype=torch.int32, device=dev)
             h_cols = graph.H_cols.contiguous()
             stream = torch.cuda.current_stream(dev).cuda_stream
+            stats = profiling.device_counter(_COUNTERS, dev)
             for row0 in range(0, B, rows):
                 err = lib.osd_large_launch(
                     h_cols.data_ptr(), perm.data_ptr(), synd.data_ptr(),
@@ -122,7 +141,7 @@ def osd_large(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
                     pairs_t.data_ptr() if pairs_t is not None else None,
                     scratch.data_ptr(), e0.data_ptr(), ew.data_ptr(),
                     row0, min(rows, B - row0), m, n, Wm, r, lam, n_pairs, int(lam > 0),
-                    panel, stream,
+                    panel, stats.data_ptr() if stats is not None else None, stream,
                 )
                 if err != 0:
                     raise RuntimeError(f"osd_large launch failed: CUDA error {err}")

@@ -21,7 +21,9 @@ attributes.  A span ``sync.<site>`` (:func:`sync`) is a leaf around a place
 where the host waits for the card (a read of a device value, a copy of a
 host array to the card); each one counts in ``host_syncs`` and
 ``host_syncs.<site>``.  The kernel wrappers count their launches while the
-recorder is on as ``launches.<wrapper>``.
+recorder is on as ``launches.<wrapper>``.  A kernel counts on the card into
+a :func:`device_counter`, which :func:`collect` reads once into the
+counters, outside any batch.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from typing import NamedTuple
 import torch
 import torch.autograd.profiler as _torch_profiler
 
-__all__ = ["Record", "Span", "Timer", "block", "collect", "count", "disable", "enable", "span",
-           "sync", "trace"]
+__all__ = ["Record", "Span", "Timer", "block", "collect", "count", "device_counter", "disable",
+           "enable", "span", "sync", "trace"]
 
 # one lock for every count: the launch counts of the kernel wrappers
 # (``ops.count_launch``) and the recorder's counters; shards on several
@@ -48,6 +50,7 @@ COUNT_LOCK = threading.Lock()
 
 _on = False  # enable() / disable()
 _counts: collections.Counter = collections.Counter()
+_device_counts: dict = {}  # (names, device) -> int64 tensor the kernels add to
 _buffers: list = []  # (thread, its event buffer)
 _local = threading.local()
 _ids = itertools.count()
@@ -144,6 +147,22 @@ def count(name: str, n: int = 1) -> None:
         _counts[name] += int(n)
 
 
+def device_counter(names: tuple, device):
+    """While the recorder is on: an int64 tensor on ``device``, a slot for
+    each of ``names``, that kernels add their counts to, the same one until
+    :func:`collect` reads it into the counters ``names``; None when the
+    recorder is off, so a kernel given it does no atomics."""
+    if not (_on or _torch_profiler._is_profiler_enabled):
+        return None
+    key = (tuple(names), torch.device(device))
+    with COUNT_LOCK:
+        buf = _device_counts.get(key)
+        if buf is None:
+            buf = _device_counts[key] = torch.zeros(len(names), dtype=torch.int64,
+                                                    device=device)
+    return buf
+
+
 def sync(site: str):
     """The leaf span ``sync.<site>`` around a place where the host waits for
     the card, counted in ``host_syncs`` and ``host_syncs.<site>``."""
@@ -179,12 +198,19 @@ def _closed(tid: int, buf: list, out: list) -> None:
 def collect() -> Record:
     """The spans closed and the counts made since the last call; clears
     them.  A span still open is returned by a later call, once its root
-    has closed."""
+    has closed.  Reading a :func:`device_counter` waits for the card, so
+    call it outside any batch."""
     spans: list = []
     with COUNT_LOCK:
         buffers = list(_buffers)
         counters = dict(_counts)
         _counts.clear()
+        devices = list(_device_counts.items())
+        _device_counts.clear()
+    for (names, _), buf in devices:
+        for name, v in zip(names, buf.tolist()):
+            if v:
+                counters[name] = counters.get(name, 0) + v
     for thread, buf in buffers:
         _closed(thread.native_id, buf, spans)
     with COUNT_LOCK:  # a finished thread's emptied buffer is not needed again

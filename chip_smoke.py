@@ -1558,6 +1558,7 @@ def main() -> None:
                                                osd_cs_warp_smem_bytes, osd_e)
     from bp_osd_tpu_torch.ops.cuda_osd_large import (osd_large, osd_large_panel, osd_large_plan,
                                                      osd_large_smem_bytes)
+    from bp_osd_tpu_torch.utils import profiling
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1814,6 +1815,13 @@ def main() -> None:
 
     k5_b, k5_one_b = k5_bound(8), k5_bound(1)
     k5_plan = osd_large_plan(gl, LIFT_ORDER)
+    profiling.collect()
+    profiling.enable()
+    k5_run(8)
+    profiling.disable()
+    k5_counts = profiling.collect().counters
+    k5_pivots, k5_passes = k5_counts["osd_large.pivots"], k5_counts["osd_large.panel_passes"]
+    check(k5_pivots == 8 * gl.rank, f"K5 counted {k5_pivots} pivots on 8 rows of rank {gl.rank}")
 
     def traffic_line(w: ElimWork, label: str) -> str:
         cm, wm = w.traffic()
@@ -1824,7 +1832,8 @@ def main() -> None:
                 f"word-major")
 
     k5_report = (
-        f"K5 (panels of {k5_plan['panel']}) 1 row {k5_one_ms:.3f} ms, "
+        f"K5 (panels of {k5_plan['panel']}; 8 rows: {k5_pivots} pivots in {k5_passes} trailing "
+        f"passes, {k5_pivots / k5_passes:.2f} a pass) 1 row {k5_one_ms:.3f} ms, "
         f"{bound_text(k5_one_b, k5_one_ms)}; 8 rows {k5_ms:.3f} ms, "
         f"{bound_text(k5_b, k5_ms)}; plan {plan_line(k5_plan)}; plain "
         f"{k5_plain_ms:.1f} ms for the 8 rows; " + traffic_line(work8.rows(slice(0, 1)), "row 0")

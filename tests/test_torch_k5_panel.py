@@ -1,4 +1,4 @@
-"""Kernel K5's design (``csrc/osd_large.cu``) on the CPU: its panel
+"""Kernel K5's design (``csrc/osd_large.cu``) on the CPU: its blocked
 elimination in the word-major layout and its sweep, emulated in numpy step
 for step, against the port's plain versions and the JAX package; the Python
 mirror of its shared memory; the elimination counts ``utils/measure.py``
@@ -6,17 +6,23 @@ counts the OSD kernels' bounds from; K3's fit and the unchanged OSD
 routing.
 
 The emulation keeps what the kernel keeps where the kernel keeps it: the
-matrix word-major (word w of every column contiguous) in "device memory", a
-window of two panels of P columns in a separate array (column-major) that
-warp 0 searches and updates, the columns after the window updated in device
-memory only, a panel written back when the search leaves it and the panel
-after the window loaded into the freed buffer.  A stale prefetch, a missed
+matrix word-major (word w of every column contiguous) in "device memory",
+two panel buffers of P columns (column-major) and a record of each
+factorised panel: its pivot rows r_i, each S_i as dense words, the bit table
+L[i][j] = S_j[r_i], the distinct words of the pivot rows and the union of
+the S_i's nonzero words.  Warp 0 factorises panel k in its buffer; the
+workers write panel k back, load panel k + 1 into the other buffer and take
+it past panel k (the look-ahead), then take panel k to every column after
+panel k + 1 in device memory in one trailing pass, while warp 0 factorises
+panel k + 1: each column's bits at the pivot rows, g from L, the union's
+words XORed.  A stale record, a missed or repeated pass, a missed
 write-back or an update sent to the wrong copy changes the result, which
 every comparison below would see.  All of it is integer work, so every
 comparison is exact.
 """
 
 import os
+from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +38,8 @@ from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import _SMEM_LIMIT
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, k3_fits, osd_cs_warp_smem_bytes
-from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large_panel, osd_large_smem_bytes
+from bp_osd_tpu_torch.ops.cuda_osd_large import (_MAX_PANEL, osd_large_panel,
+                                                 osd_large_smem_bytes)
 from bp_osd_tpu_torch.utils.measure import elim_work
 
 torch.set_num_threads(1)
@@ -62,62 +69,199 @@ def _unpack_bits(words: np.ndarray, k: int) -> np.ndarray:
     return bits.reshape(words.shape[:-1] + (-1,))[..., :k].astype(np.uint8)
 
 
-def k5_eliminate(h_cols, perm, synd, rank, P):
+class PanelRecord(NamedTuple):
+    """A factorised panel, as warp 0 leaves it in shared memory."""
+
+    r: list  # pivot rows r_i, in pivot order
+    buf: np.ndarray  # [P, Wm] the panel's buffer (a view): S_i is its column tc[i]
+    tc: list  # the pivot columns' places in the panel
+    L: list  # bit j of L[i] (j < i): S_j carries row r_i
+    N: list  # column j of (I + L)^-1 as bits: g = XOR of N[j] over the bits j of cb
+    pw: list  # the distinct words of the pivot rows, in order of first use
+    pm: list  # their pivot-row bits
+    piv: dict  # (d, bit) -> the pivot index of that row
+    Uw: list  # the words where some S_i is nonzero, ascending
+    Unz: list  # which S_i are nonzero at each
+
+    @property
+    def q(self) -> int:
+        return len(self.r)
+
+    @property
+    def S(self) -> np.ndarray:
+        """[q, Wm] S_i: pivot column t_i at its step without the pivot bit,
+        read from the panel's buffer now (warp 0 cleared the pivot bit there)."""
+        return self.buf[self.tc]
+
+
+def _low_bit(x) -> int:
+    return (int(x) & -int(x)).bit_length() - 1
+
+
+def _bits(x: int):
+    while x:
+        yield _low_bit(x)
+        x &= x - 1
+
+
+def _factorise(k, P, n, rank, slot, buf, used, prow, t, rr):
+    """Warp 0 on panel k, columns [k P, min(n, (k + 1) P)) in their buffer
+    ``buf``: the pivot search, the pivot bit cleared in place (so the
+    column is S), each pivot's S XORed into the panel's later columns
+    carrying its row, the dependent columns passed over, until the panel's
+    end or rank pivots.  Row i of (I + L)^-1 is e_i XOR the rows j < i that
+    L[i] names (lane i's register in the kernel), its columns the record's
+    N.  Returns the record and the next (t, rr)."""
+    tend = min(n, (k + 1) * P)
+    r, tc, L, Nrow = [], [], [], []
+    while t < tend and rr < rank:
+        x = slot(t) & ~used
+        nz = np.flatnonzero(x)
+        if not nz.size:  # a dependent column: on to the next
+            t += 1
+            continue
+        pw = int(nz[0])
+        pr = 32 * pw + _low_bit(x[pw])
+        pbit = np.uint32(1 << (pr & 31))
+        s = slot(t)
+        s[pw] &= ~pbit
+        used[pw] |= pbit
+        prow[t] = pr
+        Lq = sum(((int(buf[j_t, pw]) >> (pr & 31)) & 1) << j for j, j_t in enumerate(tc))
+        row = 1 << len(tc)
+        for j in _bits(Lq):
+            row ^= Nrow[j]
+        L.append(Lq)
+        Nrow.append(row)
+        r.append(pr)
+        tc.append(t - k * P)
+        for c in range(t + 1, tend):
+            if slot(c)[pw] & pbit:
+                slot(c)[:] ^= s
+        t += 1
+        rr += 1
+    Wm = len(used)
+    pw, pm, piv = [], [], {}
+    for i, ri in enumerate(r):
+        if ri >> 5 not in pw:
+            pw.append(ri >> 5)
+            pm.append(0)
+        d = pw.index(ri >> 5)
+        pm[d] |= 1 << (ri & 31)
+        piv[d, ri & 31] = i
+    N = [sum(((Nrow[i] >> j) & 1) << i for i in range(len(r))) for j in range(len(r))]
+    Smat = buf[tc]
+    nzw = [sum(1 << i for i in range(len(tc)) if Smat[i, w]) for w in range(Wm)]
+    Uw = [w for w in range(Wm) if nzw[w]]
+    return PanelRecord(r, buf, tc, L, N, pw, pm, piv, Uw, [nzw[w] for w in Uw]), t, rr
+
+
+def _pass_g(rec, cols):
+    """Each column's g: cb_i = c[r_i] read from the distinct pivot words,
+    then g = (I + L)^-1 cb, the XOR of N's columns at cb's bits (that is,
+    g_i = cb_i ^ parity(g & L[i]) in pivot order)."""
+    one = np.uint64(1)
+    cb = np.zeros(cols.shape[1], np.uint64)
+    for d, (w, pm) in enumerate(zip(rec.pw, rec.pm)):
+        x = cols[w] & np.uint32(pm)
+        for bit in _bits(pm):
+            cb |= ((x >> np.uint32(bit)) & 1).astype(np.uint64) << np.uint64(rec.piv[d, bit])
+    g = np.zeros_like(cb)
+    for j, Nj in enumerate(rec.N):
+        g ^= np.where((cb >> np.uint64(j)) & one, np.uint64(Nj), np.uint64(0))
+    return g
+
+
+def _union_xor(rec, cols, g):
+    """Each union word of the columns XORed with the S_i that g selects."""
+    one = np.uint64(1)
+    S = rec.S
+    for w, nz in zip(rec.Uw, rec.Unz):
+        gm = g & np.uint64(nz)
+        v = np.zeros(cols.shape[1], np.uint32)
+        for i in _bits(nz):
+            v ^= np.where((gm >> np.uint64(i)) & one, S[i, w], np.uint32(0))
+        cols[w] ^= v
+
+
+def _panel_apply(rec, cols):
+    """The workers take the next panel's ``cols [Wm, P]`` (a view of its
+    buffer) past a panel in shared memory: g, then the union's words."""
+    _union_xor(rec, cols, _pass_g(rec, cols))
+
+
+def _trailing_pass(rec, cols):
+    """The workers take ``cols [Wm, C]`` (a view of device memory) past a
+    panel in one pass: g for every column, then for a hit column with one
+    pivot that S_i's nonzero words, for one with more the union's words."""
+    g = _pass_g(rec, cols)
+    one_pivot = (g != 0) & ((g & (g - np.uint64(1))) == 0)
+    S = rec.S
+    for i in range(rec.q):
+        hit = np.flatnonzero(one_pivot & (g == np.uint64(1 << i)))
+        words = np.flatnonzero(S[i])
+        cols[np.ix_(words, hit)] ^= S[i, words][:, None]
+    _union_xor(rec, cols, np.where(one_pivot, np.uint64(0), g))
+
+
+def k5_eliminate(h_cols, perm, synd, rank, P, records=None):
     """K5's elimination of one sample: ``h_cols [n, Wm]`` uint32 (the
     column-packed H), ``perm [n]``, ``synd [m]``.  Returns the device
     matrix ``M [Wm, n + 1]`` after the final write-back (word-major: column
-    c is ``M[:, c]``, the syndrome column n) and ``prow [n]``."""
+    c is ``M[:, c]``, the syndrome column n) and ``prow [n]``; appends each
+    panel's record to ``records`` when given.
+
+    Panel j lives in buffer j % 3, and its record's S_i are read from
+    there, so the buffer must outlive the record.  While warp 0 factorises panel k, the
+    workers write panel k - 1 back, load panel k + 1, take it past panel
+    k - 1 in its buffer and take panel k - 1 to the columns after panel
+    k + 1 in device memory (disjoint data, so the order here is free);
+    after panel k's barrier they take panel k + 1 past panel k."""
     n, Wm = h_cols.shape
     M = np.zeros((Wm, n + 1), np.uint32)
     M[:, :n] = h_cols[perm].T
     M[:, n] = _pack_bits(synd)
-    panels = np.zeros((2, P, Wm), np.uint32)  # the window, column-major
+    panels = np.zeros((3, P, Wm), np.uint32)  # the three buffers, column-major
 
-    def slot(c):  # panel c // P lives in buffer (c // P) & 1
-        return panels[(c // P) & 1, c % P]
+    def slot(c):  # panel c // P lives in buffer (c // P) % 3
+        return panels[(c // P) % 3, c % P]
 
-    for c in range(min(2 * P, n)):
+    def buffer_of(j):  # panel j's columns in its buffer, [Wm, width]
+        return panels[j % 3].T[:, :max(0, min(n, (j + 1) * P) - j * P)]
+
+    def write_back(j):
+        for c in range(j * P, min(n, (j + 1) * P)):
+            M[:, c] = slot(c)
+
+    for c in range(min(P, n)):
         slot(c)[:] = M[:, c]
     used = np.zeros(Wm, np.uint32)
     prow = np.full(n, -1, np.int64)
-    k = t = rr = 0
+    t = rr = k = 0
+    prev = None
     while True:
-        # warp 0: the dependent columns of the panel pass without an event
-        pr = -1
-        while t < min(n, (k + 1) * P) and rr < rank:
-            x = slot(t) & ~used
-            nz = np.flatnonzero(x)
-            if nz.size:
-                w = int(nz[0])
-                pr = 32 * w + int(np.flatnonzero(_unpack_bits(x[w:w + 1], 32))[0])
-                break
-            t += 1
-        if pr < 0 and (t >= n or rr >= rank):
+        # the workers, while warp 0 factorises panel k
+        if k > 0:
+            write_back(k - 1)
+        for c in range((k + 1) * P, min(n, (k + 2) * P)):
+            slot(c)[:] = M[:, c]
+        if prev is not None and prev.q:
+            _panel_apply(prev, buffer_of(k + 1))
+            _trailing_pass(prev, M[:, min(n, (k + 2) * P):])
+        rec, t, rr = _factorise(k, P, n, rank, slot, panels[k % 3], used, prow, t, rr)
+        if records is not None:
+            records.append(rec)
+        done = t >= n or rr >= rank
+        if rec.q:  # after the barrier: panel k + 1 past panel k
+            _panel_apply(rec, buffer_of(k + 1))
+        if done:
+            write_back(k)
+            write_back(k + 1)
+            if rec.q:
+                _trailing_pass(rec, M[:, min(n, (k + 2) * P):])
             break
-        if pr < 0:  # the panel end: write panel k back, load panel k + 2 in its place
-            for j in range(P):
-                c = k * P + j
-                if c < n:
-                    M[:, c] = slot(c)
-                if c + 2 * P < n:
-                    slot(c + 2 * P)[:] = M[:, c + 2 * P]
-            k += 1
-            continue
-        pw, pbit = pr >> 5, np.uint32(1 << (pr & 31))
-        S = slot(t).copy()
-        S[pw] &= ~pbit
-        used[pw] |= pbit
-        prow[t] = pr
-        wend = min(n, (k + 2) * P)
-        for c in range(t + 1, wend):  # warp 0: the window, in shared memory only
-            if slot(c)[pw] & pbit:
-                slot(c)[:] ^= S
-        hits = wend + np.flatnonzero(M[pw, wend:] & pbit)  # warps 1-31: device memory
-        M[:, hits] ^= S[:, None]
-        t += 1
-        rr += 1
-    for c in range(k * P, min(n, (k + 2) * P)):  # the window's last columns
-        M[:, c] = slot(c)
+        prev = rec
+        k += 1
     return M, prow
 
 
@@ -240,6 +384,90 @@ def test_k5_panel_emulation_equals_plain_and_jax(code, P):
         assert np.array_equal(e0, want0[b].numpy()) and np.array_equal(ew, wantw[b].numpy())
 
 
+def _schedule_case(case):
+    """(H, P, syndromes, perm) of a code built for one corner of the panel
+    schedule; the perm is the identity, so column t of H is column t of the
+    elimination."""
+    rng = np.random.default_rng({"l_table": 3, "empty_panel": 4, "rank_mid_panel": 5}[case])
+    m, n, P = 8, 20, 4
+    if case == "l_table":
+        # column 0 pivots on row 0 with S_0 = {row 1}; column 1 pivots on
+        # row 1: L[1][0] = 1.  Columns 5, 9, 13 carry row 0 and not row 1, so
+        # each takes S_0 and then S_1 (g = 0b11 from bits 0b01)
+        H = (rng.random((m, n)) < 0.3).astype(np.uint8)
+        H[:, :2] = 0
+        H[[0, 1], 0] = 1
+        H[[1, 2], 1] = 1
+        for c in (5, 9, 13):
+            H[:, c] = 0
+            H[[0, 3 + c % 4], c] = 1
+    elif case == "empty_panel":
+        # panel 1 (columns 4-7) repeats panel 0's independent columns: no pivot
+        A = np.eye(m, P, dtype=np.uint8) ^ np.triu((rng.random((m, P)) < 0.5), 1).astype(np.uint8)
+        H = np.concatenate([A, A[:, ::-1], (rng.random((m, n - 2 * P)) < 0.4)], 1)
+        H = H.astype(np.uint8)
+    else:
+        # rank 6: columns 0-4 and 9 independent, every other column a sum of
+        # them, so the last pivot is column 9, the middle of panel 2 (8-11)
+        while True:
+            basis = (rng.random((m, 6)) < 0.5).astype(np.uint8)
+            if TannerGraph(basis.T.copy(), device="cpu").rank == 6:
+                break
+        mix = (rng.random((6, n)) < 0.5).astype(np.uint8)
+        mix[:, :5] = np.eye(6, 5, dtype=np.uint8)
+        mix[5, :9] = 0
+        mix[5, 9] = 1
+        H = (basis @ mix % 2).astype(np.uint8)
+    err = (rng.random((3, n)) < 0.2).astype(np.uint8)
+    err[0] = 0
+    err[0, 5] = 1  # a syndrome that carries row 0 (the l_table case's column 5)
+    synd = (err @ H.T % 2).astype(np.uint8)
+    return H, P, synd, np.arange(n, dtype=np.int32)
+
+
+@pytest.mark.parametrize("case", ["l_table", "empty_panel", "rank_mid_panel"])
+def test_k5_panel_schedule_cases(case):
+    """The emulated schedule's corners, each held to ``eliminate_plain``,
+    JAX ``_eliminate`` and ``osd_decode_plain``: a pivot row inside an
+    earlier pivot's S in the same panel (so g needs L), a panel with no
+    pivot at all (no trailing pass, the look-ahead still loads the next
+    panel), and rank reached in the middle of a panel (the last panel's
+    pass and write-back with columns of the panel left unexamined)."""
+    H, P, synd, perm1 = _schedule_case(case)
+    g = TannerGraph(H, device="cpu")
+    m, n, r = g.m, g.n, g.rank
+    order = 4
+    lam = min(order, n - r)
+    pairs = build_osd_consts(g, "osd_cs", order).pairs
+    h_cols = g.H_cols.numpy().view(np.uint32)
+    perm = np.tile(perm1, (synd.shape[0], 1))
+    perm_t, synd_t = torch.as_tensor(perm), torch.as_tensor(synd)
+    plain = eliminate_plain(g, perm_t, synd_t)
+    ref = j_eliminate(JTannerGraph(H), jnp.asarray(perm), jnp.asarray(synd.astype(np.int32)))
+    want0, wantw = osd_decode_plain(g, perm_t, synd_t, method="osd_cs", osd_order=order,
+                                    pairs=pairs)
+    for b in range(synd.shape[0]):
+        records = []
+        M, prow = k5_eliminate(h_cols, perm[b], synd[b], r, P, records)
+        last = int(np.flatnonzero(prow >= 0).max())
+        if case == "l_table":
+            assert records[0].L[1] & 1 and records[0].r[:2] == [0, 1]
+        elif case == "empty_panel":
+            assert [rec.q for rec in records[:3]] == [P, 0, records[2].q] and records[2].q > 0
+        else:
+            assert r == 6 < m and last == 9 and (last + 1) % P and last + 1 < n
+            assert len(records) == last // P + 1  # no panel after the one rank ended in
+        mine = k5_elimination_outputs(M, prow, perm[b], m, r)
+        for name, got, p_out, j_out in zip(plain._fields, mine, plain, ref):
+            p_np = p_out[b].numpy()
+            if name == "h_work":
+                p_np = p_np.view(np.uint32)
+            assert np.array_equal(got, p_np), (case, name, b)
+            assert np.array_equal(got, np.asarray(j_out[b]).astype(got.dtype)), (case, name, b)
+        e0, ew = k5_decode(h_cols, perm[b], synd[b], r, P, lam, pairs)
+        assert np.array_equal(e0, want0[b].numpy()) and np.array_equal(ew, wantw[b].numpy())
+
+
 def _count_elimination(h_cols, perm, synd, rank):
     """The column elimination of one sample replayed and counted: column
     steps, pivot steps, hit tests at pivot steps (n - t), hit columns after
@@ -301,19 +529,22 @@ def test_chip_smoke_elim_work_counts(code):
 
 def test_k5_shared_memory_mirror():
     """``osd_large_smem_bytes`` (mirror of ``csrc/osd_large.cu``) is the
-    formula of the kernel's layout; the panel is the widest up to 16 columns
-    (and n) that fits 232,448 bytes: at lift 400 two panels of 16 columns
-    and the rest take 63,286 bytes, and a 30000 x 30000 code narrows the
-    panel to 11."""
+    formula of the kernel's layout; the panel is the widest up to
+    ``_MAX_PANEL`` columns (and n) that fits 232,448 bytes: at lift 400
+    three panels and two records of 32 columns and the rest take 153,628
+    bytes, and a 30000 x 30000 code narrows the panel to 6."""
     for m, n, lam, P in ((4800, 10000, 15, 16), (720, 1500, 15, 7), (192, 400, 0, 1)):
         Wm = -(-m // 32)
-        words = 2 * P * (Wm | 1) + 6 * Wm + max(lam, 1) + 10
-        assert osd_large_smem_bytes(m, n, lam, P) == 8 * 32 + 4 * words + 2 * (2 * n + 1)
-    assert osd_large_smem_bytes(4800, 10000, 15, 16) == 63_286
-    assert osd_large_panel(4800, 10000, 15) == 16 and osd_large_panel(192, 400, 42) == 16
-    assert osd_large_panel(60, 12, 3) == 12  # never wider than the code
+        record = (P * Wm + 1) // 2 + 13 * P + 2 * Wm + 4
+        words = 3 * P * (Wm | 1) + 2 * record + 2 * Wm + 2 * 4096 + max(lam, 1) + 4
+        assert osd_large_smem_bytes(m, n, lam, P) == 8 * 32 + 4 * words + 2 * (2 * 4096 + n)
+    assert osd_large_smem_bytes(4800, 10000, 15, 32) == 153_628
+    assert _MAX_PANEL <= 32  # a panel's pivots are the bits of a 32-bit word
+    assert osd_large_panel(4800, 10000, 15) == _MAX_PANEL
+    assert osd_large_panel(192, 400, 42) == _MAX_PANEL
+    assert osd_large_panel(60, 12, 3) == min(12, _MAX_PANEL)  # never wider than the code
     P = osd_large_panel(30000, 30000, 15)
-    assert P == 11 and osd_large_smem_bytes(30000, 30000, 15, P) <= _SMEM_LIMIT
+    assert P == 6 and osd_large_smem_bytes(30000, 30000, 15, P) <= _SMEM_LIMIT
     assert osd_large_smem_bytes(30000, 30000, 15, P + 1) > _SMEM_LIMIT
 
 

@@ -139,13 +139,25 @@ def _osd_inputs(H, B, seed, dev, p=0.06):
     return synd, torch.argsort(llr, dim=1, stable=True).to(torch.int32)
 
 
-@pytest.mark.parametrize("lift", [60, 100])
+_LIFTED = {}  # lift -> (H, graph): the rank of a large code takes seconds
+
+
+def _lifted(lift, dev):
+    if lift not in _LIFTED:
+        H = np.asarray(lifted_hgp(PROTO, lift=lift).hx.toarray(), np.uint8)
+        _LIFTED[lift] = H, TannerGraph(H, dev)
+    return _LIFTED[lift]
+
+
+@pytest.mark.parametrize("lift", [60, 100, 400, 500, 700])
 @pytest.mark.parametrize("order", [0, 6, 15])
 def test_osd_large_bit_identical(dev, lift, order):
-    H = np.asarray(lifted_hgp(PROTO, lift=lift).hx.toarray(), np.uint8)
-    g = TannerGraph(H, dev)
+    """K5 == the plain version at lifts 60 and 100 (24 rows), 400 (m 4800,
+    the 5-word registers of warp 0), 500 (m 6000, 8 words) and 700 (m 8400,
+    32 words; a few rows: the plain version takes about a second a row)."""
+    H, g = _lifted(lift, dev)
     assert not k2_fits(g, order)
-    synd, perm = _osd_inputs(H, 24, lift + order, dev)
+    synd, perm = _osd_inputs(H, 24 if lift <= 100 else 3, lift + order, dev)
     pairs = build_osd_consts(g, "osd_cs", order).pairs
     k = osd_large(g, perm, synd, osd_order=order, pairs=pairs)
     _equal(k, osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=order, pairs=pairs))
@@ -459,10 +471,11 @@ def test_osd_large_batches_and_chunks(dev, B, monkeypatch):
     assert osd_large.launches == before + -(-B // rows)
 
 
-@pytest.mark.parametrize("P", [1, 7, 64])
+@pytest.mark.parametrize("P", [1, 2, 7, 16, 31, 32])
 def test_osd_large_panel_widths(dev, P, monkeypatch):
-    """Panels of 1, 7 and 64 columns give the same bits at lift 100 (a panel
-    of one column turns every column into a panel change)."""
+    """Panels of 1 to 32 columns give the same bits at lift 100 (a panel of
+    one column is one trailing pass a pivot, 32 the widest the kernel
+    takes); 33 columns are refused."""
     import bp_osd_tpu_torch.ops.cuda_osd_large as k5
 
     H = np.asarray(lifted_hgp(PROTO, lift=100).hx.toarray(), np.uint8)
@@ -472,6 +485,57 @@ def test_osd_large_panel_widths(dev, P, monkeypatch):
     monkeypatch.setattr(k5, "_PANEL", P)
     _equal(osd_large(g, perm, synd, osd_order=15, pairs=pairs),
            osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=15, pairs=pairs))
+    monkeypatch.setattr(k5, "_PANEL", 33)
+    with pytest.raises(RuntimeError):
+        osd_large(g, perm, synd, osd_order=15, pairs=pairs)
+
+
+@pytest.mark.parametrize("lift", [100, 400])
+def test_osd_large_counts_pivots_and_passes(dev, lift):
+    """With the recorder on, ``osd_large.pivots`` is the pivots the rows
+    found (rank a row; none on a skip row) and ``osd_large.panel_passes`` at
+    most ceil(last pivot column / P) + 1 a row, well below the pivots."""
+    from bp_osd_tpu_torch.ops.cuda_osd_large import osd_large_panel
+    from bp_osd_tpu_torch.utils import profiling
+
+    H, g = _lifted(lift, dev)
+    B = 8
+    synd, perm = _osd_inputs(H, B, 7 + lift, dev, p=0.03)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[3] = True
+    pairs = build_osd_consts(g, "osd_cs", 15).pairs
+    P = osd_large_panel(g.m, g.n, min(15, g.n - g.rank))
+    profiling.collect()
+    profiling.enable()
+    try:
+        osd_large(g, perm, synd, osd_order=15, pairs=pairs, skip=skip)
+    finally:
+        profiling.disable()
+    counters = profiling.collect().counters
+    el = eliminate_plain(g, perm[~skip], synd[~skip])
+    assert counters["osd_large.pivots"] == int(el.pivot_mask.sum()) == (B - 1) * g.rank
+    last = el.pivot_mask.int().cumsum(1).argmax(1) + 1  # columns up to the last pivot
+    bound = int((-(-last // P) + 1).sum())
+    passes = counters["osd_large.panel_passes"]
+    assert B - 1 <= passes <= bound
+    print(f"\nlift {lift}, panels of {P}: {counters['osd_large.pivots']} pivots in {passes} "
+          f"passes, {counters['osd_large.pivots'] / passes:.2f} a pass")
+    assert counters["osd_large.pivots"] / passes > P / 2
+
+
+def test_osd_large_counters_absent_with_the_recorder_off(dev):
+    """With the recorder off the kernel gets no counter and adds nothing:
+    the next collection has no ``osd_large`` counter."""
+    from bp_osd_tpu_torch.utils import profiling
+
+    H, g = _lifted(100, dev)
+    synd, perm = _osd_inputs(H, 4, 3, dev)
+    pairs = build_osd_consts(g, "osd_cs", 15).pairs
+    profiling.collect()
+    assert not profiling._on
+    osd_large(g, perm, synd, osd_order=15, pairs=pairs)
+    torch.cuda.synchronize()
+    assert not [k for k in profiling.collect().counters if k.startswith("osd_large.")]
 
 
 @pytest.mark.parametrize("order", [1, 2, 12, 16])

@@ -259,6 +259,31 @@ def test_launch_counts_reach_the_recorder():
     assert rec.counters == {"launches.fake_kernel": 3}
 
 
+def test_device_counters_reach_the_recorder_once():
+    """A device counter exists only while the recorder is on, is the same
+    tensor until :func:`collect` reads it, and lands in the counters once,
+    its zero slots left out; the next call after that gets a fresh one."""
+    names = ("k.pivots", "k.passes", "k.unused")
+    assert profiling.device_counter(names, "cpu") is None  # off: the kernel gets null
+    profiling.collect()
+    profiling.enable()
+    try:
+        buf = profiling.device_counter(names, "cpu")
+        assert buf.dtype == torch.int64 and buf.tolist() == [0, 0, 0]
+        buf += torch.tensor([7, 2, 0])
+        again = profiling.device_counter(names, torch.device("cpu"))
+        assert again is buf
+        again += torch.tensor([5, 1, 0])
+        profiling.count("other")
+        rec = profiling.collect()
+        assert rec.counters == {"k.pivots": 12, "k.passes": 3, "other": 1}
+        fresh = profiling.device_counter(names, "cpu")
+        assert fresh is not buf and fresh.tolist() == [0, 0, 0]
+    finally:
+        profiling.disable()
+    assert profiling.collect().counters == {}
+
+
 def test_threads_keep_their_own_trees_and_exact_counts():
     """More threads than cores, a short switch interval: every count lands
     and each thread's spans nest under its own roots."""
