@@ -9,8 +9,10 @@ set-up made (:mod:`.traffic`).
 
 After the window, with the peak memory read and the program freed,
 ``check_batches`` decodes of the window, a uniform sample drawn from the
-seed, are compared with the reference (:mod:`.reference`), which the
-benchmark runs on the same parity-check matrix and syndromes:
+seed, are compared with the reference (:mod:`.reference`, or the
+configuration's own, :func:`.spec.reference`), which the benchmark runs on
+the same parity-check matrix and syndromes at the configuration's whole
+``decoder`` entry:
 
 - ``bp_rows_differ``: rows whose hard decision, ``converged`` or
   iterations differ from the reference's BP (limit 0);
@@ -39,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import codes, reference, spec, traffic
+from . import codes, spec, traffic
 from .trace import Window, record
 from .work import bp_work, osd_cs_work
 
@@ -156,33 +158,30 @@ def window(dec, pool: torch.Tensor, seconds: float, keep: int, rng, dev,
     return Loop(t_end - t_w0, lat, idx, raised, conv, iters, dict(slots))
 
 
-def check(cell: spec.Cell, H, proto, lift, synd: dict, held: dict, rng, dev, *,
+def check(cell: spec.Cell, reference, H, proto, lift, synd: dict, held: dict, rng, dev, *,
           program_dtype=None):
-    """Compare the held outputs with the reference; returns the compared
-    numbers and the reference's mean elimination operations a failing row.
-    ``program_dtype`` puts the reference itself, at that precision, in the
-    program's place (the control)."""
+    """Compare the held outputs with ``reference`` (the module
+    :func:`.spec.reference` gives); returns the compared numbers and the
+    reference's mean elimination operations a failing row.  ``program_dtype``
+    puts the reference itself, at that precision, in the program's place
+    (the control)."""
     opts = cell.config["decoder"]
     p = float(cell.traffic["p"])
     fg = reference.FloodGraph(H, dev)
-    n = fg.n
-    llr0 = reference.prior(p, n)
-    max_iter = int(opts["max_iter"]) or n
-    scale = float(opts["ms_scaling_factor"])
-    order = int(opts["osd_order"])
+    llr0 = reference.prior(p, fg.n)
     lg = reference.LiftedGraph(proto, lift, dev) if proto is not None else None
 
     def bp(s, dtype):
         if lg is not None:
-            return reference.lifted_bp(lg, s, llr0, max_iter=max_iter, scale=scale, dtype=dtype)
-        return reference.flood_bp(fg, s, llr0, max_iter=max_iter, scale=scale, dtype=dtype)
+            return reference.lifted_bp(lg, s, llr0, opts, dtype=dtype)
+        return reference.flood_bp(fg, s, llr0, opts, dtype=dtype)
 
     if program_dtype is not None:  # the control: the reference at lower precision
         held = {}
         for j, s in synd.items():
             r = bp(s, program_dtype)
             f = ~r.converged
-            o = reference.osd_cs(fg, s[f], r.llr[f], order)
+            o = reference.osd_cs(fg, s[f], r.llr[f], opts)
             osd0, osdw = r.hard.clone(), r.hard.clone()
             osd0[f], osdw[f] = o.osd0, o.osdw
             held[j] = (r.hard, r.converged, r.iterations, osd0, osdw)
@@ -214,7 +213,7 @@ def check(cell: spec.Cell, H, proto, lift, synd: dict, held: dict, rng, dev, *,
     if fail_rows:
         s = torch.stack([synd[j][i] for j, i in fail_rows]).to(dev)
         llr = torch.stack([refs[j].llr[i] for j, i in fail_rows])
-        o = reference.osd_cs(fg, s, llr, order)
+        o = reference.osd_cs(fg, s, llr, opts)
         got0 = torch.stack([held[j][3][i].to(dev) for j, i in fail_rows])
         gotw = torch.stack([held[j][4][i].to(dev) for j, i in fail_rows])
         nums["osd_rows_differ"] += int(((got0 != o.osd0).any(1) | (gotw != o.osdw).any(1)).sum())
@@ -248,10 +247,11 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
     ``t_start`` is the process's start on the ``time.perf_counter`` clock;
     ``device`` and ``cell`` let tests run a small cell on the CPU."""
     cell = cell or spec.cell(name)
+    ref = spec.reference(cell)
     dev = torch.device(device or "cuda")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    H, proto, lift = codes.build(cell.config["code"])
+    H, proto, lift = codes.build(cell.config["code"], cell.home)
     dec = build_program(cell, H, proto, lift, dev)
     pool = traffic.make_pool(H, cell.traffic, seed, dev)
     warm = warm_up(dec, pool, int(cell.traffic["warmup_batches"]), dev)
@@ -291,7 +291,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    nums, elim_mean, rank = check(cell, H, proto, lift, synd, held, rng, dev)
+    nums, elim_mean, rank = check(cell, ref, H, proto, lift, synd, held, rng, dev)
     log(f"{name}: reference check {time.perf_counter() - t_ref:.3f} s")
     failed = loop.raised * B + nums["osdw_unsatisfied"]
     ok, checks = judged(nums)
@@ -312,7 +312,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
                                       window_fails, elim_mean * window_fails)
         win = Window(loop.seconds, done, events, work)
         for mtr in cell.per_layer:
-            v = spec.reader(mtr["name"])(win)
+            v = spec.reader(mtr["name"], cell.home)(win)
             if v is not None:
                 metrics[mtr["name"]] = {"value": float(v), "unit": mtr["unit"]}
         result_device.update(busy_s=win.busy_s, window_s=loop.seconds)

@@ -11,12 +11,16 @@ A configuration's ``code`` entry names the construction:
 - ``{"family": "hgp", "seed": "mkmn_16_4_6"}``: ``hx = [h (x) I_n | I_m (x) h^T]``;
 - ``{"family": "lifted_hgp", "proto": [[[e, ...], ...], ...], "lift": L}``:
   ``hx`` of the lifted product of the protograph with itself, and
-  ``hx_proto``, the protograph whose lift it is.
+  ``hx_proto``, the protograph whose lift it is;
+- any other ``{"family": "<family>", ...}``: ``build(code)`` of the
+  configuration's own ``families/<family>.py`` (:mod:`.spec`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from . import spec
 
 # rows of the 12 x 16 MKMN seed, column c = bit c (reference
 # examples/codes/classical_seed_codes/mkmn_16_4_6.txt)
@@ -91,13 +95,18 @@ def protograph_to_binary(proto, L: int) -> np.ndarray:
     return np.block([[circulant(ent, L) for ent in row] for row in proto]).astype(np.uint8)
 
 
-def build(code: dict):
+def build(code: dict, home: str = spec.HERE):
     """``(hx [m, n] uint8, hx_proto or None, lift or None)`` of a
-    configuration's ``code`` entry."""
+    configuration's ``code`` entry; a family of its own is read from
+    ``<home>/families/``."""
     if code["family"] == "hgp":
         return hgp_hx(seed_matrix(code["seed"])), None, None
     if code["family"] == "lifted_hgp":
         L = int(code["lift"])
         proto = lifted_hx_proto(code["proto"], L)
         return protograph_to_binary(proto, L), proto, L
-    raise ValueError(f"unknown code family {code['family']!r}")
+    H, proto, lift = spec.load(home, "families", code["family"]).build(code)
+    if not (isinstance(H, np.ndarray) and H.dtype == np.uint8 and H.ndim == 2
+            and H.max(initial=0) <= 1):
+        raise ValueError(f"family {code['family']!r} built no [m, n] uint8 0/1 matrix")
+    return H, proto, lift

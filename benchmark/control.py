@@ -34,15 +34,16 @@ def control(name: str, seed: int, device=None, cell=None) -> dict:
     from benchmark import codes, spec, traffic
 
     c = cell or spec.cell(name)
+    ref = spec.reference(c)
     dev = torch.device(device or "cuda")
-    H, proto, lift = codes.build(c.config["code"])
+    H, proto, lift = codes.build(c.config["code"], c.home)
     pool = traffic.make_pool(H, c.traffic, seed, dev)
     rng = np.random.default_rng([int(seed), 1])
     P = pool.shape[0]
     hold = rng.choice(P, size=min(int(c.traffic["check_batches"]), P), replace=False).tolist()
     synd = {j: pool[j].clone() for j in hold}
     del pool
-    nums, _, _ = cell_mod.check(c, H, proto, lift, synd, {}, rng, dev,
+    nums, _, _ = cell_mod.check(c, ref, H, proto, lift, synd, {}, rng, dev,
                                 program_dtype=torch.bfloat16)
     ok, checks = cell_mod.judged(nums)
     return {"workload": name, "seed": seed, "correct": ok,

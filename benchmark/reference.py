@@ -6,7 +6,11 @@ shift-routed lifted BP of a protograph lift, and osd_cs (Gauss-Jordan
 elimination in reliability order, then the zero, weight-1 and weight-2
 candidates).  It imports nothing of the program: it builds its own tables
 from the parity-check matrix the benchmark made, and its own prior from the
-error rate.
+error rate.  Each function reads its options from the configuration's whole
+``decoder`` entry; :func:`supports` says which entries it computes (min-sum,
+the parallel schedule, osd_cs at any order) and refuses the others, so a
+configuration that needs more brings a copy of its own
+(``references/<name>.py``, :mod:`.spec`).
 
 Rounding is the program's: float32 messages, a variable's incoming messages
 added in the order the program adds them (four lanes by flat edge ``e % 4``,
@@ -36,6 +40,46 @@ import torch
 _BIG = 1e30  # min-sum magnitude cap; pad value of an exclusive minimum
 _MSG_FLOATS = 1 << 26  # message floats of one BP call's [rows, m * wr] tensor
 _OSD_WORDS = 1 << 27  # int32 words of one OSD call's [rows, n + 1, Wm] matrix
+
+
+# the method names the program takes, as the program normalises them
+NAMES = {
+    "bp_method": dict.fromkeys(("minimum_sum", "min_sum", "ms", "minimum_sum_log", "1"),
+                               "minimum_sum")
+    | dict.fromkeys(("product_sum", "prod_sum", "ps", "product_sum_log", "0"), "product_sum"),
+    "schedule": {"parallel": "parallel", "serial": "layered", "layered": "layered"},
+    "osd_method": dict.fromkeys(("osd0", "osd_0", "zero"), "osd0")
+    | dict.fromkeys(("osd_e", "osde", "exhaustive"), "osd_e")
+    | dict.fromkeys(("osd_cs", "osdcs", "combination_sweep"), "osd_cs"),
+}
+COMPUTES = {"bp_method": "minimum_sum", "schedule": "parallel", "osd_method": "osd_cs"}
+NUMBERS = ("max_iter", "ms_scaling_factor", "osd_order")
+
+
+def supports(decoder: dict) -> str | None:
+    """``None`` where this reference computes the decode that ``decoder``
+    (a configuration's ``decoder`` entry) states, else the reason it cannot:
+    an option it does not compute, or one that the decoder leaves out
+    (``schedule`` alone may be left out, and is then parallel)."""
+    extra = sorted(set(decoder) - set(NAMES) - set(NUMBERS))
+    if extra:
+        return f"it computes no decoder option {extra}"
+    for key, names in NAMES.items():
+        given = decoder.get(key, "parallel" if key == "schedule" else None)
+        if given is None:
+            return f"the decoder states no {key}"
+        if names.get(str(given).lower()) != COMPUTES[key]:
+            return f"{key} {given!r}: it computes {COMPUTES[key]} alone"
+    missing = [k for k in NUMBERS if k not in decoder]
+    if missing:
+        return f"the decoder states no {missing}"
+    return None
+
+
+def _bp_options(decoder: dict, n: int) -> tuple[int, float]:
+    """``(max_iter, scale)`` of ``decoder``: ``max_iter`` 0 is ``n``, scale 0
+    is adaptive."""
+    return int(decoder["max_iter"]) or n, float(decoder["ms_scaling_factor"])
 
 
 def prior(p: float, n: int) -> torch.Tensor:
@@ -189,11 +233,12 @@ def _freeze(state, it, max_iter, ok, h, total):
     return ~done
 
 
-def flood_bp(g: FloodGraph, synd: torch.Tensor, llr0: torch.Tensor, *, max_iter: int,
-             scale: float, dtype=torch.float32) -> BP:
+def flood_bp(g: FloodGraph, synd: torch.Tensor, llr0: torch.Tensor, decoder: dict,
+             dtype=torch.float32) -> BP:
     """Flooding min-sum BP of ``synd [B, m]`` uint8 from the prior row
-    ``llr0 [n]``; rows freeze at first convergence, a row that never
-    converges runs ``max_iter`` iterations."""
+    ``llr0 [n]`` at ``decoder``'s options; rows freeze at first convergence,
+    a row that never converges runs ``max_iter`` iterations."""
+    max_iter, scale = _bp_options(decoder, g.n)
     parts = []
     rows = max(1, _MSG_FLOATS // (g.m * g.wr))
     for lo in range(0, synd.shape[0], rows):
@@ -245,11 +290,12 @@ def _flood_rows(g, synd, llr0, max_iter, scale, dtype):
     return hard, llr, conv, iters
 
 
-def lifted_bp(g: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor, *, max_iter: int,
-              scale: float, dtype=torch.float32) -> BP:
+def lifted_bp(g: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor, decoder: dict,
+              dtype=torch.float32) -> BP:
     """Shift-routed min-sum BP of a protograph lift; the same contract as
     :func:`flood_bp`, a variable's messages added block row outer, slot
     inner, from zeros."""
+    max_iter, scale = _bp_options(decoder, g.n)
     parts = []
     rows = max(1, _MSG_FLOATS // (g.m * g.wr))
     for lo in range(0, synd.shape[0], rows):
@@ -421,11 +467,13 @@ class OSD(NamedTuple):
     elim_ops: torch.Tensor  # [B] int64: the elimination's needed integer operations
 
 
-def osd_cs(g: FloodGraph, synd: torch.Tensor, llr: torch.Tensor, order: int) -> OSD:
-    """osd_cs at ``order`` of ``synd [B, m]`` with BP's posterior ``llr
-    [B, n]``: columns ranked by ``argsort(llr, stable=True)``, osd0 read off
-    at the pivots, then the best of the zero pattern, weight 1 on every T
-    column and weight 2 on the pairs of the first ``min(order, |T|)``."""
+def osd_cs(g: FloodGraph, synd: torch.Tensor, llr: torch.Tensor, decoder: dict) -> OSD:
+    """osd_cs at ``decoder``'s ``osd_order`` of ``synd [B, m]`` with BP's
+    posterior ``llr [B, n]``: columns ranked by ``argsort(llr, stable=True)``,
+    osd0 read off at the pivots, then the best of the zero pattern, weight 1
+    on every T column and weight 2 on the pairs of the first
+    ``min(order, |T|)``."""
+    order = int(decoder["osd_order"])
     n1, Wm = g.n + 1, g.Wm
     rows = max(1, _OSD_WORDS // (n1 * Wm))
     parts = [_osd_rows(g, synd[lo : lo + rows], llr[lo : lo + rows], order)

@@ -82,3 +82,17 @@ def test_every_file_is_named_by_a_name():
             stem = f.rsplit(".", 1)[0]
             assert spec.NAME.match(stem), f
             assert stem in NAMES, f"{d}/{f} is named by no entry of BENCHMARK.json"
+
+
+def test_every_family_and_reference_file_is_a_configurations():
+    named = {"families": set(), "references": set()}
+    for conf in B["configs"]:
+        with open(os.path.join(spec.ROOT, conf["file"])) as f:
+            data = json.load(f)
+        named["families"].add(data["code"]["family"])
+        named["references"].add(data.get("reference"))
+    for d, names in named.items():
+        path = os.path.join(spec.HERE, d)
+        for f in os.listdir(path) if os.path.isdir(path) else []:
+            if f != "__pycache__":
+                assert f.endswith(".py") and f[:-3] in names, f"{d}/{f} is no configuration's"

@@ -1,7 +1,8 @@
 """No module of the benchmark imports JAX or the JAX package, and the
-yardstick (reference, codes, traffic, work, trace) imports nothing of the
-program.  Each import's top-level name is compared whole: the port's name
-begins with the JAX package's."""
+yardstick (reference, codes, traffic, work, trace, and every configuration's
+own family and reference files) imports nothing of the program.  Each
+import's top-level name is compared whole: the port's name begins with the
+JAX package's."""
 
 import ast
 import os
@@ -12,6 +13,7 @@ from benchmark import spec
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "bp_osd_tpu"}
 YARDSTICK = {"reference.py", "codes.py", "traffic.py", "work.py", "trace.py", "spec.py"}
+PLUGINS = ("families", "references")  # a configuration's own code and reference
 
 
 def _modules():
@@ -38,7 +40,16 @@ def test_no_jax(path):
     assert not _imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted(YARDSTICK))
+def _yardstick():
+    files = set(YARDSTICK)
+    for d in PLUGINS:
+        if os.path.isdir(os.path.join(spec.HERE, d)):
+            files |= {os.path.join(d, f) for f in os.listdir(os.path.join(spec.HERE, d))
+                      if f.endswith(".py")}
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _yardstick())
 def test_yardstick_imports_nothing_of_the_program(path):
     assert "bp_osd_tpu_torch" not in _imports(path)
 

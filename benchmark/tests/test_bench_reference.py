@@ -14,10 +14,15 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.absp
 PROTO = [[[0], [0], [0], [0]], [[0], [1], [2], [3]], [[0], [2], [4], [6]]]
 
 
+def _decoder(max_iter, scale, order):
+    return {"bp_method": "minimum_sum", "ms_scaling_factor": scale, "max_iter": max_iter,
+            "osd_method": "osd_cs", "osd_order": order}
+
+
 def _decode(bp_fn, fg, synd, order):
     bp = bp_fn(synd)
     f = ~bp.converged
-    o = reference.osd_cs(fg, synd[f], bp.llr[f], order)
+    o = reference.osd_cs(fg, synd[f], bp.llr[f], _decoder(0, 0.0, order))
     osdw = bp.hard.clone()
     osdw[f] = o.osdw
     return bp, osdw, int(f.sum())
@@ -30,7 +35,7 @@ def test_flagship_corpus_reproduced():
     synd = torch.from_numpy(np.unpackbits(d["synd_packed"], axis=1)[:, :m].copy())
     fg = reference.FloodGraph(H, "cpu")
     bp, osdw, fails = _decode(lambda s: reference.flood_bp(
-        fg, s, reference.prior(0.05, n), max_iter=max_iter, scale=0.0), fg, synd, order)
+        fg, s, reference.prior(0.05, n), _decoder(max_iter, 0.0, order)), fg, synd, order)
     assert fails > 0
     assert np.array_equal(bp.converged.numpy(), d["converged"])
     assert np.array_equal(bp.iterations.numpy(), d["iterations"])
@@ -45,7 +50,7 @@ def test_lifted_streamed_corpus_reproduced():
     synd = torch.from_numpy(np.unpackbits(a["lifted_streamed_synd"], axis=1)[:, :m].copy())
     lg, fg = reference.LiftedGraph(proto, L, "cpu"), reference.FloodGraph(H, "cpu")
     bp, osdw, fails = _decode(lambda s: reference.lifted_bp(
-        lg, s, reference.prior(0.05, n), max_iter=12, scale=0.625), fg, synd, 15)
+        lg, s, reference.prior(0.05, n), _decoder(12, 0.625, 15)), fg, synd, 15)
     assert fails > B // 2
     assert np.array_equal(bp.converged.numpy(), a["lifted_streamed_conv"])
     assert np.array_equal(bp.iterations.numpy(), a["lifted_streamed_iters"])
@@ -71,7 +76,7 @@ def test_flood_bp_and_osd_equal_the_plain_versions(scale):
     g, fg = TannerGraph(H, device="cpu"), reference.FloodGraph(H, "cpu")
     want = bp_decode_plain(g, synd, llr0.expand(96, 400), method="minimum_sum", max_iter=60,
                            ms_scaling_factor=scale)
-    got = reference.flood_bp(fg, synd, llr0, max_iter=60, scale=scale)
+    got = reference.flood_bp(fg, synd, llr0, _decoder(60, scale, 42))
     for a, b in zip(want[:4], got):
         assert torch.equal(a, b)
     f = ~got.converged
@@ -79,7 +84,7 @@ def test_flood_bp_and_osd_equal_the_plain_versions(scale):
     perm = torch.argsort(got.llr[f], dim=1, stable=True).to(torch.int32)
     c = build_osd_consts(g, "osd_cs", 42)
     w0, ww = osd_decode_plain(g, perm, synd[f], method="osd_cs", osd_order=42, pairs=c.pairs)
-    o = reference.osd_cs(fg, synd[f], got.llr[f], 42)
+    o = reference.osd_cs(fg, synd[f], got.llr[f], _decoder(60, scale, 42))
     assert torch.equal(w0, o.osd0) and torch.equal(ww, o.osdw)
     w = elim_work(g, perm, synd[f])
     assert np.array_equal(2 * w.Wm * w.steps + 2 * w.pivot_tests + w.xor_words,
@@ -99,7 +104,7 @@ def test_lifted_bp_and_osd_equal_the_plain_versions(scale):
     want = _bp_rows(LiftedGraph(proto, L, "cpu"), synd, llr0.expand(24, n), "minimum_sum",
                     20, scale)
     got = reference.lifted_bp(reference.LiftedGraph(proto, L, "cpu"), synd, llr0,
-                              max_iter=20, scale=scale)
+                              _decoder(20, scale, 15))
     for a, b in zip(want, got):
         assert torch.equal(a, b)
     f = ~got.converged
@@ -108,7 +113,7 @@ def test_lifted_bp_and_osd_equal_the_plain_versions(scale):
     perm = torch.argsort(got.llr[f], dim=1, stable=True).to(torch.int32)
     c = build_osd_consts(g, "osd_cs", 15)
     w0, ww = osd_decode_plain(g, perm, synd[f], method="osd_cs", osd_order=15, pairs=c.pairs)
-    o = reference.osd_cs(fg, synd[f], got.llr[f], 15)
+    o = reference.osd_cs(fg, synd[f], got.llr[f], _decoder(20, scale, 15))
     assert torch.equal(w0, o.osd0) and torch.equal(ww, o.osdw)
 
 

@@ -65,9 +65,11 @@ def test_osd_operations_are_osd_cs_bounds():
     H = _hgp()
     synd = _syndromes(H, 0.06, 64, 11)
     fg = reference.FloodGraph(H, "cpu")
-    bp = reference.flood_bp(fg, synd, reference.prior(0.06, 400), max_iter=400, scale=0.0)
+    dec = {"bp_method": "minimum_sum", "ms_scaling_factor": 0.0, "max_iter": 400,
+           "osd_method": "osd_cs", "osd_order": 42}
+    bp = reference.flood_bp(fg, synd, reference.prior(0.06, 400), dec)
     f = ~bp.converged
-    o = reference.osd_cs(fg, synd[f], bp.llr[f], 42)
+    o = reference.osd_cs(fg, synd[f], bp.llr[f], dec)
     g = TannerGraph(H, device="cpu")
     perm = torch.argsort(bp.llr[f], dim=1, stable=True).to(torch.int32)
     b, _ = measure.osd_cs_bound(g, perm, synd[f], build_osd_consts(g, "osd_cs", 42).pairs)
