@@ -1,5 +1,6 @@
 """Quantum and classical code constructions (host-side numpy, construction-time)."""
 
+from .bivariate_bicycle import bivariate_bicycle, gross_code
 from .classical import (
     hamming_code,
     mkmn_16_4_6,
@@ -16,6 +17,7 @@ from .code_util import (
 from .css import css_code
 from .hgp import hgp, hgp_single
 from .lifted_product import circulant, lifted_hgp, protograph_to_binary
+from .spacetime import Spacetime, detection_events, net_data_error, phenomenological
 from .stab import gf2_to_gf4, stab_code
 from .topological import surface_code, toric_code
 
@@ -37,6 +39,12 @@ __all__ = [
     "lifted_hgp",
     "circulant",
     "protograph_to_binary",
+    "bivariate_bicycle",
+    "gross_code",
+    "Spacetime",
+    "phenomenological",
+    "detection_events",
+    "net_data_error",
     "surface_code",
     "toric_code",
 ]

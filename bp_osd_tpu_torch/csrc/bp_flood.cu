@@ -106,8 +106,8 @@ bp_flood_global_kernel(const uint8_t* __restrict__ synd, const float* __restrict
                        const int32_t* __restrict__ s_ve, uint8_t* __restrict__ hard,
                        float* __restrict__ llr, uint8_t* __restrict__ conv,
                        int32_t* __restrict__ iters, float* __restrict__ v2c_out,
-                       int32_t* scratch, int m, int n, int wr, int wc, int max_iter, int it0,
-                       int product_sum, float alpha_fixed) {
+                       int32_t* scratch, unsigned long long* row_iters, int m, int n, int wr,
+                       int wc, int max_iter, int it0, int product_sum, float alpha_fixed) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -230,6 +230,7 @@ bp_flood_global_kernel(const uint8_t* __restrict__ synd, const float* __restrict
       if (tid == 0) {
         conv[b] = !any_fail;
         iters[b] = it;
+        if (row_iters) atomicAdd(row_iters, (unsigned long long)(it - it0));
       }
       return;
     }
@@ -367,8 +368,8 @@ __global__ void bp_flood_team_kernel(
     const int32_t* __restrict__ chk_var, const int32_t* __restrict__ var_edge,
     const int32_t* __restrict__ deg, uint8_t* __restrict__ hard, float* __restrict__ llr,
     uint8_t* __restrict__ conv, int32_t* __restrict__ iters, float* __restrict__ v2c_out,
-    int32_t* __restrict__ counter, int B, int m, int n, int wr, int wc, int max_iter,
-    int it0, int team_threads, float alpha_fixed) {
+    int32_t* __restrict__ counter, unsigned long long* __restrict__ row_iters, int B, int m,
+    int n, int wr, int wc, int max_iter, int it0, int team_threads, float alpha_fixed) {
   extern __shared__ int4 smem_team[];
   const int E = m * wr;
   const int wrp = round4(wr), wcp = round4(wc);
@@ -555,6 +556,7 @@ __global__ void bp_flood_team_kernel(
         if (tid == 0) {
           conv[row] = !any_fail;
           iters[row] = it;
+          if (row_iters) atomicAdd(row_iters, (unsigned long long)(it - it0));
         }
         break;
       }
@@ -570,8 +572,8 @@ __global__ void bp_flood_team_kernel(
 
 using TeamKernel = void (*)(const uint8_t*, const float*, long long, const uint8_t*,
                             const float*, const int32_t*, const int32_t*, const int32_t*,
-                            uint8_t*, float*, uint8_t*, int32_t*, float*, int32_t*, int, int,
-                            int, int, int, int, int, int, float);
+                            uint8_t*, float*, uint8_t*, int32_t*, float*, int32_t*,
+                            unsigned long long*, int, int, int, int, int, int, int, int, float);
 
 TeamKernel team_kernel(int cpt, int product_sum) {
   if (cpt <= 1) return product_sum ? bp_flood_team_kernel<1, true> : bp_flood_team_kernel<1, false>;
@@ -756,21 +758,24 @@ extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_su
 // Launches K1 on `stream`.  With `scratch` (B * bp_flood_scratch_words
 // int32) the first design runs one block per sample with the state there;
 // else the team kernel, with `deg` [m] int32 and `counter` one int32 set to
-// 0 by the caller.  Returns cudaGetLastError() of the launch, or the error
-// of bp_flood_plan.
+// 0 by the caller.  A non-null `row_iters` (one uint64) gets each row's
+// iterations past it0 added, one atomic a row as it finishes; null costs
+// nothing.  Returns cudaGetLastError() of the launch, or the error of
+// bp_flood_plan.
 extern "C" int bp_flood_launch(const void* synd, const void* llr0, long long llr0_stride,
                                const void* skip, const void* v2c_in, const void* chk_var,
                                const void* var_edge, const void* deg, void* hard, void* llr,
                                void* conv, void* iters, void* v2c_out, void* scratch,
-                               void* counter, int B, int m, int n, int wr, int wc,
-                               int max_iter, int it0, int product_sum, float alpha_fixed,
-                               int team_warps, void* stream) {
+                               void* counter, void* row_iters, int B, int m, int n, int wr,
+                               int wc, int max_iter, int it0, int product_sum,
+                               float alpha_fixed, int team_warps, void* stream) {
   if (scratch) {
     bp_flood_global_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,
         (const float*)v2c_in, (const int32_t*)chk_var, (const int32_t*)var_edge,
         (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters, (float*)v2c_out,
-        (int32_t*)scratch, m, n, wr, wc, max_iter, it0, product_sum, alpha_fixed);
+        (int32_t*)scratch, (unsigned long long*)row_iters, m, n, wr, wc, max_iter, it0,
+        product_sum, alpha_fixed);
     return (int)cudaGetLastError();
   }
   int plan[6];
@@ -782,6 +787,7 @@ extern "C" int bp_flood_launch(const void* synd, const void* llr0, long long llr
       (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,
       (const float*)v2c_in, (const int32_t*)chk_var, (const int32_t*)var_edge,
       (const int32_t*)deg, (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters,
-      (float*)v2c_out, (int32_t*)counter, B, m, n, wr, wc, max_iter, it0, T, alpha_fixed);
+      (float*)v2c_out, (int32_t*)counter, (unsigned long long*)row_iters, B, m, n, wr, wc,
+      max_iter, it0, T, alpha_fixed);
   return (int)cudaGetLastError();
 }

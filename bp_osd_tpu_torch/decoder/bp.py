@@ -269,6 +269,7 @@ def bp_decode_plain(
     v2c_init: torch.Tensor | None = None,
     it0: int = 0,
     emit_state: bool = False,
+    row_iters: torch.Tensor | None = None,
 ):
     """Plain torch flooding BP; the reference for kernel K1 (``bp_flood.cu``).
 
@@ -276,7 +277,8 @@ def bp_decode_plain(
     leave the working set as they converge (their outputs are frozen), so a
     batch costs what its live rows cost.  Returns ``(hard [B, n] uint8,
     llr [B, n] f32, converged [B] bool, iterations [B] int32, v2c [B, m*wr]
-    f32 or None)``; emitted pad slots are 0.
+    f32 or None)``; emitted pad slots are 0.  ``row_iters``, a one-slot
+    int64 counter, gets the rows' iterations past ``it0`` added.
     """
     if max_iter <= it0:
         raise ValueError(f"max_iter={max_iter} must exceed it0={it0}")
@@ -339,6 +341,8 @@ def bp_decode_plain(
                 v2c_out[idx] = v2c[done].reshape(-1, E)
             keep = ~done
             active, v2c, syn, l0 = active[keep], v2c[keep], syn[keep], l0[keep]
+    if row_iters is not None:
+        row_iters += (iters.to(torch.int64) - it0).sum().to(row_iters.device)
     return hard, llr, conv, iters, v2c_out
 
 
@@ -372,10 +376,12 @@ def bp_decode(
 
 def _bp_decode(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method: str,
                max_iter: int, ms_scaling_factor: float, skip=None, v2c_init=None,
-               it0: int = 0, emit_state: bool = False, backend: str = "auto"):
+               it0: int = 0, emit_state: bool = False, backend: str = "auto",
+               row_iters: torch.Tensor | None = None):
     """:func:`bp_decode` of ``synd``, syndromes that :func:`as_syndromes`
     has checked (a ``[B, m]`` uint8 tensor); the port's own callers use it,
-    so a public call checks its input once."""
+    so a public call checks its input once.  ``row_iters`` (a one-slot int64
+    counter on the device, or None) gets the rows' iterations past ``it0``."""
     method = normalize_bp_method(bp_method)
     if max_iter == 0:
         max_iter = graph.n
@@ -391,7 +397,7 @@ def _bp_decode(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method: str,
         v2c_init = as_f32(v2c_init, device)
     kw = dict(method=method, max_iter=int(max_iter),
               ms_scaling_factor=float(ms_scaling_factor), skip=skip,
-              v2c_init=v2c_init, it0=int(it0), emit_state=emit_state)
+              v2c_init=v2c_init, it0=int(it0), emit_state=emit_state, row_iters=row_iters)
     if resolve_backend(backend, device) == "cuda":
         from ..ops.cuda_bp import bp_flood
 

@@ -175,16 +175,24 @@ def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend,
     """BP in the stages of :func:`stage_caps`, each resuming the failures of
     the one before; returns ``(hard, llr, converged, iterations)``.  Stage
     ``i`` (from 1) is the span ``bp.stage`` and adds its rows to the counter
-    ``bp.stage_rows.<i>``."""
+    ``bp.stage_rows.<i>``; while the recorder is on, the BP itself adds the
+    iterations its rows ran in the stage to the device counter
+    ``bp.row_iters.<i>``: no host wait, and no launch a batch."""
     caps = stage_caps(max_iter, stage1_iters)
     bp_kw = dict(bp_method=method, ms_scaling_factor=ms_scaling_factor,
                  backend=backend)
+    row_iters = profiling.device_counter(
+        tuple(f"bp.row_iters.{i}" for i in range(1, len(caps) + 1)), synd.device)
+
+    def slot(stage):  # the stage's one-slot view of the counter, or None
+        return None if row_iters is None else row_iters[stage - 1 : stage]
 
     emit = caps[0] < max_iter
     B = synd.shape[0]
     profiling.count("bp.stage_rows.1", B)
     with profiling.span("bp.stage", stage=1, rows=B):
-        out = _bp_decode(graph, synd, llr0, max_iter=caps[0], emit_state=emit, **bp_kw)
+        out = _bp_decode(graph, synd, llr0, max_iter=caps[0], emit_state=emit,
+                         row_iters=slot(1), **bp_kw)
     bp, v2c = out if emit else (out, None)
     hard, llr = bp.hard, bp.llr
     conv, iters = bp.converged, bp.iterations
@@ -200,7 +208,8 @@ def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend,
         emit = s_next < max_iter
         with profiling.span("bp.stage", stage=stage, rows=nfail):
             out = _bp_decode(graph, synd_sel, llr0_sel, max_iter=s_next,
-                             v2c_init=v2c_init, it0=s_prev, emit_state=emit, **bp_kw)
+                             v2c_init=v2c_init, it0=s_prev, emit_state=emit,
+                             row_iters=slot(stage), **bp_kw)
         res, v2c_sel = out if emit else (out, None)
         with profiling.span("bp.scatter"):
             hard[sel] = res.hard

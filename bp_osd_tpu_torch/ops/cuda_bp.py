@@ -9,7 +9,10 @@ sample per team of warps, rows handed out by a counter; a larger one keeps
 each sample's state in a device-memory scratch slice, one block per sample,
 launched in row chunks of at most ``_SCRATCH_BYTES``.  The plan queries and
 launches run with the tensors' card current.  ``bp_flood.launches`` counts
-kernel launches (``bp_flood.launches_on`` by card).
+kernel launches (``bp_flood.launches_on`` by card).  Given ``row_iters``, a
+one-slot int64 counter on the card (a slot of a
+:func:`~bp_osd_tpu_torch.utils.profiling.device_counter`), the kernel adds
+each row's iterations past ``it0`` to it as the row finishes.
 """
 
 from __future__ import annotations
@@ -121,14 +124,17 @@ def bp_flood(
     v2c_init: torch.Tensor | None = None,
     it0: int = 0,
     emit_state: bool = False,
+    row_iters: torch.Tensor | None = None,
 ):
     """Flooding BP; same arguments and results as ``bp_decode_plain``.
 
     ``synd [B, m]`` uint8, ``llr0 [B, n]`` f32 (a broadcast ``[n]`` row is
-    read with stride 0), ``skip [B]`` bool, ``v2c_init [B, m * wr]`` f32.
+    read with stride 0), ``skip [B]`` bool, ``v2c_init [B, m * wr]`` f32,
+    ``row_iters [1]`` int64.
     """
     kw = dict(method=method, max_iter=max_iter, ms_scaling_factor=ms_scaling_factor,
-              skip=skip, v2c_init=v2c_init, it0=it0, emit_state=emit_state)
+              skip=skip, v2c_init=v2c_init, it0=it0, emit_state=emit_state,
+              row_iters=row_iters)
     if synd.device.type == "cpu":
         return bp_decode_plain(graph, synd, llr0, **kw)
     if synd.device.type != "cuda":
@@ -150,6 +156,8 @@ def bp_flood(
         _check(skip, "skip", torch.uint8, (B,), dev)
     if v2c_init is not None:
         _check(v2c_init, "v2c_init", torch.float32, (B, E), dev)
+    if row_iters is not None:
+        _check(row_iters, "row_iters", torch.int64, (1,), dev)
 
     lib = _build.load()
     hard = torch.empty(B, n, dtype=torch.uint8, device=dev)
@@ -182,7 +190,7 @@ def bp_flood(
                     stride, ptr(skip, row0), ptr(v2c_init, row0),
                     chk_var.data_ptr(), var_edge.data_ptr(), graph.chk_deg.data_ptr(),
                     ptr(hard, row0), ptr(llr, row0), ptr(conv, row0), ptr(iters, row0),
-                    ptr(v2c, row0), ptr(scratch, 0), ptr(counter, 0),
+                    ptr(v2c, row0), ptr(scratch, 0), ptr(counter, 0), ptr(row_iters, 0),
                     min(rows, B - row0), m, n, wr, wc, int(max_iter), int(it0),
                     int(method == "product_sum"), alpha, int(_TEAM_WARPS), stream,
                 )

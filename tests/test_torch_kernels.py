@@ -399,6 +399,59 @@ def test_bp_flood_team_resume_chain(dev):
     _equal((hard, llr, conv, iters), straight[:4])
 
 
+def test_bp_flood_spacetime_chain_and_row_iteration_counts(dev, monkeypatch):
+    """The gross code's space-time matrix over 12 noisy rounds (936 x 2736):
+    the chain 624 -> 2496 -> 10000 of adaptive min-sum, each launch with and
+    without a row-iteration counter, equals the plain version's bit for bit,
+    and each counter reads the rows' iterations past the launch's ``it0``,
+    in the team kernel and in the device-memory placement; the staged
+    pipeline with the recorder on gives the same bits and the counters
+    ``bp.row_iters.<i>`` of the split of each row's iterations by the caps."""
+    import bp_osd_tpu_torch.ops.cuda_bp as k1
+    from bp_osd_tpu_torch.codes import gross_code, phenomenological
+    from bp_osd_tpu_torch.decoder.pipeline import decode_pipeline
+    from bp_osd_tpu_torch.utils import profiling
+
+    H = phenomenological(gross_code().hx, 12).H.toarray()
+    g = TannerGraph(H, dev)
+    assert k1_fits(g)
+    B = 512
+    synd, llr0 = _batch(H, B, 0.025, 24, dev)
+    caps = (624, 2496, 10000)
+    sel, v2c, it0 = torch.arange(B, device=dev), None, 0
+    for cap in caps:
+        assert sel.numel() > 0, f"no row left for the launch to {cap}"
+        args = (g, synd[sel], llr0[sel])
+        kw = dict(max_iter=cap, it0=it0, v2c_init=v2c, emit_state=cap < caps[-1], **_MS)
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = bp_flood(*args, row_iters=count, **kw)
+        _equal(out, bp_flood(*args, **kw))
+        _equal(out, bp_decode_plain(*args, **kw))
+        assert int(count) == int((out[3].long() - it0).sum()) > 0
+        with monkeypatch.context() as mp:
+            mp.setattr(k1, "k1_fits", lambda graph, product_sum=False: False)
+            count_g = torch.zeros(1, dtype=torch.int64, device=dev)
+            _equal(bp_flood(*args, row_iters=count_g, **kw), out)
+            assert int(count_g) == int(count)
+        keep = ~out[2]
+        sel, v2c, it0 = sel[keep], out[4][keep] if out[4] is not None else None, cap
+
+    kw = dict(bp_method="ms", max_iter=10000, ms_scaling_factor=0.0, osd_method="osd_cs",
+              osd_order=7)
+    plain = decode_pipeline(g, synd, llr0[0], **kw)
+    profiling.collect()
+    profiling.enable()
+    try:
+        traced = decode_pipeline(g, synd, llr0[0], **kw)
+    finally:
+        profiling.disable()
+    counters = profiling.collect().counters
+    _equal(traced, plain)
+    t = traced.iterations.long()
+    want = [int((t - a).clamp(0, b - a).sum()) for a, b in zip((0,) + caps[:-1], caps)]
+    assert [counters.get(f"bp.row_iters.{i}", 0) for i in (1, 2, 3)] == want
+
+
 @pytest.mark.parametrize("code,team_warps", [("surface", 0), ("flagship", 0), ("flagship", 2),
                                              ("625", 0)])
 def test_bp_flood_team_product_sum(dev, code, team_warps, monkeypatch):
