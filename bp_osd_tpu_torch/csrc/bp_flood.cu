@@ -1,5 +1,6 @@
 // bp_flood.cu -- flooding belief propagation (K1): persistent blocks whose
-// teams of warps each decode one sample at a time.
+// teams of warps each decode one sample at a time where a launch fills the
+// card, one row a block with its check rows in registers where it does not.
 //
 // Replaces the TPU kernel bp_osd_tpu/ops/pallas_bp.py:_bp_kernel (K1): the
 // whole min-sum / product-sum iteration loop for a batch of syndromes, with
@@ -12,42 +13,61 @@
 // per sample-iteration (E = m * wr = 1344 edges on the [[400,16,6]]
 // flagship), mostly integer, and the device-memory traffic is the inputs and
 // outputs once per sample: the bound is a sixth of the measured time or
-// less (PERF.md).  What the card runs out of is instruction throughput: each slot of
-// a check costs a load of the total, the subtraction, the hard-decision
-// parity, the sign, the magnitude, the two-minimum update and the c2v
-// write, and each edge of the variable sum a gather and the four-lane
-// select, for every sample-iteration.  More resident warps or more
-// independent loads a thread did not move it; fewer instructions did.  The
-// first design (one 256-thread block per sample, three block barriers an
-// iteration, the tables copied into every block, 8 samples an SM) spent the
-// same instruction slots plus barrier waits and idle threads.  This design:
-//   * one persistent block per SM loads the Tanner tables (chk_var rows and
-//     their c2v rows padded to a multiple of 4 slots, read and written 16
-//     bytes at a time; var_edge rows with each entry's c2v index and lane;
-//     the per-check degree from the host) into shared memory once, and its
-//     teams (one warp, or a few warps with a named barrier each) decode one
-//     sample at a time; a team that finishes takes the next row from a global
-//     counter (atomicAdd), so the SM refills during the stage-3 tail;
-//   * bp_flood_plan sizes the team to the code alone, once a graph: the most
-//     resident teams per unit of per-thread work between barriers (3 warps,
-//     2 checks and ~4 variables a thread, 10 teams an SM at the flagship),
-//     so every batch size runs the same kernel build;
-//   * check-side state lives in registers: the thread that owns a check keeps
-//     its compressed min-sum message (the two scaled minima, the first-minimum
-//     slot and the output sign bits); only c2v (E floats) and the totals
-//     (n floats) go through shared memory, ~7.6 KB a flagship sample instead
-//     of 26.5 KB;
-//   * two team barriers an iteration.  The check update of iteration t + 1
-//     reads tot_t and c2v_t, takes the syndrome parity of iteration t on the
-//     way, and writes c2v_{t+1}; the first barrier ORs the team's parity
-//     failures; a sample that stops at t emits tot_t and v2c_t (c2v_t rebuilt
-//     from its registers) and the speculative c2v_{t+1} is dropped; otherwise
-//     the variable sums follow and the second barrier closes the iteration;
-//   * a check row of 4 or 8 padded slots is updated unrolled and without
-//     branches (a pad reads a total of 1.0f and enters the minimum as the
-//     1e30 cap, which changes nothing).
-// Product-sum runs in the same teams with c2v double-buffered in shared
-// memory by iteration parity (its messages do not compress).
+// less (PERF.md).  A launch that fills the card runs out of instruction
+// throughput: each slot of a check costs a load of the total, the
+// subtraction, the hard-decision parity, the sign, the magnitude, the
+// two-minimum update and the c2v write, and each edge of the variable sum a
+// gather and the four-lane select, for every sample-iteration.  A launch of
+// fewer rows than the card holds teams (the resumed stages of a long
+// decode: ~120 rows of 7,504 dependent iterations on the gross code's
+// space-time matrix) runs out of latency instead: a row's iteration is a
+// chain of dependent shared-memory loads between two barriers, and an SM
+// with one row has only that row's warps to hide them.
+//
+// bp_flood_plan picks one of two plans from the batch, the card's SM count
+// and the graph alone:
+//   * the throughput plan, wherever B reaches the SMs times the resident
+//     teams an SM: one persistent block per SM loads the Tanner tables
+//     (chk_var rows and their c2v rows padded to a multiple of 4 slots, read
+//     and written 16 bytes at a time; var_edge rows with each entry's c2v
+//     index and lane; the per-check degree from the host) into shared memory
+//     once, and its teams (one warp, or a few warps with a named barrier
+//     each) decode one sample at a time; a team that finishes takes the next
+//     row from a global counter (atomicAdd).  team_warps_of sizes the team
+//     to the code alone, once a graph: the most resident teams per unit of
+//     per-thread work between barriers (3 warps, 2 checks and ~4 variables a
+//     thread, 10 teams an SM at the flagship);
+//   * the latency plan, below that, for min-sum graphs of m <= 1024, n <= 3
+//     * 32 * ceil(m / 32), rows <= 8 and columns <= 4, where k = ceil(B /
+//     SMs) is 1 or 2: bp_flood_team_kernel_latency, a block an SM of the
+//     whole-row team (32 * ceil(m / 32) threads, a check and three
+//     variables a thread: 960 on the space-time matrix) that holds one row,
+//     or two in the B - SMs blocks of a launch of more rows than SMs, the
+//     same threads serving both.  Each thread keeps its check row (the
+//     shared byte offsets of its totals), its degree and each row's message
+//     and syndrome bit in registers for the whole launch, and shared memory
+//     holds the variable rows once and, a row, only what threads exchange:
+//     c2v, warp-tiled so a warp's stores are contiguous, and the totals.
+//     Every shared address is one register plus a constant or the row's
+//     region (checks and variables past m and n are pads), so the loop keeps
+//     to the 64 registers a thread that 1024 threads allow (with two rows,
+//     ptxas parks two values of the emit in local memory, outside the
+//     loop).
+// In both, check-side state lives in registers: the thread that owns a
+// check keeps its compressed min-sum message (the two scaled minima, the
+// first-minimum slot and the output sign bits); only c2v (E floats) and the
+// totals (n floats) go through shared memory.  Two barriers an iteration:
+// the check update of iteration t + 1 reads tot_t and c2v_t, takes the
+// syndrome parity of iteration t on the way, and writes c2v_{t+1}; the first
+// barrier ORs the parity failures; a sample that stops at t emits tot_t and
+// v2c_t (c2v_t rebuilt from its registers) and the speculative c2v_{t+1} is
+// dropped; otherwise the variable sums follow and the second barrier closes
+// the iteration.  A check row of 4 or 8 padded slots is updated unrolled and
+// without branches (a pad reads a total of 1.0f and enters the minimum as
+// the 1e30 cap in the team kernel, +inf in the latency kernel: neither
+// changes anything).  Product-sum runs in the throughput plan's teams with
+// c2v double-buffered in shared memory by iteration parity (its messages do
+// not compress).
 //
 // Arithmetic contract (what makes min-sum bit-identical to the plain torch
 // version and, at the flagship shape, to the JAX XLA path):
@@ -277,21 +297,22 @@ struct Team {
 struct LaneSum {
   float p0, p1, p2, p3;
 
+  // a pad (lane 3, x = 0.0f) adds +0.0f to p3, which leaves it unchanged:
+  // a lane sum that starts at +0.0f never becomes -0.0f
+  __device__ __forceinline__ void add(int k, float x) {
+    if (k == 0) p0 = __fadd_rn(p0, x);
+    if (k == 1) p1 = __fadd_rn(p1, x);
+    if (k == 2) p2 = __fadd_rn(p2, x);
+    if (k == 3) p3 = __fadd_rn(p3, x);
+  }
+
   __device__ __forceinline__ void add4(const int4 e4, const float* c2v) {
     const int ent[4] = {e4.x, e4.y, e4.z, e4.w};
     float x[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) x[j] = ent[j] >= 0 ? c2v[ent[j] >> 2] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // a pad (-1, x = 0.0f) adds +0.0f to p3, which leaves it unchanged:
-      // a lane sum that starts at +0.0f never becomes -0.0f
-      const int k = ent[j] & 3;
-      if (k == 0) p0 = __fadd_rn(p0, x[j]);
-      if (k == 1) p1 = __fadd_rn(p1, x[j]);
-      if (k == 2) p2 = __fadd_rn(p2, x[j]);
-      if (k == 3) p3 = __fadd_rn(p3, x[j]);
-    }
+    for (int j = 0; j < 4; ++j) add(ent[j] & 3, x[j]);
   }
 
   __device__ __forceinline__ float total(float l0) const {
@@ -582,6 +603,306 @@ TeamKernel team_kernel(int cpt, int product_sum) {
   return product_sum ? bp_flood_team_kernel<8, true> : bp_flood_team_kernel<8, false>;
 }
 
+// ---------------------------------------------------------------------------
+// Latency plan: a block an SM, its check rows in registers.
+
+constexpr int kLatVPT = 3;      // variables a thread
+constexpr int kLatMaxRows = 2;  // rows a block
+
+// Shared memory of a latency-kernel block of T threads and kR rows, rows of
+// kS slots, in bytes: the variable rows [T * kLatVPT] (an int4 each), then
+// a region a row: the totals [T * kLatVPT + 2] (the last two are the check
+// pads' +inf and the variable pads' +0.0f), c2v warp-tiled [T / 32][kS][32]
+// (the word of check c, slot s at (c / 32 * kS + s) * 32 + c % 32) and, for
+// kR > 1, the row's priors [T * kLatVPT]; every part a multiple of 16
+// bytes.  Checks past m and variables past n are pads that no real one
+// reads.
+__host__ __device__ inline int latency_c2v0(int T) { return 4 * round4(T * kLatVPT + 2); }
+__host__ __device__ inline int latency_prior0(int T, int kS) {
+  return latency_c2v0(T) + 4 * kS * T;
+}
+__host__ __device__ inline int latency_region(int T, int kR, int kS) {
+  return latency_prior0(T, kS) + (kR > 1 ? 4 * T * kLatVPT : 0);
+}
+__host__ __device__ inline int latency_smem(int T, int kR, int kS) {
+  return 16 * T * kLatVPT + kR * latency_region(T, kR, kS);
+}
+
+// Rows b, b + gridDim.x, ... (at most kR, below B) in block b of T threads,
+// columns of at most kW (3 or 4) edges.  Thread t owns check t and
+// variables t, t + T, t + 2T of every row, pads past m and n included, so
+// the iteration tests no bound, a warp's loads and stores of the variable
+// rows and totals are contiguous, and each shared address is a register
+// plus a constant or the row's region.  It keeps in registers, for the
+// whole launch, its check's chk_var row as byte offsets of the totals in a
+// row's region (pad: the +inf at T * 3, so the hard-decision parity skips
+// it and its v2c enters the minimum above the 1e30 cap, which changes
+// nothing) and its degree; a row's syndrome bit and compressed min-sum
+// message; with one row, its variables' priors (with two, they are in each
+// row's region).  Shared memory (latency_smem) holds the variable rows
+// once, an int4 a variable, each entry its c2v word's byte offset in a
+// region with the lane e % 4 in the low two bits (pad: the +0.0f after the
+// +inf, in lane 3, which adds nothing to a lane sum that is never -0.0f),
+// then each row's totals and c2v, warp-tiled so a warp's stores of one
+// slot are contiguous.  The iteration is the team kernel's, with block
+// barriers; a row that stops keeps its totals and message untouched until
+// every row of the block has stopped, and the emit follows.  The first
+// iteration, a skip row and the emit read chk_var from device memory.
+template <int kS, int kR, int kW>
+__global__ void __launch_bounds__(1024, 1) bp_flood_team_kernel_latency(
+    const uint8_t* __restrict__ synd, const float* __restrict__ llr0, long long llr0_stride,
+    const uint8_t* __restrict__ skip, const float* __restrict__ v2c_in,
+    const int32_t* __restrict__ chk_var, const int32_t* __restrict__ var_edge,
+    const int32_t* __restrict__ deg, uint8_t* __restrict__ hard, float* __restrict__ llr,
+    uint8_t* __restrict__ conv, int32_t* __restrict__ iters, float* __restrict__ v2c_out,
+    unsigned long long* __restrict__ row_iters, int B, int m, int n, int wr, int wc,
+    int max_iter, int it0, float alpha_fixed) {
+  constexpr int kV = kLatVPT;
+  extern __shared__ int4 smem_lat[];
+  __shared__ unsigned s_fail[2];  // the rows' parity failures by iteration parity (kR > 1)
+  __shared__ int s_stop[kR];      // the iteration each row stopped at
+  const int E = m * wr;
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int pad = T * kV;  // the pads' total
+  char* base = reinterpret_cast<char*>(smem_lat);
+  int4* s_ve = reinterpret_cast<int4*>(base);  // [pad]
+  const int c2v0 = latency_c2v0(T);
+  char* reg0 = base + 16 * pad;  // the first row's region
+  const int region = latency_region(T, kR, kS);
+  const int prior0 = latency_prior0(T, kS);
+  auto tot_of = [&](int r) { return reinterpret_cast<float*>(reg0 + r * region); };
+  auto at = [&](int r, int off) -> float {
+    return *reinterpret_cast<const float*>(reg0 + r * region + off);
+  };
+  auto c2v_off = [&](int c, int s) { return c2v0 + 4 * (((c >> 5) * kS + s) * 32 + (c & 31)); };
+
+  int rows[kR];
+  int nrows = 0;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    rows[r] = blockIdx.x + r * gridDim.x;
+    if (rows[r] < B) nrows = r + 1;
+  }
+  if (tid == 0) {
+    for (int r = 0; r < kR; ++r) {
+      tot_of(r)[pad] = __int_as_float(0x7f800000);  // +inf
+      tot_of(r)[pad + 1] = 0.0f;
+    }
+    s_fail[0] = s_fail[1] = 0u;
+  }
+  auto l0_of = [&](int r) { return llr0 + (size_t)rows[r] * llr0_stride; };
+
+  const int c = tid;
+  const bool own_c = c < m;
+  const int dc = own_c ? deg[c] : 0;
+  int cv[kS];
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int v = own_c && s < wr ? chk_var[c * wr + s] : n;
+    cv[s] = 4 * (v < n ? v : pad);
+  }
+  unsigned syn = 0u;  // bit r: the syndrome of check c in row r
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+    if (own_c && r < nrows) syn |= (unsigned)(synd[(size_t)rows[r] * m + c] & 1) << r;
+  float l0r[kR == 1 ? kV : 1];
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    const int v = tid + j * T;
+    const bool own = v < n;
+    if constexpr (kR == 1) {
+      l0r[j] = own ? __ldg(l0_of(0) + v) : 0.0f;
+    } else {
+      for (int r = 0; r < nrows; ++r)
+        *reinterpret_cast<float*>(reg0 + r * region + prior0 + 4 * v) =
+            own ? __ldg(l0_of(r) + v) : 0.0f;
+    }
+    int ent[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = own && q < wc ? var_edge[v * wc + q] : E;
+      const int ce = e / wr;
+      ent[q] = e < E ? c2v_off(ce, e - ce * wr) | (e & 3) : (4 * (pad + 1)) | 3;
+    }
+    s_ve[v] = make_int4(ent[0], ent[1], ent[2], ent[3]);
+  }
+  // v2c of (check cc, slot s) of row r before the first iteration
+  auto v2c_start = [&](int r, int cc, int s) {
+    const int v = chk_var[cc * wr + s];
+    return v < n ? (v2c_in ? v2c_in[(size_t)rows[r] * E + cc * wr + s] : __ldg(l0_of(r) + v))
+                 : 0.0f;
+  };
+
+  unsigned live = 0u;  // bit r: row r still iterates
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (r >= nrows) continue;
+    if (!(skip && skip[rows[r]])) {
+      live |= 1u << r;
+      continue;
+    }
+    const size_t row = rows[r];  // born converged: hard 0, llr the prior
+    for (int v = tid; v < n; v += T) {
+      hard[row * n + v] = 0;
+      llr[row * n + v] = __ldg(l0_of(r) + v);
+    }
+    if (v2c_out)
+      for (int cc = tid; cc < m; cc += T)
+        for (int s = 0; s < wr; ++s) v2c_out[row * E + cc * wr + s] = v2c_start(r, cc, s);
+    if (tid == 0) {
+      conv[row] = 1;
+      iters[row] = it0;
+    }
+  }
+  if (!live) return;  // the same in every thread
+
+  auto variable_sums = [&]() {
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int v = tid + j * T;
+      const int4 e4 = s_ve[v];
+      const int ent[4] = {e4.x, e4.y, e4.z, e4.w};
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        if (!(live >> r & 1)) continue;
+        float x[4];
+#pragma unroll
+        for (int q = 0; q < kW; ++q) x[q] = at(r, ent[q] & ~3);
+        LaneSum a{0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int q = 0; q < kW; ++q) a.add(ent[q] & 3, x[q]);
+        float prior;
+        if constexpr (kR == 1) prior = l0r[j];
+        else prior = at(r, prior0 + 4 * v);
+        tot_of(r)[v] = a.total(prior);
+      }
+    }
+  };
+  // c2v of check c's kS slots in row r (pads too: nothing reads them), 128
+  // bytes apart
+  auto write_c2v = [&](int r, const MinSumMsg& q) {
+    float* p = reinterpret_cast<float*>(reg0 + r * region + c2v_off(c, 0));
+#pragma unroll
+    for (int s = 0; s < kS; ++s) p[32 * s] = ms_value(q, s);
+  };
+
+  // ---- iteration it0 + 1: c2v from the starting v2c, then the totals ----
+  MinSumMsg msg[kR];
+  {
+    const float alpha = alpha_at(it0 + 1, alpha_fixed);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (!(live >> r & 1)) continue;
+      MinSumAcc acc;
+      acc.init();
+      for (int s = 0; s < dc; ++s) acc.add(v2c_start(r, c, s), s);
+      msg[r] = acc.finish(alpha, dc, syn >> r & 1);
+      write_c2v(r, msg[r]);
+    }
+  }
+  __syncthreads();
+  variable_sums();
+  __syncthreads();
+
+  unsigned ok = 0u;  // bit r: row r converged
+  // alpha_at(t) = 1 - 2^-t by halving 2^-t each iteration: exact, as ldexpf
+  // (2^-150 rounds to 0 as ldexpf(1, -150) does)
+  float two_t = ldexpf(1.0f, -(it0 + 2));
+  for (int it = it0 + 1;; ++it) {
+    // ---- check update of it + 1 from tot_it, with the parity of it ----
+    const bool more = it < max_iter;
+    const float alpha = alpha_fixed == 0.0f ? __fsub_rn(1.0f, two_t) : alpha_fixed;
+    two_t = __fmul_rn(two_t, 0.5f);
+    unsigned fail = 0u;
+    MinSumMsg next[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (!(live >> r & 1)) continue;
+      float tt[kS];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) tt[s] = at(r, cv[s]);
+      int hp = syn >> r & 1;
+      MinSumAcc acc;
+      acc.init();
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+        hp ^= tt[s] <= 0.0f;
+        acc.add(__fsub_rn(tt[s], ms_value(msg[r], s)), s);  // a pad: +inf
+      }
+      fail |= (unsigned)hp << r;
+      next[r] = acc.finish(alpha, dc, syn >> r & 1);
+      if (more) write_c2v(r, next[r]);
+      if (r + 1 < kR) __syncwarp();  // one row's loads in flight
+    }
+    unsigned any_fail;
+    if constexpr (kR == 1) {
+      any_fail = __syncthreads_or(fail) ? 1u : 0u;
+    } else {  // the rows' failures ORed by warp, then across the block
+      const unsigned w = __reduce_or_sync(0xffffffffu, fail);
+      if ((tid & 31) == 0 && w) atomicOr(&s_fail[it & 1], w);
+      __syncthreads();
+      any_fail = s_fail[it & 1];
+      if (tid == 0) s_fail[(it + 1) & 1] = 0u;
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (!(live >> r & 1)) continue;
+      if (!(any_fail >> r & 1) || !more) {  // row r stops at it: tot_it and msg stay
+        live &= ~(1u << r);
+        if (tid == 0) s_stop[r] = it;
+        if (!(any_fail >> r & 1)) ok |= 1u << r;
+      } else {
+        msg[r] = next[r];
+      }
+    }
+    if (!live) break;
+    variable_sums();
+    __syncthreads();
+  }
+
+  // ---- emit each row's tot and v2c at its stop (c2v from the message) ----
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (r >= nrows || (skip && skip[rows[r]])) continue;
+    const size_t row = rows[r];
+    const float* tot = tot_of(r);
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int v = tid + j * T;
+      if (v < n) {
+        hard[row * n + v] = (tot[v] <= 0.0f);
+        llr[row * n + v] = tot[v];
+      }
+    }
+    if (v2c_out && own_c)
+      for (int s = 0; s < wr; ++s)
+        v2c_out[row * E + c * wr + s] =
+            s < dc ? __fsub_rn(tot[chk_var[c * wr + s]], ms_value(msg[r], s)) : 0.0f;
+    if (tid == 0) {
+      conv[row] = ok >> r & 1;
+      iters[row] = s_stop[r];
+      if (row_iters) atomicAdd(row_iters, (unsigned long long)(s_stop[r] - it0));
+    }
+  }
+}
+
+using LatencyKernel = void (*)(const uint8_t*, const float*, long long, const uint8_t*,
+                               const float*, const int32_t*, const int32_t*, const int32_t*,
+                               uint8_t*, float*, uint8_t*, int32_t*, float*,
+                               unsigned long long*, int, int, int, int, int, int, int, float);
+
+// The instance for kS = wr rounded up to 4 or 8, kR rows a block and kW =
+// wc rounded up to 3 or 4.
+LatencyKernel latency_kernel(int wr, int rows, int wc) {
+  static const LatencyKernel kernels[8] = {
+      bp_flood_team_kernel_latency<4, 1, 3>, bp_flood_team_kernel_latency<4, 1, 4>,
+      bp_flood_team_kernel_latency<4, 2, 3>, bp_flood_team_kernel_latency<4, 2, 4>,
+      bp_flood_team_kernel_latency<8, 1, 3>, bp_flood_team_kernel_latency<8, 1, 4>,
+      bp_flood_team_kernel_latency<8, 2, 3>, bp_flood_team_kernel_latency<8, 2, 4>};
+  return kernels[(wr > 4) * 4 + (rows > 1) * 2 + (wc > 3)];
+}
+
+
 }  // namespace
 
 // Shared memory of one sample's whole state in the first design (tables,
@@ -678,9 +999,11 @@ cudaError_t team_shape(int dev, int warps, int m, int n, int wr, int wc, int pro
 // ceil(m/T) * wr + ceil(n/T) * wc slot and edge updates between its two
 // barriers.  Among teams of 1 to 8 warps that keep a thread at <= 8 checks,
 // the one of most resident teams per path (the most sample-iterations an SM
-// runs at a time).  The batch size plays no part, so every batch runs the
-// kernel build that the checks of a small batch exercise.  Kept per card;
-// the caller holds plan_mu.
+// runs at a time).  The team size ignores the batch size; the plan does not
+// (bp_flood_plan takes launches that under-fill the card to the latency
+// kernel, min-sum only), so at small batches the team kernel's build runs in
+// the product-sum, wide-row and forced-team (_TEAM_WARPS) checks.  Kept per
+// card; the caller holds plan_mu.
 cudaError_t team_warps_of(int dev, int m, int n, int wr, int wc, int product_sum, int* warps) {
   struct Choice {
     int key[6];
@@ -717,16 +1040,69 @@ cudaError_t team_warps_of(int dev, int m, int n, int wr, int wc, int product_sum
   return cudaSuccess;
 }
 
+// The latency plan for B rows, k = ceil(B / SMs) of them in the busiest
+// SM's block: out = {block threads, blocks an SM, dynamic shared memory,
+// registers}.  The block is the whole-row team of 32 * ceil(m / 32)
+// threads, a check a thread, for k <= 2 rows; the kernel takes m <= 1024,
+// n <= 3 * threads, rows of <= 8 slots and columns of <= 4, and a block an
+// SM (the occupancy query).  cudaErrorNotSupported where any of it fails.
+// The caller holds plan_mu and has `dev` current.
+cudaError_t latency_shape(int dev, long long k, int m, int n, int wr, int wc, int* out) {
+  const int T = 32 * ((m + 31) / 32);
+  if (wr > 8 || wc > 4 || T > 1024 || n > kLatVPT * T || k > kLatMaxRows)
+    return cudaErrorNotSupported;
+  LatencyKernel kernel = latency_kernel(wr, (int)k, wc);
+  struct Entry {
+    int dev;
+    LatencyKernel kernel;
+    cudaFuncAttributes attr;
+  };
+  static std::vector<Entry> cache;  // attributes a card, the shared memory limit raised
+  const Entry* hit = nullptr;
+  for (const Entry& e : cache)
+    if (e.dev == dev && e.kernel == kernel) hit = &e;
+  if (!hit) {
+    Entry e{dev, kernel, {}};
+    cudaError_t err = cudaFuncGetAttributes(&e.attr, kernel);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit - (int)e.attr.sharedSizeBytes);
+    if (err != cudaSuccess) return err;
+    cache.push_back(e);
+    hit = &cache.back();
+  }
+  const int smem = latency_smem(T, (int)k, wr > 4 ? 8 : 4);
+  if (smem + (int)hit->attr.sharedSizeBytes > kSmemLimit) return cudaErrorNotSupported;
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorNotSupported;
+  out[0] = T;
+  out[1] = per_sm;
+  out[2] = smem;
+  out[3] = hit->attr.numRegs;
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// The team kernel's launch for B rows: out = {team threads, teams a block,
-// blocks an SM, grid, dynamic shared memory bytes, registers a thread}.
-// team_warps = 0 takes the team of team_warps_of for the graph; a small
-// batch gets fewer teams a block (about B / SMs), so its rows spread over
-// the SMs.  Returns 0, or cudaErrorInvalidValue for a graph the team kernel
-// does not take (row weight above 27, more than 1024 threads a team, or a
-// team that does not fit a block), or the CUDA error of a query.  Plans for
-// the current card.
+// K1's launch for B rows: out = {team threads, teams a block, blocks an SM,
+// grid, dynamic shared memory bytes, registers a thread, latency plan}.
+// Two plans, from B, the card's SM count and the graph alone:
+//   * throughput (out[6] = 0): the team kernel with the team of
+//     team_warps_of, wherever the launch fills the card, B at or above SMs
+//     times the resident teams an SM; below it where the latency plan does
+//     not take the launch, fewer teams a block (about B / SMs), so the rows
+//     spread over the SMs;
+//   * latency (out[6] = 1), below that for min-sum, where latency_shape
+//     takes the graph at k = ceil(B / SMs) (1 or 2): the latency kernel,
+//     min(B, SMs) blocks of k rows at most (out[1]), rows b and b + SMs in
+//     block b, so B - SMs blocks hold two rows and the rest one.
+// team_warps > 0 forces the throughput plan with teams of that many warps.
+// Returns 0, or cudaErrorInvalidValue for a graph the team kernel does not
+// take (row weight above 27, more than 1024 threads a team, or a team that
+// does not fit a block), or the CUDA error of a query.  Plans for the
+// current card.
 extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_sum,
                              int team_warps, int* out) {
   if (wr > kMaxRowWeight || m <= 0 || n <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
@@ -737,13 +1113,33 @@ extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_su
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const long long need = ((long long)B + sms - 1) / sms;  // rows an SM when spread evenly
-  if (team_warps <= 0) {
+  const bool forced = team_warps > 0;
+  if (!forced) {
     err = team_warps_of(dev, m, n, wr, wc, product_sum, &team_warps);
     if (err != cudaSuccess) return (int)err;
   }
   int shape[5];
-  err = team_shape(dev, team_warps, m, n, wr, wc, product_sum, need, shape);
+  err = team_shape(dev, team_warps, m, n, wr, wc, product_sum, LLONG_MAX, shape);
   if (err != cudaSuccess) return (int)err;
+  if (!forced && !product_sum && B < (long long)sms * shape[1] * shape[2]) {
+    int lat[4];
+    err = latency_shape(dev, need, m, n, wr, wc, lat);
+    if (err == cudaSuccess) {
+      out[0] = lat[0];
+      out[1] = (int)need;
+      out[2] = lat[1];
+      out[3] = B < sms ? B : sms;
+      out[4] = lat[2];
+      out[5] = lat[3];
+      out[6] = 1;
+      return 0;
+    }
+    if (err != cudaErrorNotSupported) return (int)err;
+  }
+  if (need < shape[1]) {  // fewer rows an SM than a block's teams: spread them
+    err = team_shape(dev, team_warps, m, n, wr, wc, product_sum, need, shape);
+    if (err != cudaSuccess) return (int)err;
+  }
   const long long blocks = ((long long)B + shape[1] - 1) / shape[1];
   const long long resident = (long long)sms * shape[2];
   out[0] = shape[0];
@@ -752,15 +1148,18 @@ extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_su
   out[3] = (int)(blocks < resident ? blocks : resident);
   out[4] = shape[3];
   out[5] = shape[4];
+  out[6] = 0;
   return 0;
 }
 
 // Launches K1 on `stream`.  With `scratch` (B * bp_flood_scratch_words
 // int32) the first design runs one block per sample with the state there;
-// else the team kernel, with `deg` [m] int32 and `counter` one int32 set to
-// 0 by the caller.  A non-null `row_iters` (one uint64) gets each row's
-// iterations past it0 added, one atomic a row as it finishes; null costs
-// nothing.  Returns cudaGetLastError() of the launch, or the error of
+// else bp_flood_plan's plan, the team kernel (with `counter`, one int32 set
+// to 0 by the caller) or the latency kernel, with `deg` [m] int32.  A
+// non-null `row_iters` (one uint64) gets each row's iterations past it0
+// added, one atomic a row as it finishes; null costs nothing.  A non-null
+// `plan_out` (7 int32) gets the plan (all 0 for the device-memory
+// placement).  Returns cudaGetLastError() of the launch, or the error of
 // bp_flood_plan.
 extern "C" int bp_flood_launch(const void* synd, const void* llr0, long long llr0_stride,
                                const void* skip, const void* v2c_in, const void* chk_var,
@@ -768,8 +1167,9 @@ extern "C" int bp_flood_launch(const void* synd, const void* llr0, long long llr
                                void* conv, void* iters, void* v2c_out, void* scratch,
                                void* counter, void* row_iters, int B, int m, int n, int wr,
                                int wc, int max_iter, int it0, int product_sum,
-                               float alpha_fixed, int team_warps, void* stream) {
+                               float alpha_fixed, int team_warps, void* stream, int* plan_out) {
   if (scratch) {
+    if (plan_out) std::fill(plan_out, plan_out + 7, 0);
     bp_flood_global_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,
         (const float*)v2c_in, (const int32_t*)chk_var, (const int32_t*)var_edge,
@@ -778,10 +1178,20 @@ extern "C" int bp_flood_launch(const void* synd, const void* llr0, long long llr
         product_sum, alpha_fixed);
     return (int)cudaGetLastError();
   }
-  int plan[6];
+  int plan[7];
   const int err = bp_flood_plan(B, m, n, wr, wc, product_sum, team_warps, plan);
   if (err != 0) return err;
+  if (plan_out) std::copy(plan, plan + 7, plan_out);
   const int T = plan[0];
+  if (plan[6]) {
+    latency_kernel(wr, plan[1], wc)<<<plan[3], T, plan[4], (cudaStream_t)stream>>>(
+        (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,
+        (const float*)v2c_in, (const int32_t*)chk_var, (const int32_t*)var_edge,
+        (const int32_t*)deg, (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters,
+        (float*)v2c_out, (unsigned long long*)row_iters, B, m, n, wr, wc, max_iter, it0,
+        alpha_fixed);
+    return (int)cudaGetLastError();
+  }
   team_kernel((m + T - 1) / T, product_sum)<<<plan[3], plan[1] * T, plan[4],
                                               (cudaStream_t)stream>>>(
       (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,

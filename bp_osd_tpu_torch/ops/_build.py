@@ -129,7 +129,7 @@ def load() -> ctypes.CDLL:
     P, I, LL, F, SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float, ctypes.c_size_t)
     lib.bp_flood_launch.argtypes = [P, P, LL, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                                    I, I, I, I, I, I, I, I, F, I, P]
+                                    I, I, I, I, I, I, I, I, F, I, P, ctypes.POINTER(I)]
     lib.bp_flood_launch.restype = I
     lib.bp_flood_smem_bytes.argtypes = [I, I, I, I]
     lib.bp_flood_smem_bytes.restype = SZ

@@ -3,16 +3,29 @@
 Replaces ``bp_osd_tpu/ops/pallas_bp.py:bp_decode_pallas``.  CUDA tensors go
 to the kernel; CPU tensors to the plain torch version,
 :func:`bp_osd_tpu_torch.decoder.bp.bp_decode_plain`.  A graph whose
-per-sample state fits a block's shared memory (:func:`k1_fits`) runs in the
-team kernel: persistent blocks that hold the tables once and decode one
-sample per team of warps, rows handed out by a counter; a larger one keeps
-each sample's state in a device-memory scratch slice, one block per sample,
-launched in row chunks of at most ``_SCRATCH_BYTES``.  The plan queries and
-launches run with the tensors' card current.  ``bp_flood.launches`` counts
-kernel launches (``bp_flood.launches_on`` by card).  Given ``row_iters``, a
-one-slot int64 counter on the card (a slot of a
-:func:`~bp_osd_tpu_torch.utils.profiling.device_counter`), the kernel adds
-each row's iterations past ``it0`` to it as the row finishes.
+per-sample state fits a block's shared memory (:func:`k1_fits`) runs in one
+of two plans, chosen by ``csrc/bp_flood.cu:bp_flood_plan`` from the batch,
+the card's SM count and the graph alone (:func:`bp_flood_plan`):
+
+- throughput, wherever the launch fills the card (``B`` at or above the
+  SMs times the resident teams an SM of the graph's team): persistent
+  blocks that hold the tables once and decode one sample per team of
+  warps, rows handed out by a counter;
+- latency, below that for min-sum graphs the latency kernel takes
+  (:func:`latency_team`) at ``ceil(B / SMs)`` <= 2: a block an SM of
+  ``32 * ceil(m / 32)`` threads, a check and three variables a thread
+  with the check's row in registers, holding one row, or two in the
+  ``B - SMs`` blocks of a launch of more rows than SMs, the same threads
+  serving both.  Each launch in it adds its rows to the recorder's counter
+  ``bp_flood.latency_rows``.
+
+A larger graph keeps each sample's state in a device-memory scratch slice,
+one block per sample, launched in row chunks of at most ``_SCRATCH_BYTES``.
+The plan queries and launches run with the tensors' card current.
+``bp_flood.launches`` counts kernel launches (``bp_flood.launches_on`` by
+card).  Given ``row_iters``, a one-slot int64 counter on the card (a slot of
+a :func:`~bp_osd_tpu_torch.utils.profiling.device_counter`), the kernel
+adds each row's iterations past ``it0`` to it as the row finishes.
 """
 
 from __future__ import annotations
@@ -23,18 +36,21 @@ import torch
 
 from ..decoder.bp import bp_decode_plain
 from ..decoder.tanner import TannerGraph
+from ..utils import profiling
 from . import _build, count_launch, launch_counter
 
 __all__ = ["bp_flood", "bp_flood_plan", "bp_flood_smem_bytes", "bp_flood_table_bytes",
-           "bp_flood_team_bytes", "k1_fits", "team_shape"]
+           "bp_flood_team_bytes", "k1_fits", "latency_smem_bytes", "latency_team", "team_shape"]
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _SCRATCH_BYTES = 1 << 30  # device-memory placement: scratch per launch
 _MAX_ROW_WEIGHT = 27  # the team kernel keeps a check's sign bits in one word
 _MAX_CHECKS_PER_THREAD = 8
 # Warps of a sample team in the team kernel; 0 takes the choice of
-# ``csrc/bp_flood.cu:bp_flood_plan`` for the graph.  Tests and measurements
-# set it to run other team sizes; the result does not depend on it.
+# ``csrc/bp_flood.cu:bp_flood_plan`` for the graph and batch (either plan),
+# another count forces the throughput plan with teams of that size.  Tests
+# and measurements set it to run other team sizes; the result does not
+# depend on it.
 _TEAM_WARPS = 0
 
 
@@ -81,6 +97,32 @@ def team_shape(m: int) -> tuple[int, int]:
     return 32 * warps, -(-m // (32 * warps))
 
 
+def latency_team(m: int, n: int, wr: int, wc: int, k: int) -> int | None:
+    """Threads of the latency kernel's block, ``32 * ceil(m / 32)``: a check
+    and three variables a thread, ``k`` rows a block (the rows of the
+    busiest SM), as ``csrc/bp_flood.cu:latency_shape`` sizes it before its
+    occupancy query; None where the kernel does not take it
+    (more than 1024 checks, more than three variables a thread, rows of
+    more than 8 slots, columns of more than 4, more than 2 rows a block)."""
+    T = 32 * -(-m // 32)
+    if wr > 8 or wc > 4 or T > 1024 or n > 3 * T or k > 2:
+        return None
+    return T
+
+
+def latency_smem_bytes(threads: int, rows: int, wr: int) -> int:
+    """Shared memory of a latency-kernel block of ``threads`` and ``rows``
+    rows, with ``kS`` = ``wr`` rounded up to 4 or 8 slots: the variable
+    rows ``[threads * 3]`` (an int4 each), then a region a row: the totals
+    ``[threads * 3 + 2]`` (two pad targets), c2v warp-tiled ``[threads /
+    32][kS][32]`` and, with two rows, the row's priors ``[threads * 3]``;
+    every part a multiple of 16 bytes, as ``csrc/bp_flood.cu:latency_smem``
+    computes it."""
+    kS = 8 if wr > 4 else 4
+    region = 4 * _round4(threads * 3 + 2) + 4 * kS * threads + (4 * threads * 3 if rows > 1 else 0)
+    return 16 * threads * 3 + rows * region
+
+
 def k1_fits(graph, product_sum: bool = False) -> bool:
     """Whether K1 decodes ``graph`` in shared memory (the team kernel): one
     sample's whole state in the first design's layout fits a block, the row
@@ -96,18 +138,21 @@ def k1_fits(graph, product_sum: bool = False) -> bool:
 
 
 def bp_flood_plan(graph, B: int, *, product_sum: bool = False) -> dict:
-    """The team kernel's launch for ``B`` rows on the current card, from
+    """K1's launch for ``B`` rows on the current card, from
     ``csrc/bp_flood.cu:bp_flood_plan``: team threads, teams a block, blocks
     an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), grid, dynamic
-    shared memory, registers a thread, and the samples resident on an SM."""
-    plan = (ctypes.c_int * 6)()
+    shared memory, registers a thread, whether it is the latency plan (one
+    row a block of the latency kernel, ``grid`` = ``B``), and the samples
+    resident on an SM."""
+    plan = (ctypes.c_int * 7)()
     err = _build.load().bp_flood_plan(int(B), graph.m, graph.n, graph.wr, graph.wc,
                                       int(product_sum), int(_TEAM_WARPS), plan)
     if err != 0:
         raise RuntimeError(f"bp_flood_plan failed: CUDA error {err}")
     keys = ("team_threads", "teams_per_block", "blocks_per_sm", "grid", "smem_bytes",
-            "registers")
+            "registers", "latency")
     out = dict(zip(keys, plan))
+    out["latency"] = bool(out["latency"])
     out["resident_per_sm"] = out["teams_per_block"] * out["blocks_per_sm"]
     return out
 
@@ -184,6 +229,7 @@ def bp_flood(
             def ptr(t, row0):  # the chunk's rows of a [B, ...] tensor, or None
                 return None if t is None else t[row0:].data_ptr()
 
+            plan = (ctypes.c_int * 7)()
             for row0 in range(0, B, rows):
                 err = lib.bp_flood_launch(
                     ptr(synd, row0), llr0[row0:].data_ptr() if stride else llr0.data_ptr(),
@@ -192,11 +238,13 @@ def bp_flood(
                     ptr(hard, row0), ptr(llr, row0), ptr(conv, row0), ptr(iters, row0),
                     ptr(v2c, row0), ptr(scratch, 0), ptr(counter, 0), ptr(row_iters, 0),
                     min(rows, B - row0), m, n, wr, wc, int(max_iter), int(it0),
-                    int(method == "product_sum"), alpha, int(_TEAM_WARPS), stream,
+                    int(method == "product_sum"), alpha, int(_TEAM_WARPS), stream, plan,
                 )
                 if err != 0:
                     raise RuntimeError(f"bp_flood launch failed: CUDA error {err}")
                 count_launch(bp_flood, dev)
+                if plan[6]:  # the latency plan took the launch's rows
+                    profiling.count("bp_flood.latency_rows", min(rows, B - row0))
     return hard, llr, conv.to(torch.bool), iters, v2c
 
 

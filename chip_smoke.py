@@ -183,6 +183,22 @@ Phases, one line each (any failed check exits non-zero):
    sweep's heavy-batch times and a lone 100-iteration row's ms an
    iteration; K6, its device-memory route and the plain version timed with
    CUDA events on the p = 0.028 and p = 0.005 batches beside K6's bound.
+22. K1 where its launches under-fill the card: (a) the gross code
+   [[144,12,12]] over 12 noisy rounds (the benchmark cell
+   ``gross144.ph12.p025.b4096``'s 936 x 2736 space-time matrix, 4096
+   syndromes at p = 0.025, adaptive min-sum to 10^4 iterations, osd_cs 7)
+   through ``BpOsdDecoder``: three K1 launches a decode, the recorder's
+   stage rows equal K1's stages and ``bp_flood.latency_rows`` the rows of
+   the stages on the latency plan, every osdw satisfied; each of the three
+   staged K1 launches (``k1_stages``) held to ``bp_decode_plain`` in all
+   five outputs, timed (CUDA events, median of 3) beside its bound, with
+   its plan (latency or throughput, threads, rows a block, grid,
+   registers); (b) 1, SMs + 9 and 2 SMs - 1 rows resumed (the gross
+   matrix's stage 2 of 8192 syndromes, iterations 625-2496; the flagship's
+   stage 3 of 16384, iterations 97-400), on the plan's choice and with the
+   throughput team forced through ``_TEAM_WARPS``, each held to
+   ``bp_decode_plain`` in all five outputs and timed beside its bound, the
+   two in turns (8 rounds of a median of 3, the order swapped each round).
 
 The helpers for timing, bounds and gates are those of
 ``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
@@ -238,12 +254,27 @@ LIFT, LIFT_P, LIFT_HEAVY_P, LIFT_B, LIFT_ORDER = 400, 0.005, 0.028, 512, 15
 SIM_ROWS, SIM_RUNS, LIFT_RUNS = 512, 100000, 4096  # phases 12-14
 LIFT_CPU_ROWS = 8  # phase 14's lift-400 rows on the CPU, whose plain OSD is slow at n = 10^4
 STAGE_SCHEDULES = (None, 32, (8, 32, 128), 400)  # phase 19's stage1_iters
+# phase 22: the benchmark cell gross144.ph12.p025.b4096's space-time decode
+GROSS_ROUNDS, GROSS_P, GROSS_B, GROSS_ITERS = 12, 0.025, 4096, 10000
+PAIR_ROUNDS = 8  # phase 22b: rounds of the plan's choice against the throughput team
 BIG_RUNS = 6 * 16384  # phase 15d's harness at batch 16384
 RANK_TIMEOUT = 300  # seconds the phase-15c ranks may take, start-up included
 
 
 def plan_line(plan: dict) -> str:
     return ", ".join(f"{k} {v}" for k, v in plan.items())
+
+
+def _with_team(warps, fn):
+    """``fn()`` with K1's teams forced to ``warps`` warps (the throughput
+    plan), through ``ops/cuda_bp.py:_TEAM_WARPS``."""
+    from bp_osd_tpu_torch.ops import cuda_bp
+
+    cuda_bp._TEAM_WARPS = warps
+    try:
+        return fn()
+    finally:
+        cuda_bp._TEAM_WARPS = 0
 
 
 def phase12(dev, qcode, tag, rows=SIM_ROWS, runs=SIM_RUNS,
@@ -1415,6 +1446,125 @@ def phase21(tag, qcode, fresh_l, heavy_l) -> dict:
                       for T, e in sweep.items()}}
 
 
+def phase22(tag) -> dict:
+    """K1 on the gross code's space-time matrix and at launches that
+    under-fill the card (see the module docstring).  Returns the kernels
+    line's numbers for K1's latency plan."""
+    from bp_osd_tpu_torch import BpOsdDecoder
+    from bp_osd_tpu_torch.codes import gross_code, hgp, mkmn_16_4_6, phenomenological
+    from bp_osd_tpu_torch.decoder.bp import bp_decode_plain, llr_from_channel
+    from bp_osd_tpu_torch.decoder.tanner import TannerGraph
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_plan
+    from bp_osd_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(SEED + 22)
+
+    def problem(H, p, rows):
+        """The graph, ``rows`` syndromes of errors at rate ``p`` on every
+        column, and the channel prior broadcast over them."""
+        graph = TannerGraph(H, dev)
+        H_f = torch.as_tensor(H, dtype=torch.float32, device=dev)
+        e = torch.as_tensor((rng.random((rows, graph.n)) < p).astype(np.float32), device=dev)
+        synd = torch.remainder(e @ H_f.T, 2).to(torch.uint8)
+        return graph, synd, llr_from_channel(np.full(graph.n, p)).to(dev).expand(rows, graph.n)
+
+    def timed(graph, args, kw, warps=0, ms=None):
+        """One launch held to the plain version (all five outputs), timed
+        (CUDA events, median of 3, unless ``ms`` is given), beside its bound
+        and its plan."""
+        out = _with_team(warps, lambda: bp_flood(*args, **kw))
+        k1_equal(out, bp_decode_plain(*args, **kw),
+                 f"phase 22 {args[1].shape[0]} rows, iterations {kw['it0'] + 1}-"
+                 f"{kw['max_iter']}, teams {warps or 'of the plan'}")
+        rows, its = args[1].shape[0], kw["max_iter"] - kw["it0"]
+        if ms is None:
+            ms = _with_team(warps, lambda: cuda_ms(lambda: bp_flood(*args, **kw), 3))
+        b = k1_bound(graph, rows, int((out[3] - kw["it0"]).sum()),
+                     prior_rows=1 if args[2].stride(0) == 0 else rows,
+                     v2c_in=kw["v2c_init"] is not None, emit=kw["emit_state"])
+        plan = _with_team(warps, lambda: bp_flood_plan(graph, rows))
+        return {"rows": rows, "it0": kw["it0"], "max_iter": kw["max_iter"], "ms": ms,
+                "us_per_iteration": 1000 * ms / its, "bound_ms": b.ms, "bound_by": b.by,
+                "plan": "latency" if plan["latency"] else "throughput",
+                "threads": plan["team_threads"], "rows_per_block": plan["teams_per_block"],
+                "grid": plan["grid"], "registers": plan["registers"]}
+
+    def text(r):
+        return (f"{r['rows']} rows {r['plan']} ({r['threads']} threads x {r['rows_per_block']} "
+                f"rows a block, grid {r['grid']}, {r['registers']} registers): {r['ms']:.3f} ms, "
+                f"{r['us_per_iteration']:.3f} us an iteration, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+
+    # (a) one decode of the gross144 cell's shape through the main path
+    H_st = phenomenological(gross_code().hx, GROSS_ROUNDS).H.toarray().astype(np.uint8)
+    graph, synd, l0 = problem(H_st, GROSS_P, GROSS_B)
+    bp_kw = dict(method="minimum_sum", ms_scaling_factor=0.0)
+    dec = BpOsdDecoder(H_st, error_rate=GROSS_P, max_iter=GROSS_ITERS, bp_method="ms",
+                       ms_scaling_factor=0, osd_method="osd_cs", osd_order=7)
+    dec.decode_batch(synd, outputs="device")  # warm-up: the kernels' first use
+    reset_launches()
+    profiling.collect()
+    profiling.enable()
+    try:
+        out = dec.decode_batch(synd, outputs="device")
+    finally:
+        profiling.disable()
+    counters = profiling.collect().counters
+    got = {k: v for k, v in launch_counts().items() if v}
+    stages = k1_stages(graph, synd, l0, GROSS_ITERS, **bp_kw)
+    stage_rows = [counters.get(f"bp.stage_rows.{i + 1}", 0) for i in range(len(stages))]
+    check(stage_rows == [st.args[1].shape[0] for st in stages],
+          f"phase 22 the decode's stage rows {stage_rows} differ from K1's stages")
+    check(got.get("bp_flood") == len(stages) == 3, f"phase 22 one decode's launches {got}")
+    check(same(stages[-1].rows[~stages[-1].out[2]], torch.nonzero(~dec.converge_batch).flatten()),
+          "phase 22 the staged rows differ from the decoder's failures")
+    latency_rows = sum(r for r in stage_rows if bp_flood_plan(graph, r)["latency"])
+    check(counters.get("bp_flood.latency_rows", 0) == latency_rows > 0,
+          f"phase 22 bp_flood.latency_rows {counters.get('bp_flood.latency_rows')} != "
+          f"{latency_rows}, the rows of the stages on the latency plan")
+    H_f = torch.as_tensor(H_st, dtype=torch.float32, device=dev)
+    check(satisfies(out, H_f, synd), "phase 22 a gross osdw violates its syndrome")
+    gross = [timed(graph, st.args, st.kw) for st in stages]
+    print(f"phase 22a gross code [[144,12,12]] over {GROSS_ROUNDS} rounds ({graph.m} x {graph.n}), "
+          f"{GROSS_B} syndromes at p = {GROSS_P}, adaptive min-sum to {GROSS_ITERS}: one decode's "
+          f"launches {got}, bp_flood.latency_rows {latency_rows}; K1 at its stages, five outputs "
+          f"bit-identical to bp_decode_plain: "
+          + "; ".join(f"stage {i + 1} " + text(r) for i, r in enumerate(gross)) + f" {tag}")
+
+    # (b) 1, SMs + 9 and 2 SMs - 1 rows resumed, on the plan and with the
+    # throughput team forced: the gross matrix's stage 2 (iterations
+    # 625-2496) of twice the rows, and the flagship's stage 3 (97-400)
+    H_fl = np.asarray(hgp(mkmn_16_4_6()).hx.toarray(), np.uint8)
+    cases = []
+    for name, (g, s, l), caps in (("gross144", problem(H_st, GROSS_P, 2 * GROSS_B), GROSS_ITERS),
+                                   ("flagship", problem(H_fl, 0.05, FRESH), 400)):
+        st = k1_stages(g, s, l, caps, **bp_kw)[1 if name == "gross144" else 2]
+        warps = bp_flood_plan(g, 1 << 20)["team_threads"] // 32  # the throughput team
+        for rows in (1, sms + 9, 2 * sms - 1):
+            check(st.args[1].shape[0] >= rows, f"phase 22 {name}: {st.args[1].shape[0]} rows "
+                  f"resumed, fewer than {rows}")
+            args = (g, st.args[1][:rows], st.args[2][:rows])
+            kw = dict(st.kw, v2c_init=st.kw["v2c_init"][:rows])
+            # in turns, the order swapped each round: of two timings back to
+            # back the first read up to 15% slower, the plan alike
+            ms = {0: [], warps: []}
+            for r in range(PAIR_ROUNDS):
+                for w in ((0, warps) if r % 2 == 0 else (warps, 0)):
+                    ms[w].append(_with_team(w, lambda: cuda_ms(lambda: bp_flood(*args, **kw),
+                                                               3)))
+            cases.append({"graph": name,
+                          "default": timed(g, args, kw, ms=float(np.median(ms[0]))),
+                          "throughput": timed(g, args, kw, warps, float(np.median(ms[warps])))})
+    print("phase 22b K1 resumed, five outputs bit-identical to bp_decode_plain, the plan's "
+          f"choice against the throughput team forced, in turns ({PAIR_ROUNDS} rounds): "
+          + "; ".join(f"{c['graph']} {text(c['default'])} | forced {text(c['throughput'])}"
+                      for c in cases) + f" {tag}")
+    return {"gross144_stages": gross, "gross144_launches": got["bp_flood"],
+            "gross144_latency_rows": latency_rows, "under_filled": cases}
+
+
 def rank_split(ranks: list[dict]) -> str:
     """Each rank's ms a batch, beside one reduction's and one slice's decode."""
     return ("each rank's first batch of one (a fresh process, before the timed run) "
@@ -1547,7 +1697,7 @@ def main() -> None:
     from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd_decode,
                                               osd_decode_plain, osd_route)
     from bp_osd_tpu_torch.decoder.tanner import TannerGraph
-    from bp_osd_tpu_torch.ops import _build, cuda_bp
+    from bp_osd_tpu_torch.ops import _build
     from bp_osd_tpu_torch.ops.cuda_bp import (bp_flood, bp_flood_plan, bp_flood_smem_bytes,
                                               bp_flood_table_bytes, bp_flood_team_bytes, k1_fits)
     from bp_osd_tpu_torch.decoder.pipeline import _staged_bp
@@ -1670,13 +1820,6 @@ def main() -> None:
     check(same(last.rows[~last.out[2]], torch.nonzero(~dec.converge_batch).flatten()),
           "the staged rows differ from the decoder's failures")
 
-    def with_team(warps, fn):  # fn() with teams of `warps` warps
-        cuda_bp._TEAM_WARPS = warps
-        try:
-            return fn()
-        finally:
-            cuda_bp._TEAM_WARPS = 0
-
     stage_ms, stage_plain_ms, stage_bound, report = [], [], [], []
     for i, (args, kw_s, out, sample_its, _) in enumerate(stages):
         nrows = args[1].shape[0]
@@ -1702,10 +1845,10 @@ def main() -> None:
     for label, (a_s, k_s, w_s), teams in (("stage 3", (args, kw_s, want), (1, 2, 3, 6)),
                                           ("corpus", corpus, (3, 6))):
         for tw in teams:
-            k1_equal(with_team(tw, lambda: bp_flood(*a_s, **k_s)), w_s,
+            k1_equal(_with_team(tw, lambda: bp_flood(*a_s, **k_s)), w_s,
                      f"{label} with teams of {tw} warps")
-            plan = with_team(tw, lambda: bp_flood_plan(graph, a_s[1].shape[0]))
-            t_ms = with_team(tw, lambda: cuda_ms(lambda: bp_flood(*a_s, **k_s), 5))
+            plan = _with_team(tw, lambda: bp_flood_plan(graph, a_s[1].shape[0]))
+            t_ms = _with_team(tw, lambda: cuda_ms(lambda: bp_flood(*a_s, **k_s), 5))
             sweep.append(f"{label} {a_s[1].shape[0]} rows, {tw} warp(s) {t_ms:.3f} ms "
                          f"({plan['resident_per_sm']} resident, {plan['registers']} registers)")
     report.append("other teams, bit-identical: " + ", ".join(sweep))
@@ -2148,6 +2291,7 @@ def main() -> None:
     schedules = phase19(tag, graph, synd, fresh, H_f, consts)
     phase20(tag, H, fresh)
     k6_line = phase21(tag, qcode, fresh_l, heavy_l)
+    k1_latency = phase22(tag)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)
@@ -2165,7 +2309,8 @@ def main() -> None:
         row("bp_flood", "bp_flood.cu", "bp_osd_tpu/ops/pallas_bp.py:140", launches["bp_flood"],
             per_decode["bp_flood"], bp_err, bp_ms, bp_plain_ms, bp_bound,
             stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
-            stage_bound_ms=[b.ms for b in stage_bound], stage_schedules=schedules),
+            stage_bound_ms=[b.ms for b in stage_bound], stage_schedules=schedules,
+            latency_plan=k1_latency),
         row("osd_cs", "osd_cs.cu", "bp_osd_tpu/ops/pallas_osd.py:135", launches["osd_cs"],
             per_decode["osd_cs"], osd_err, osd_ms, osd_plain_ms, osd_b),
         row("osd_e", "osd_cs.cu", "bp_osd_tpu/ops/pallas_osd.py:565", launches_e["osd_e"], k3_per_decode,

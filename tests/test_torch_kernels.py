@@ -15,7 +15,8 @@ from bp_osd_tpu_torch.decoder.bp import bp_decode, bp_decode_plain, llr_from_cha
 from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd_decode,
                                           osd_decode_plain)
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
-from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_plan, k1_fits
+from bp_osd_tpu_torch.ops.cuda_bp import (bp_flood, bp_flood_plan, k1_fits, latency_smem_bytes,
+                                          latency_team)
 from bp_osd_tpu_torch.ops.cuda_gf2 import (eliminate, gf2_elim_plan, k4_fits, k4_placement,
                                            k4_warp_fits)
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_plan, osd_e
@@ -320,21 +321,94 @@ def test_bp_flood_device_memory_placement(dev, monkeypatch):
 _MS = dict(method="minimum_sum", ms_scaling_factor=0.0)
 
 
-@pytest.mark.parametrize("B", [1, 5, 3000, 65536])
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("B", [1, 5, 3000, 4096, 65536])
 def test_bp_flood_team_batch_sizes(dev, B):
     """One row, fewer rows than an SM's teams, and far more rows than the
     card's resident teams (each team takes many rows from the counter):
     bit-identical to the plain version in every output, the state
-    included.  The team size is the graph's, whatever the batch."""
+    included.  The plan follows its rule: wherever ``B`` reaches the SMs
+    times the resident teams an SM of the graph's throughput team, that
+    team (at 4096 rows and more the very plan of 16384 rows); below it, the
+    latency plan where its kernel takes the graph: a block an SM of the
+    whole-row team, ``ceil(B / SMs)`` rows in the busiest, its shared memory
+    that of the Python mirror ``latency_smem_bytes``."""
     H = np.asarray(CODES["flagship"](), np.uint8)
     g = TannerGraph(H, dev)
     synd, llr0 = _batch(H, B, 0.05, 20 + B, dev)
     plan = bp_flood_plan(g, B)
-    assert plan["teams_per_block"] * plan["grid"] >= min(B, plan["teams_per_block"])
-    assert plan["team_threads"] == bp_flood_plan(g, 16384)["team_threads"]
+    full = bp_flood_plan(g, 16384)
+    k = -(-B // _sms(dev))
+    team = latency_team(g.m, g.n, g.wr, g.wc, k)
+    assert not full["latency"]
+    if B >= _sms(dev) * full["resident_per_sm"] or team is None:
+        assert not plan["latency"] and plan["team_threads"] == full["team_threads"]
+        assert plan["teams_per_block"] * plan["grid"] >= min(B, plan["teams_per_block"])
+        if B >= 4096:
+            assert plan == full
+    else:
+        assert plan["latency"] and plan["grid"] == min(B, _sms(dev))
+        assert plan["team_threads"] == team and plan["teams_per_block"] == k
+        assert plan["smem_bytes"] == latency_smem_bytes(team, k, g.wr)
     max_iter = 400 if B <= 3000 else 40
     kw = dict(max_iter=max_iter, emit_state=True, **_MS)
     _equal(bp_flood(g, synd, llr0, **kw), bp_decode_plain(g, synd, llr0, **kw))
+
+
+def _spacetime():
+    """The gross code's space-time matrix over 12 noisy rounds (936 x 2736)."""
+    from bp_osd_tpu_torch.codes import gross_code, phenomenological
+
+    return phenomenological(gross_code().hx, 12).H.toarray()
+
+
+CODES["spacetime"] = _spacetime
+_LATENCY_ROWS = {"1": lambda sms: 1, "5": lambda sms: 5, "sms": lambda sms: sms,
+                 "sms+9": lambda sms: sms + 9, "2sms": lambda sms: 2 * sms,
+                 "2sms+1": lambda sms: 2 * sms + 1}
+
+
+@pytest.mark.parametrize("code", ["spacetime", "flagship"])
+@pytest.mark.parametrize("rows", list(_LATENCY_ROWS))
+@pytest.mark.parametrize("msf", [0.0, 0.625])
+def test_bp_flood_latency_plan_bit_identical(dev, code, rows, msf):
+    """The latency plan (a block an SM of one row or two, each thread's
+    check row in registers) at 1 and 5 rows, a row on every SM, nine SMs
+    with two, two on every SM and one past it, fresh (the channel prior
+    broadcast) and resumed (skip rows, a prior a row, a random message state
+    at it0 = 9), adaptive and fixed min-sum: the plain version's five
+    outputs bit for bit, the state emitted.  The plan engages where its rule
+    says: ``B`` below the SMs times the throughput team's resident teams
+    an SM, and a team the latency kernel takes, with the shared memory of
+    the Python mirror ``latency_smem_bytes``; on both graphs it takes every
+    launch of one row an SM and of a few SMs with two."""
+    H = np.asarray(CODES[code](), np.uint8)
+    g = TannerGraph(H, dev)
+    B = _LATENCY_ROWS[rows](_sms(dev))
+    k = -(-B // _sms(dev))
+    plan = bp_flood_plan(g, B)
+    team = latency_team(g.m, g.n, g.wr, g.wc, k)
+    engaged = team is not None and B < _sms(dev) * bp_flood_plan(g, 16384)["resident_per_sm"]
+    assert plan["latency"] == engaged
+    if engaged:
+        assert plan["team_threads"] == team and plan["grid"] == min(B, _sms(dev))
+        assert plan["teams_per_block"] == k
+        assert plan["smem_bytes"] == latency_smem_bytes(team, k, g.wr)
+    if rows in ("1", "5", "sms", "sms+9"):
+        assert engaged
+    synd, llr0 = _batch(H, B, 0.03 if code == "spacetime" else 0.06, 30 + B, dev)
+    rng = np.random.default_rng(31 + B)
+    prior = torch.as_tensor(rng.uniform(1.0, 4.0, (B, g.n)).astype(np.float32), device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[1::4] = True
+    v2c = torch.as_tensor(rng.normal(1.0, 2.0, (B, g.m * g.wr)).astype(np.float32), device=dev)
+    for l0, extra in ((llr0, {}), (prior, {"skip": skip, "v2c_init": v2c, "it0": 9})):
+        kw = dict(method="minimum_sum", ms_scaling_factor=msf, max_iter=60, emit_state=True,
+                  **extra)
+        _equal(bp_flood(g, synd, l0, **kw), bp_decode_plain(g, synd, l0, **kw))
 
 
 def _wide_rows():
@@ -406,13 +480,14 @@ def test_bp_flood_spacetime_chain_and_row_iteration_counts(dev, monkeypatch):
     and each counter reads the rows' iterations past the launch's ``it0``,
     in the team kernel and in the device-memory placement; the staged
     pipeline with the recorder on gives the same bits and the counters
-    ``bp.row_iters.<i>`` of the split of each row's iterations by the caps."""
+    ``bp.row_iters.<i>`` of the split of each row's iterations by the caps,
+    and ``bp_flood.latency_rows`` the rows of its stages that the latency
+    plan took."""
     import bp_osd_tpu_torch.ops.cuda_bp as k1
-    from bp_osd_tpu_torch.codes import gross_code, phenomenological
     from bp_osd_tpu_torch.decoder.pipeline import decode_pipeline
     from bp_osd_tpu_torch.utils import profiling
 
-    H = phenomenological(gross_code().hx, 12).H.toarray()
+    H = CODES["spacetime"]()
     g = TannerGraph(H, dev)
     assert k1_fits(g)
     B = 512
@@ -450,6 +525,9 @@ def test_bp_flood_spacetime_chain_and_row_iteration_counts(dev, monkeypatch):
     t = traced.iterations.long()
     want = [int((t - a).clamp(0, b - a).sum()) for a, b in zip((0,) + caps[:-1], caps)]
     assert [counters.get(f"bp.row_iters.{i}", 0) for i in (1, 2, 3)] == want
+    stage_rows = [counters.get(f"bp.stage_rows.{i}", 0) for i in (1, 2, 3)]
+    latency = sum(r for r in stage_rows if r and bp_flood_plan(g, r)["latency"])
+    assert latency > 0 and counters.get("bp_flood.latency_rows", 0) == latency
 
 
 @pytest.mark.parametrize("code,team_warps", [("surface", 0), ("flagship", 0), ("flagship", 2),

@@ -8,7 +8,10 @@ K2 (the warp kernel of ``csrc/osd_cs.cu``), on the CPU.
 - K1's fused iteration order (the check update of t + 1 takes the syndrome
   parity of t and rebuilds v2c_t from the check's compressed message), in a
   plain numpy emulation, against the JAX ``bp_decode`` (XLA on the CPU) and
-  the port's ``bp_decode_plain``.
+  the port's ``bp_decode_plain``;
+- the latency plan's team rule and its kernel's register tables (16-bit
+  byte offsets into the totals and into a slot-major c2v), emulated in
+  numpy against the team kernel's gathers.
 """
 
 from types import SimpleNamespace
@@ -33,6 +36,8 @@ from bp_osd_tpu_torch.ops.cuda_bp import (
     bp_flood_table_bytes,
     bp_flood_team_bytes,
     k1_fits,
+    latency_smem_bytes,
+    latency_team,
     team_shape,
 )
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs_warp_smem_bytes
@@ -254,3 +259,149 @@ def test_fused_order_equals_the_plain_version_with_state():
     mine = fused_min_sum(g, synd, l0, max_iter=96, scale=0.0, v2c_init=first[4].numpy(), it0=24)
     for a, b in zip(mine, second):
         assert np.array_equal(a, b.numpy().astype(a.dtype))
+
+
+# ---- the latency plan: its team rule and its kernel's register tables ----
+
+
+def _spacetime():
+    from bp_osd_tpu_torch.codes import gross_code, phenomenological
+
+    return phenomenological(gross_code().hx, 12).H.toarray()
+
+
+CODES["spacetime"] = _spacetime
+
+
+@pytest.mark.parametrize("shape,k,want", [
+    ((936, 2736, 8, 3), 1, 960),  # the gross code's space-time matrix: a check a thread
+    ((936, 2736, 8, 3), 2, 960),  # two rows a block, the same threads
+    ((936, 2736, 8, 3), 3, None),  # three rows a block
+    ((192, 400, 7, 4), 1, 192),  # the flagship
+    ((6, 13, 4, 2), 2, 32),  # never below a warp
+    ((1100, 2000, 4, 4), 1, None),  # more than 1024 checks
+    ((192, 700, 7, 4), 1, None),  # more than three variables a thread
+    ((40, 120, 13, 4), 1, None),  # rows of more than 8 slots
+    ((192, 400, 7, 5), 1, None),  # columns of more than 4
+])
+def test_latency_team_rule(shape, k, want):
+    """The whole-row team, a check and three variables a thread, within the
+    latency kernel's bounds (``csrc/bp_flood.cu:latency_shape``)."""
+    assert latency_team(*shape, k) == want
+
+
+def _latency_tables(graph, threads):
+    """The latency kernel's tables for a block of ``threads``, for all
+    checks and variables at once, as byte offsets in a row's region, where
+    the totals ``[threads * 3 + 2]`` lie first (the last two the check
+    pads' +inf and the variable pads' +0.0) and c2v warp-tiled ``[threads /
+    32][kS][32]`` after them: a check's ``kS`` slots name their totals
+    (kept in registers), a variable's edges their c2v words with the lane
+    e % 4 in the low two bits (pad: the +0.0 in lane 3; an int4 a variable
+    in shared memory, before the regions)."""
+    m, n, wr = graph.m, graph.n, graph.wr
+    kS = 8 if wr > 4 else 4
+    E = m * wr
+    pad = threads * 3
+    c2v0 = 4 * (-(-(pad + 2) // 4) * 4)
+    cv = np.full((m, kS), 4 * pad, np.int64)
+    chk = graph.chk_var.numpy().astype(np.int64)
+    cv[:, :wr] = 4 * np.where(chk < n, chk, pad)
+    e = graph.var_edge.numpy().astype(np.int64)
+    c, s = e // wr, e % wr
+    word = ((c >> 5) * kS + s) * 32 + (c & 31)
+    ve = np.where(e < E, (c2v0 + 4 * word) | (e & 3), (4 * (pad + 1)) | 3)
+    return cv, ve, c2v0, kS, pad
+
+
+@pytest.mark.parametrize("code", ["surface", "flagship", "625", "weight1", "spacetime"])
+@pytest.mark.parametrize("rows", [1, 2])
+def test_latency_tables_gather_like_the_team_kernel(code, rows):
+    """Through the latency kernel's tables, in each row's region of a block
+    of one row and of two, a check gathers the totals the team kernel's
+    ``chk_var`` row names (+inf on pads), and a variable sums the
+    warp-tiled c2v in the four lanes of its flat edges, equal to
+    ``_totals`` bit for bit; the block's shared memory holds the variable
+    rows and the regions, pads included."""
+    g = _graph(code) if code != "spacetime" else TannerGraph(
+        np.asarray(_spacetime(), np.uint8), device="cpu")
+    threads = latency_team(g.m, g.n, g.wr, g.wc, rows)
+    cv, ve, c2v0, kS, pad = _latency_tables(g, threads)
+    rng = np.random.default_rng(3)
+    smem = np.zeros(latency_smem_bytes(threads, rows, g.wr) // 4, np.float32)
+    region = (smem.size - 4 * pad) // rows
+    priors = 3 * threads if rows > 1 else 0  # a row's priors, with two rows
+    assert region == c2v0 // 4 + kS * threads + priors and threads >= g.m and 3 * threads >= g.n
+    mask = g.chk_var.numpy() < g.n
+    for r in range(rows):
+        reg = smem[4 * pad + r * region : 4 * pad + (r + 1) * region]
+        c2v = np.where(mask, rng.normal(0, 2, (g.m, g.wr)), 0).astype(np.float32)[None]
+        reg[: g.n] = rng.normal(0, 3, g.n)
+        reg[pad] = np.inf  # reg[pad + 1] stays +0.0
+        tiled = np.zeros((threads, kS), np.float32)
+        tiled[: g.m, : g.wr] = c2v[0]
+        reg[c2v0 // 4 : c2v0 // 4 + kS * threads] = (
+            tiled.reshape(threads // 32, 32, kS).transpose(0, 2, 1).reshape(-1))
+
+        def at(off):  # the float at byte offset off of the region
+            return reg[off // 4]
+
+        tot_n = np.concatenate([reg[: g.n], [np.float32(np.inf)]])
+        assert np.array_equal(at(cv[:, : g.wr]), tot_n[np.minimum(g.chk_var.numpy(), g.n)])
+        assert np.all(at(cv[:, g.wr :]) == np.inf)
+        p = np.zeros((4, g.n), np.float32)
+        for j in range(4 if g.wc > 2 else g.wc):  # a pad adds +0.0 to lane 3
+            ent = ve[:, j] if j < g.wc else np.full(g.n, (4 * (pad + 1)) | 3)
+            x = at(ent & ~3)
+            for lane in range(4):
+                sel = (ent & 3) == lane
+                p[lane][sel] = p[lane][sel] + x[sel]
+        l0 = rng.normal(2, 1, g.n).astype(np.float32)
+        assert np.array_equal((l0 + ((p[0] + p[1]) + (p[2] + p[3]))).astype(np.float32),
+                              _totals(c2v, l0, g)[0])
+
+
+def test_an_infinite_pad_leaves_the_check_message_alone():
+    """The latency kernel's pad slots read a total of +inf, so their v2c is
+    +inf - c2v = +inf: it enters the two-minimum update above the 1e30 cap
+    and never flips a sign or the hard-decision parity, so every check's
+    message equals the one with pads entered as the cap (``_message``)."""
+    rng = np.random.default_rng(4)
+    B, m, wr = 16, 40, 8
+    mask = np.arange(wr)[None, :] < rng.integers(1, wr + 1, m)[:, None]
+    v2c = rng.normal(0, 3, (B, m, wr)).astype(np.float32)
+    v2c[:, :, 0] = np.where(rng.random((B, m)) < 0.2, np.float32(0.0), v2c[:, :, 0])
+    syn = rng.integers(0, 2, (B, m))
+    want = _message(v2c, mask, syn, np.float32(0.625))
+    big = _BIG.view(np.uint32)
+    inf = np.where(mask[None], v2c, np.float32(np.inf) - np.float32(rng.normal(0, 3)))
+    m1 = np.full((B, m), big, np.uint32)
+    m2 = np.full((B, m), big, np.uint32)
+    i1 = np.full((B, m), 31, np.int64)
+    neg = np.zeros((B, m, wr), bool)
+    for s in range(wr):  # every slot, pads included, as the latency kernel adds them
+        x = inf[:, :, s]
+        neg[:, :, s] = x < 0
+        mag = x.view(np.uint32) & np.uint32(0x7FFFFFFF)
+        i1 = np.where(mag < m1, s, i1)
+        m2 = np.minimum(m2, np.maximum(m1, mag))
+        m1 = np.minimum(m1, mag)
+    assert not (neg & ~mask[None]).any()
+    parity = (syn + neg.sum(-1)) & 1
+    alpha = np.float32(0.625)
+    m1a, m2a = (m1.view(np.float32) * alpha), (m2.view(np.float32) * alpha)
+    mag = np.where(np.arange(wr)[None, None, :] == i1[..., None], m2a[..., None], m1a[..., None])
+    got = np.where(mask[None], np.where(neg ^ (parity[..., None] == 1), -mag, mag), 0)
+    assert np.array_equal(got.astype(np.float32), want)
+
+
+def test_the_latency_kernels_running_scale_is_alpha_at():
+    """The latency kernel's adaptive scale, 1 - 2^-t with 2^-t halved in
+    float32 from one iteration to the next, equals ``alpha_at``'s 1 -
+    ldexpf(1, -t) at every t, through the subnormals and past 2^-150."""
+    two_t = np.float32(np.ldexp(np.float32(1.0), -2))
+    for t in range(2, 400):
+        want = np.float32(1.0) - np.float32(np.ldexp(np.float64(1.0), -t))
+        assert np.float32(np.float32(1.0) - two_t) == want and two_t == np.ldexp(1.0, -t) or (
+            t > 149 and two_t == 0.0 and want == np.float32(1.0))
+        two_t = np.float32(two_t * np.float32(0.5))
