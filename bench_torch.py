@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import sys
@@ -547,7 +548,7 @@ def run_large(seed: int = 0, *, p: float = 0.005, steps: int = STEPS, batch: int
     from bp_osd_tpu_torch import BpOsdDecoder
     from bp_osd_tpu_torch.decoder.bp import llr_from_channel
     from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
-    from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_route
+    from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode_plain, osd_route
     from bp_osd_tpu_torch.ops.cuda_lifted_bp import k6_route
 
     dev = _device(device)
@@ -596,10 +597,11 @@ def run_large(seed: int = 0, *, p: float = 0.005, steps: int = STEPS, batch: int
     gates["plain"] = (f"{osd_kernel} bit-identical to the plain osd_cs and to the decode on "
                       f"{synd_f.shape[0]} failing rows of the timed batches")
 
-    # lifted BP, and the OSD kernel on the failing rows, alone on every timed
-    # batch (host clock)
+    # lifted BP, and the OSD kernel (off the card its plain version) on the
+    # failing rows, alone on every timed batch (host clock)
     lg = LiftedGraph(qcode.hx_proto, lift, dev)
-    kernel = wrappers()[osd_kernel]
+    kernel = (wrappers()[osd_kernel] if on_card
+              else functools.partial(osd_decode_plain, method="osd_cs"))
     bp_ms, osd_ms, osd_rows = [], [], []
     for s, (_, conv, llr_fail) in enumerate(steps_out):
         bp_ms.append(_timed(lambda: bp_decode_lifted(lg, batches[s], llr0, **bp_kw))[1])

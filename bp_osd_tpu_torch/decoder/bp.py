@@ -23,9 +23,9 @@ output is bit-identical to JAX at the shapes where XLA:CPU uses that order
 (the [[400,16,6]] flagship, small surface and Hamming codes), and the kernel
 is bit-identical to the plain version at every shape.
 
-``bp_decode`` takes ``backend`` in ``{"auto", "cuda", "torch"}``: CUDA tensors
-go to the kernel in :mod:`bp_osd_tpu_torch.ops.cuda_bp`, CPU tensors to
-:func:`bp_decode_plain`.
+:func:`_bp_decode` alone picks by the tensors' device: CUDA tensors go to the
+kernel in :mod:`bp_osd_tpu_torch.ops.cuda_bp`, others to :func:`bp_decode_plain`.
+``bp_decode`` checks its ``backend`` against that device once.
 """
 
 from __future__ import annotations
@@ -35,9 +35,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import resolve_backend
 from ..utils import profiling
-from .tanner import TannerGraph
+from .tanner import TannerGraph, resolve_backend
 
 __all__ = [
     "BPResult",
@@ -369,14 +368,15 @@ def bp_decode(
     """
     device = syndromes.device if torch.is_tensor(syndromes) else graph.device
     synd = as_syndromes(syndromes, graph.m, device)
+    resolve_backend(backend, device)
     return _bp_decode(graph, synd, llr0, bp_method=bp_method, max_iter=max_iter,
                       ms_scaling_factor=ms_scaling_factor, skip=skip, v2c_init=v2c_init,
-                      it0=it0, emit_state=emit_state, backend=backend)
+                      it0=it0, emit_state=emit_state)
 
 
 def _bp_decode(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method: str,
                max_iter: int, ms_scaling_factor: float, skip=None, v2c_init=None,
-               it0: int = 0, emit_state: bool = False, backend: str = "auto",
+               it0: int = 0, emit_state: bool = False,
                row_iters: torch.Tensor | None = None):
     """:func:`bp_decode` of ``synd``, syndromes that :func:`as_syndromes`
     has checked (a ``[B, m]`` uint8 tensor); the port's own callers use it,
@@ -398,7 +398,7 @@ def _bp_decode(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method: str,
     kw = dict(method=method, max_iter=int(max_iter),
               ms_scaling_factor=float(ms_scaling_factor), skip=skip,
               v2c_init=v2c_init, it0=int(it0), emit_state=emit_state, row_iters=row_iters)
-    if resolve_backend(backend, device) == "cuda":
+    if device.type == "cuda":
         from ..ops.cuda_bp import bp_flood
 
         hard, llr, conv, iters, v2c = bp_flood(graph, synd, llr0, **kw)

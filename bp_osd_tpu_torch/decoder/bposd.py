@@ -18,9 +18,9 @@ failures on the unpermuted graph, as in the JAX package.
 
 A decoder lives on one ``device`` (default: the card when
 ``torch.cuda.is_available()``, else the CPU).  ``backend`` in
-``{"auto", "cuda", "torch"}`` resolves by that device: on the card every
-decode goes through the CUDA kernels, on the CPU through their plain torch
-versions, and ``"cuda"`` without a card raises.
+``{"auto", "cuda", "torch"}`` is checked against that device once, here: on
+the card every decode goes through the CUDA kernels, on the CPU through their
+plain torch versions, and ``"cuda"`` without a card raises.
 
 Syndromes (and received vectors) must hold 0/1 entries: a float syndrome
 such as 0.9 raises ``ValueError`` instead of being truncated to 0 as the JAX
@@ -34,14 +34,13 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..ops import BACKENDS, resolve_backend
 from ..utils import profiling
 from .bp import BPResult, _bp_decode, as_syndromes, llr_from_channel, normalize_bp_method
 from .layered import LayeredTannerGraph, _bp_decode_layered
 from .lifted_bp import LiftedGraph, _bp_decode_lifted
 from .osd import build_osd_consts, normalize_osd_method
 from .pipeline import _decode_pipeline
-from .tanner import TannerGraph, resolve_device
+from .tanner import TannerGraph, resolve_backend, resolve_device
 
 __all__ = ["BpDecoder", "BpOsdDecoder", "bp_decoder", "bposd_decoder"]
 
@@ -113,8 +112,6 @@ class BpDecoder:
                 f"input_vector_type={input_vector_type!r} is not supported; "
                 "choose 'syndrome' or 'received_vector'"
             )
-        if backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.device = resolve_device(device, backend)
         self.backend = resolve_backend(backend, self.device)
         self._lifted = None
@@ -200,7 +197,7 @@ class BpDecoder:
                 elif self._layered is not None:
                     res = _bp_decode_layered(self._layered, synd, llr0, **kw)
                 else:
-                    res = _bp_decode(self.graph, synd, llr0, backend=self.backend, **kw)
+                    res = _bp_decode(self.graph, synd, llr0, **kw)
             with profiling.span("outputs"):
                 hard = res.hard if received is None else res.hard ^ received
                 self.bp_decoding_batch = self._out(hard, outputs)
@@ -301,8 +298,7 @@ class BpOsdDecoder(BpDecoder):
                     bp_method=self.bp_method, max_iter=self.max_iter,
                     ms_scaling_factor=self.ms_scaling_factor,
                     osd_method=self.osd_method, osd_order=self.osd_order,
-                    consts=self._osd_consts, backend=self.backend, lifted=self._lifted,
-                    layered=self._layered,
+                    consts=self._osd_consts, lifted=self._lifted, layered=self._layered,
                 ))
             with profiling.span("outputs"):
                 cat = [torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*outs)]

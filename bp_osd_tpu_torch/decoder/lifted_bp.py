@@ -19,10 +19,10 @@ iteration instead of three per (block row, slot), of which the
 rows leave the working set with one row gather as they converge, and the
 check update is the dense path's own code.  That loop, :func:`_bp_rows`, is
 the plain version of kernel K6 (``csrc/bp_lifted.cu``), which runs the whole
-decode of a batch in one launch: CUDA tensors go to K6
-(:func:`bp_osd_tpu_torch.ops.cuda_lifted_bp.bp_lifted`), CPU tensors to
-:func:`_bp_rows`.  K6 routes by the protograph instead of the index tables:
-``slot_table`` gives slot ``s`` of block row ``I`` as ``(J, e)``, and
+decode of a batch in one launch: :func:`_bp_decode_lifted` sends CUDA
+tensors to K6 (:func:`bp_osd_tpu_torch.ops.cuda_lifted_bp.bp_lifted`), others
+to :func:`_bp_rows`.  K6 routes by the protograph instead of the index
+tables: ``slot_table`` gives slot ``s`` of block row ``I`` as ``(J, e)``, and
 ``block_edges`` lists the ``(I, s, e)`` of variable block ``J``'s edges in
 the order ``var_edge`` sums them.  The JAX package computes this decode in
 XLA, as one ``jax.lax.while_loop``, outside any Pallas kernel.

@@ -29,8 +29,10 @@ that of kernel K4 (``csrc/osd_cs.cu``'s warp kernel, ``csrc/gf2_elim.cu``
 for larger codes), with the JAX package's five elimination outputs, and
 :func:`osd_after_elimination` the torch steps that follow K4 (osd0
 read-off, T-column extraction, exhaustive search).
-``osd_decode`` takes ``backend`` in ``{"auto", "cuda", "torch"}``; on the
-card :func:`osd_route` picks the kernel.  Skipped rows come back as zeros.
+:func:`_osd_decode` alone picks by the tensors' device: on the card
+:func:`osd_route` picks the kernel, elsewhere the plain versions run.
+``osd_decode`` checks its ``backend`` against that device once.  Skipped rows
+come back as zeros.
 """
 
 from __future__ import annotations
@@ -41,10 +43,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import resolve_backend
 from ..utils import profiling
 from .bp import as_f32, as_syndromes
-from .tanner import TannerGraph
+from .tanner import TannerGraph, resolve_backend
 
 __all__ = [
     "OSD_METHODS",
@@ -406,13 +407,13 @@ def osd_decode(
     """
     device = syndromes.device if torch.is_tensor(syndromes) else graph.device
     synd = as_syndromes(syndromes, graph.m, device)
+    resolve_backend(backend, device)
     return _osd_decode(graph, synd, llr, osd_method=osd_method, osd_order=osd_order,
-                       consts=consts, skip=skip, backend=backend)
+                       consts=consts, skip=skip)
 
 
 def _osd_decode(graph: TannerGraph, synd: torch.Tensor, llr, *, osd_method: str,
-                osd_order: int, consts: OsdConsts | None = None, skip=None,
-                backend: str = "auto") -> OsdResult:
+                osd_order: int, consts: OsdConsts | None = None, skip=None) -> OsdResult:
     """:func:`osd_decode` of ``synd``, syndromes that
     :func:`~bp_osd_tpu_torch.decoder.bp.as_syndromes` has checked (a
     ``[B, m]`` uint8 tensor); the port's own callers use it, so a public
@@ -438,7 +439,7 @@ def _osd_decode(graph: TannerGraph, synd: torch.Tensor, llr, *, osd_method: str,
     with profiling.span("osd.argsort", rows=B):
         perm = torch.argsort(llr, dim=1, stable=True).to(torch.int32)
     order = 0 if method == "osd0" else int(osd_order)
-    if resolve_backend(backend, device) == "cuda":
+    if device.type == "cuda":
         from ..ops.cuda_gf2 import eliminate
         from ..ops.cuda_osd import osd_cs, osd_e
         from ..ops.cuda_osd_large import osd_large

@@ -32,7 +32,7 @@ from .bp import _bp_decode, as_f32, as_syndromes, normalize_bp_method
 from .layered import LayeredTannerGraph, _bp_decode_layered
 from .lifted_bp import LiftedGraph, _bp_decode_lifted
 from .osd import OsdConsts, _osd_decode
-from .tanner import TannerGraph
+from .tanner import TannerGraph, resolve_backend
 
 __all__ = ["BpOsdBatch", "auto_stage_schedule", "decode_pipeline", "stage_caps"]
 
@@ -116,15 +116,16 @@ def decode_pipeline(
     ``stage1_iters``."""
     device = syndromes.device if torch.is_tensor(syndromes) else graph.device
     synd = as_syndromes(syndromes, graph.m, device)
+    resolve_backend(backend, device)
     return _decode_pipeline(graph, synd, llr0, bp_method=bp_method, max_iter=max_iter,
                             ms_scaling_factor=ms_scaling_factor, osd_method=osd_method,
-                            osd_order=osd_order, consts=consts, backend=backend,
-                            lifted=lifted, layered=layered, stage1_iters=stage1_iters)
+                            osd_order=osd_order, consts=consts, lifted=lifted,
+                            layered=layered, stage1_iters=stage1_iters)
 
 
 def _decode_pipeline(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method: str,
                      max_iter: int, ms_scaling_factor: float, osd_method: str, osd_order: int,
-                     consts: OsdConsts | None = None, backend: str = "auto",
+                     consts: OsdConsts | None = None,
                      lifted: LiftedGraph | None = None,
                      layered: LayeredTannerGraph | None = None,
                      stage1_iters=None) -> BpOsdBatch:
@@ -151,7 +152,7 @@ def _decode_pipeline(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method:
             hard, llr, conv, iters = _bp_decode_layered(layered, synd, llr0, **bp_kw)
         else:
             hard, llr, conv, iters = _staged_bp(graph, synd, llr0, method, max_iter,
-                                                ms_scaling_factor, backend, stage1_iters)
+                                                ms_scaling_factor, stage1_iters)
 
     with profiling.span("osd"):
         osdw = hard.clone()
@@ -162,7 +163,7 @@ def _decode_pipeline(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method:
             profiling.count("osd.rows", nfail)
             sel = order[:nfail]
             o = _osd_decode(graph, synd[sel], llr[sel], osd_method=osd_method,
-                            osd_order=osd_order, consts=consts, backend=backend)
+                            osd_order=osd_order, consts=consts)
             with profiling.span("osd.scatter"):
                 osdw[sel] = o.osdw
                 osd0[sel] = o.osd0
@@ -170,8 +171,7 @@ def _decode_pipeline(graph: TannerGraph, synd: torch.Tensor, llr0, *, bp_method:
                       iterations=iters, llr=llr)
 
 
-def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend,
-               stage1_iters=None):
+def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, stage1_iters=None):
     """BP in the stages of :func:`stage_caps`, each resuming the failures of
     the one before; returns ``(hard, llr, converged, iterations)``.  Stage
     ``i`` (from 1) is the span ``bp.stage`` and adds its rows to the counter
@@ -179,8 +179,7 @@ def _staged_bp(graph, synd, llr0, method, max_iter, ms_scaling_factor, backend,
     iterations its rows ran in the stage to the device counter
     ``bp.row_iters.<i>``: no host wait, and no launch a batch."""
     caps = stage_caps(max_iter, stage1_iters)
-    bp_kw = dict(bp_method=method, ms_scaling_factor=ms_scaling_factor,
-                 backend=backend)
+    bp_kw = dict(bp_method=method, ms_scaling_factor=ms_scaling_factor)
     row_iters = profiling.device_counter(
         tuple(f"bp.row_iters.{i}" for i in range(1, len(caps) + 1)), synd.device)
 

@@ -29,7 +29,9 @@ import torch
 
 from .. import gf2
 
-__all__ = ["TannerGraph", "canonical_device", "resolve_device"]
+__all__ = ["BACKENDS", "TannerGraph", "canonical_device", "resolve_backend", "resolve_device"]
+
+BACKENDS = ("auto", "cuda", "torch")
 
 
 def canonical_device(device) -> torch.device:
@@ -47,8 +49,10 @@ def resolve_device(device=None, backend: str = "auto") -> torch.device:
     An explicit ``device`` is taken as given.  With ``device=None``, backend
     ``"cuda"`` asks for the card and ``"torch"`` for the CPU; ``"auto"``
     takes the card when ``torch.cuda.is_available()``, else the CPU.  A
-    ``cuda`` device without a card raises ``RuntimeError``: nothing falls
-    back to the CPU."""
+    ``backend`` outside :data:`BACKENDS` raises ``ValueError``; a ``cuda``
+    device without a card raises ``RuntimeError``: nothing falls back to
+    the CPU."""
+    _check_backend(backend)
     if device is None:
         on_card = backend == "cuda" or (backend == "auto" and torch.cuda.is_available())
         device = "cuda" if on_card else "cpu"
@@ -56,6 +60,36 @@ def resolve_device(device=None, backend: str = "auto") -> torch.device:
         raise RuntimeError(f"device {str(device)!r} needs a CUDA card; "
                            "torch.cuda.is_available() is false")
     return canonical_device(device)
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def resolve_backend(backend: str, device) -> str:
+    """Map ``backend`` in :data:`BACKENDS` to ``"cuda"`` or ``"torch"``: the
+    one check of ``backend`` a public entry point makes.
+
+    The tensors' device decides what runs (the CUDA kernels on a card, their
+    plain torch versions elsewhere), so ``"auto"`` follows ``device``, and
+    ``"cuda"`` on CPU tensors and ``"torch"`` on CUDA tensors raise: nothing
+    falls back to another device or path.
+    """
+    _check_backend(backend)
+    on_card = torch.device(device).type == "cuda"
+    if backend == "cuda" and not on_card:
+        raise RuntimeError(
+            "backend='cuda' needs the inputs on a CUDA device "
+            f"(got {device}; torch.cuda.is_available()="
+            f"{torch.cuda.is_available()})"
+        )
+    if backend == "torch" and on_card:
+        raise ValueError(
+            "CUDA tensors always go to the kernels: backend='torch' takes CPU "
+            "tensors (call the plain *_plain function to run it on the card)"
+        )
+    return "cuda" if on_card else "torch"
 
 
 class TannerGraph:

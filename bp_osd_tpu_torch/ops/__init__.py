@@ -1,9 +1,13 @@
-"""Hand-written CUDA kernels for the decode hot path, and backend selection.
+"""Hand-written CUDA kernels for the decode hot path.
 
 Each kernel lives in ``bp_osd_tpu_torch/csrc/`` and is built by
-:mod:`bp_osd_tpu_torch.ops._build` on first use.  Its wrapper launches it for
-CUDA tensors, with their card made current for the launch, and uses the
-plain torch version, in the matching ``decoder`` module, for CPU tensors:
+:mod:`bp_osd_tpu_torch.ops._build` on first use.  Its wrapper takes CUDA
+tensors only and launches it with their card made current; tensors on any
+other device raise ``ValueError`` (:func:`require_cuda`) before anything is
+launched.  The layering is one-way: :mod:`bp_osd_tpu_torch.decoder` picks,
+by the tensors' device, a wrapper here or the plain torch version beside its
+algorithm, and this package imports from it only the graph types and the
+``Elimination`` record:
 
 - :mod:`.cuda_bp` ``bp_flood``: K1, flooding BP (``csrc/bp_flood.cu``);
 - :mod:`.cuda_osd` ``osd_cs`` and ``osd_e``: K2 and K3, osd0/osd_cs and
@@ -33,37 +37,19 @@ import torch
 
 from ..utils import profiling
 
-__all__ = ["BACKENDS", "count_launch", "launch_counter", "resolve_backend"]
+__all__ = ["count_launch", "launch_counter", "require_cuda"]
 
 # one lock for every wrapper's counts and the recorder's: shards on several
 # cards launch from several threads, and ``+= 1`` on an attribute is not atomic
 _COUNT_LOCK = profiling.COUNT_LOCK
 
-BACKENDS = ("auto", "cuda", "torch")
 
-
-def resolve_backend(backend: str, device) -> str:
-    """Map ``backend`` in :data:`BACKENDS` to ``"cuda"`` or ``"torch"``.
-
-    ``"auto"`` follows ``device``: CUDA tensors always go to the kernels.
-    ``"cuda"`` on CPU tensors and ``"torch"`` on CUDA tensors raise; nothing
-    falls back to another device or path.
-    """
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    on_card = torch.device(device).type == "cuda"
-    if backend == "cuda" and not on_card:
-        raise RuntimeError(
-            "backend='cuda' needs the inputs on a CUDA device "
-            f"(got {device}; torch.cuda.is_available()="
-            f"{torch.cuda.is_available()})"
-        )
-    if backend == "torch" and on_card:
-        raise ValueError(
-            "CUDA tensors always go to the kernels: backend='torch' takes CPU "
-            "tensors (call the plain *_plain function to run it on the card)"
-        )
-    return "cuda" if on_card else "torch"
+def require_cuda(name: str, device: torch.device) -> None:
+    """Raise ``ValueError`` unless ``device`` is a CUDA device: a wrapper
+    takes card tensors only, and launches and counts nothing on others."""
+    if device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {device}; the plain torch "
+                         "versions in bp_osd_tpu_torch.decoder run on the others")
 
 
 def launch_counter(wrapper):

@@ -1,8 +1,8 @@
 """Wrapper of kernel K1, ``csrc/bp_flood.cu``: flooding BP.
 
-Replaces ``bp_osd_tpu/ops/pallas_bp.py:bp_decode_pallas``.  CUDA tensors go
-to the kernel; CPU tensors to the plain torch version,
-:func:`bp_osd_tpu_torch.decoder.bp.bp_decode_plain`.  A graph whose
+Replaces ``bp_osd_tpu/ops/pallas_bp.py:bp_decode_pallas``.  It takes CUDA
+tensors only; its plain torch version is in
+:mod:`bp_osd_tpu_torch.decoder.bp`.  A graph whose
 per-sample state fits a block's shared memory (:func:`k1_fits`) runs in one
 of two plans, chosen by ``csrc/bp_flood.cu:bp_flood_plan`` from the batch,
 the card's SM count and the graph alone (:func:`bp_flood_plan`):
@@ -34,10 +34,9 @@ import ctypes
 
 import torch
 
-from ..decoder.bp import bp_decode_plain
 from ..decoder.tanner import TannerGraph
 from ..utils import profiling
-from . import _build, count_launch, launch_counter
+from . import _build, count_launch, launch_counter, require_cuda
 
 __all__ = ["bp_flood", "bp_flood_plan", "bp_flood_smem_bytes", "bp_flood_table_bytes",
            "bp_flood_team_bytes", "k1_fits", "latency_smem_bytes", "latency_team", "team_shape"]
@@ -171,23 +170,16 @@ def bp_flood(
     emit_state: bool = False,
     row_iters: torch.Tensor | None = None,
 ):
-    """Flooding BP; same arguments and results as ``bp_decode_plain``.
+    """Flooding BP on CUDA tensors; same arguments and results as its plain
+    version in :mod:`bp_osd_tpu_torch.decoder.bp`.
 
     ``synd [B, m]`` uint8, ``llr0 [B, n]`` f32 (a broadcast ``[n]`` row is
     read with stride 0), ``skip [B]`` bool, ``v2c_init [B, m * wr]`` f32,
     ``row_iters [1]`` int64.
     """
-    kw = dict(method=method, max_iter=max_iter, ms_scaling_factor=ms_scaling_factor,
-              skip=skip, v2c_init=v2c_init, it0=it0, emit_state=emit_state,
-              row_iters=row_iters)
-    if synd.device.type == "cpu":
-        return bp_decode_plain(graph, synd, llr0, **kw)
-    if synd.device.type != "cuda":
-        raise ValueError(f"bp_flood takes CPU or CUDA tensors, got {synd.device}")
     if max_iter <= it0:
         raise ValueError(f"max_iter={max_iter} must exceed it0={it0}")
     dev = synd.device
-    graph = graph.to(dev)
     B, m, n, wr, wc = synd.shape[0], graph.m, graph.n, graph.wr, graph.wc
     E = m * wr
     _check(synd, "synd", torch.uint8, (B, m), dev)
@@ -203,6 +195,8 @@ def bp_flood(
         _check(v2c_init, "v2c_init", torch.float32, (B, E), dev)
     if row_iters is not None:
         _check(row_iters, "row_iters", torch.int64, (1,), dev)
+    require_cuda("bp_flood", dev)
+    graph = graph.to(dev)
 
     lib = _build.load()
     hard = torch.empty(B, n, dtype=torch.uint8, device=dev)

@@ -1,9 +1,9 @@
 """Wrapper of kernel K4: batched GF(2) Gauss-Jordan elimination in a
 per-sample column order, with the JAX package's five outputs.
 
-Replaces ``bp_osd_tpu/ops/pallas_gf2.py:eliminate_pallas``.  CUDA tensors go
-to a kernel; CPU tensors to the plain torch version,
-:func:`bp_osd_tpu_torch.decoder.osd.eliminate_plain`.  K4 has two kernels,
+Replaces ``bp_osd_tpu/ops/pallas_gf2.py:eliminate_pallas``.  It takes CUDA
+tensors only; its plain torch version is in
+:mod:`bp_osd_tpu_torch.decoder.osd`.  K4 has two kernels,
 picked by :func:`k4_placement`:
 
 - ``"warp"`` (``csrc/osd_cs.cu:gf2_elim_warp_launch``): a warp per sample,
@@ -23,9 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from ..decoder.osd import Elimination, eliminate_plain
+from ..decoder.osd import Elimination
 from ..decoder.tanner import TannerGraph
-from . import _build, count_launch, launch_counter
+from . import _build, count_launch, launch_counter, require_cuda
 from .cuda_bp import _SMEM_LIMIT
 from .cuda_osd import _MAX_WORDS, _block_bytes, _check_inputs, warp_plan
 
@@ -93,14 +93,11 @@ def eliminate(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     (``"auto"``: :func:`k4_placement`)."""
     if placement not in PLACEMENTS:
         raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
-    if perm.device.type == "cpu":
-        return eliminate_plain(graph, perm, synd, skip=skip)
-    if perm.device.type != "cuda":
-        raise ValueError(f"eliminate takes CPU or CUDA tensors, got {perm.device}")
     dev = perm.device
-    graph = graph.to(dev)
     B, m, n, r, W = perm.shape[0], graph.m, graph.n, graph.rank, graph.num_words
     skip = _check_inputs(perm, synd, skip, B, m, n, dev)
+    require_cuda("eliminate", dev)
+    graph = graph.to(dev)
     place = k4_placement(graph) if placement == "auto" else placement
     lib = _build.load()
     if place == "warp":

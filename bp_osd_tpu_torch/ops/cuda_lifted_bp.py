@@ -2,15 +2,14 @@
 decode of a lifted-product batch in one launch.
 
 K6 replaces no Pallas kernel: the JAX package runs this decode as the XLA
-``jax.lax.while_loop`` of ``bp_osd_tpu/decoder/lifted_bp.py:173-212``.  CUDA
-tensors go to the kernel; CPU tensors to the plain torch version,
-:func:`bp_osd_tpu_torch.decoder.lifted_bp._bp_rows`; any other device
-raises.  A graph whose row state (min-sum: three words a check and the
-totals; product-sum: the messages and the totals) fits a block's shared
-memory beside K6's tables (:func:`k6_route` ``"shared"``, min-sum up to lift
-942 of the [[10000,420]] code's protograph) keeps it there; a larger one
-keeps it in a device-memory slice of each persistent block.  Either way a
-call is one launch, whatever the batch.  The threads a row come from the
+``jax.lax.while_loop`` of ``bp_osd_tpu/decoder/lifted_bp.py:173-212``.  It
+takes CUDA tensors only; its plain torch version is in
+:mod:`bp_osd_tpu_torch.decoder.lifted_bp`.  A graph whose row state
+(min-sum: three words a check and the totals; product-sum: the messages and
+the totals) fits a block's shared memory beside K6's tables (:func:`k6_route`
+``"shared"``, min-sum up to lift 942 of the [[10000,420]] code's protograph)
+keeps it there; a larger one keeps it in a device-memory slice of each
+persistent block.  Either way a call is one launch, whatever the batch.  The threads a row come from the
 graph alone (:func:`k6_threads`, once a card and graph), and the plan and
 the launch run with the tensors' card current.  ``bp_lifted.launches``
 counts kernel launches (``bp_lifted.launches_on`` by card).
@@ -25,9 +24,8 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..decoder.bp import normalize_bp_method
-from ..decoder.lifted_bp import LiftedGraph, _bp_rows
-from . import _build, count_launch, launch_counter
+from ..decoder.lifted_bp import LiftedGraph
+from . import _build, count_launch, launch_counter, require_cuda
 from .cuda_bp import _MAX_ROW_WEIGHT, _SMEM_LIMIT
 
 __all__ = ["TEAM_SIZES", "bp_lifted", "bp_lifted_plan", "bp_lifted_smem_bytes",
@@ -150,21 +148,18 @@ def _choice(card: int, mp: int, np_: int, L: int, wr: int, depth: int, product_s
 
 
 def _check_args(graph: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor) -> None:
-    """Device, dtype and shape of both inputs; on the card also contiguity
-    (``llr0`` may be one prior row broadcast with stride 0)."""
-    if synd.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"bp_lifted takes CPU or CUDA tensors, got {synd.device}")
+    """Dtype, shape and contiguity of both inputs (``llr0`` may be one prior
+    row broadcast with stride 0), and one device for both."""
     if llr0.device != synd.device:
         raise ValueError(f"llr0 is on {llr0.device}, synd on {synd.device}")
     B = synd.shape[0] if synd.dim() == 2 else -1
-    on_card = synd.device.type == "cuda"
     for name, t, dtype, shape in (("synd", synd, torch.uint8, (B, graph.m)),
                                   ("llr0", llr0, torch.float32, (B, graph.n))):
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
         broadcast = name == "llr0" and t.stride() == (0, 1)
-        if on_card and not (t.is_contiguous() or broadcast):
+        if not (t.is_contiguous() or broadcast):
             raise ValueError(f"{name} must be contiguous")
 
 
@@ -172,18 +167,20 @@ def bp_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor, method
               max_iter: int, ms_scaling_factor: float):
     """Lifted BP of ``synd [B, m]`` uint8 (checked 0/1, checks ordered
     ``(I, l)``) from ``llr0 [B, n]`` f32 (a broadcast ``[n]`` row is read
-    with stride 0); ``max_iter == 0`` means ``n``.  Returns ``(hard [B, n]
-    uint8, llr [B, n] f32, converged [B] bool, iterations [B] int32)``, as
-    :func:`~bp_osd_tpu_torch.decoder.lifted_bp._bp_rows` does."""
+    with stride 0), CUDA tensors, as
+    :func:`~bp_osd_tpu_torch.decoder.lifted_bp._bp_decode_lifted` passes
+    them: ``method`` normalised (``"minimum_sum"`` or ``"product_sum"``) and
+    ``max_iter >= 1``.  Returns ``(hard [B, n] uint8, llr [B, n] f32,
+    converged [B] bool, iterations [B] int32)``, as the plain version
+    does."""
     _check_args(graph, synd, llr0)
-    method = normalize_bp_method(method)
-    max_iter = int(max_iter) or graph.n
+    if method not in ("minimum_sum", "product_sum"):
+        raise ValueError(f"bp_method must be 'minimum_sum' or 'product_sum', got {method!r}")
     if max_iter < 1:
-        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
+        raise ValueError(f"max_iter must be >= 1, got {max_iter}")
     dev = synd.device
+    require_cuda("bp_lifted", dev)
     graph = graph.to(dev)
-    if dev.type == "cpu":
-        return _bp_rows(graph, synd, llr0, method, max_iter, float(ms_scaling_factor))
     B, n = synd.shape[0], graph.n
     if llr0.stride() == (0, 1):
         llr0, stride = llr0[0], 0  # one prior row broadcast over the batch
@@ -216,7 +213,7 @@ def bp_lifted(graph: LiftedGraph, synd: torch.Tensor, llr0: torch.Tensor, method
                 hard.data_ptr(), llr.data_ptr(), conv.data_ptr(), iters.data_ptr(),
                 scratch.data_ptr() if scratch is not None else None, counter.data_ptr(),
                 B, grid, plan["threads"], graph.mp, graph.np_, graph.L, graph.wr, graph.depth,
-                int(full_rows(graph)), max_iter, int(product_sum), alpha,
+                int(full_rows(graph)), int(max_iter), int(product_sum), alpha,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
             if err != 0:

@@ -4,9 +4,9 @@ several samples a block sharing the column-packed H.
 
 Replace ``bp_osd_tpu/ops/pallas_osd.py:osd_cs_pallas`` and ``osd_e_pallas``
 and their pre-pass ``_permuted_packed_h`` (the kernels build the permuted
-matrix themselves from ``perm`` and ``H_cols``).  CUDA tensors go to the
-kernel; CPU tensors to the plain torch version,
-:func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain`.  A launch runs with
+matrix themselves from ``perm`` and ``H_cols``).  They take CUDA tensors
+only; their plain torch version is in
+:mod:`bp_osd_tpu_torch.decoder.osd`.  A launch runs with
 its tensors' card current.  ``osd_cs.launches`` and ``osd_e.launches``
 count kernel launches (``launches_on`` by card).
 """
@@ -17,10 +17,9 @@ import ctypes
 
 import torch
 
-from ..decoder.osd import osd_decode_plain
 from ..decoder.tanner import TannerGraph
 from ..utils import profiling
-from . import _build, count_launch, launch_counter
+from . import _build, count_launch, launch_counter, require_cuda
 from .cuda_bp import _SMEM_LIMIT, _check
 
 __all__ = ["k2_fits", "k3_fits", "osd_cs", "osd_cs_plan", "osd_cs_warp_smem_bytes", "osd_e"]
@@ -121,19 +120,15 @@ def osd_cs(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     is osd0.  ``pairs`` is ``build_osd_consts(...).pairs`` (``[C2, 2]``,
     None below two T columns).  Returns ``(osd0, osdw)`` uint8 ``[B, n]`` in
     original coordinates, zero on skipped rows."""
-    if perm.device.type == "cpu":
-        return osd_decode_plain(graph, perm, synd, method="osd_cs",
-                                osd_order=osd_order, pairs=pairs, skip=skip)
-    if perm.device.type != "cuda":
-        raise ValueError(f"osd_cs takes CPU or CUDA tensors, got {perm.device}")
     dev = perm.device
-    graph = graph.to(dev)
     B, m, n, r = perm.shape[0], graph.m, graph.n, graph.rank
     lam = max(0, min(int(osd_order), n - r))
     if not k2_fits(graph, lam):
         raise ValueError(f"K2 does not take m={m}, n={n} at lam={lam} (k2_fits); "
                          f"the card decodes it with K5")
     skip = _check_inputs(perm, synd, skip, B, m, n, dev)
+    require_cuda("osd_cs", dev)
+    graph = graph.to(dev)
     n_pairs = lam * (lam - 1) // 2
     pairs_t = pairs_on(pairs, n_pairs, dev)
 
@@ -165,19 +160,15 @@ def osd_e(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     patterns on the first ``lam = min(osd_order, n - rank)`` T columns,
     ``1 <= lam <= 16``, in kernel K3.  Returns ``(osd0, osdw)`` uint8
     ``[B, n]`` in original coordinates, zero on skipped rows."""
-    if perm.device.type == "cpu":
-        return osd_decode_plain(graph, perm, synd, method="osd_e",
-                                osd_order=osd_order, skip=skip)
-    if perm.device.type != "cuda":
-        raise ValueError(f"osd_e takes CPU or CUDA tensors, got {perm.device}")
     dev = perm.device
-    graph = graph.to(dev)
     B, m, n, r = perm.shape[0], graph.m, graph.n, graph.rank
     lam = max(0, min(int(osd_order), n - r))
     if not 1 <= lam <= 16 or not k3_fits(graph, lam):
         raise ValueError(f"K3 takes 1 <= lam <= 16 on a graph that fits it "
                          f"(k3_fits); got lam={lam} for m={m}, n={n}")
     skip = _check_inputs(perm, synd, skip, B, m, n, dev)
+    require_cuda("osd_e", dev)
+    graph = graph.to(dev)
     lib = _build.load()
     e0 = torch.empty(B, n, dtype=torch.uint8, device=dev)
     ew = torch.empty(B, n, dtype=torch.uint8, device=dev)

@@ -1,9 +1,9 @@
 """Wrapper of kernel K5, ``csrc/osd_large.cu``: osd0 / osd_cs for codes whose
 matrix does not fit in a block's shared memory, one block per sample.
 
-Replaces ``bp_osd_tpu/ops/pallas_osd_large.py:osd_cs_large_pallas``.  CUDA
-tensors go to the kernel; CPU tensors to the plain torch version,
-:func:`bp_osd_tpu_torch.decoder.osd.osd_decode_plain` (the same as for K2).
+Replaces ``bp_osd_tpu/ops/pallas_osd_large.py:osd_cs_large_pallas``.  It
+takes CUDA tensors only; its plain torch version is in
+:mod:`bp_osd_tpu_torch.decoder.osd` (the same as K2's).
 Each sample's ``(n + 1) x ceil(m/32)`` matrix lives in a scratch buffer that
 this wrapper allocates, word-major (word ``w`` of every column contiguous);
 the kernel eliminates it a panel of :func:`osd_large_panel` columns at a
@@ -23,12 +23,11 @@ import ctypes
 
 import torch
 
-from ..decoder.osd import osd_decode_plain
 from ..decoder.tanner import TannerGraph
 from ..utils import profiling
-from . import _build, count_launch, launch_counter
-from .cuda_bp import _SMEM_LIMIT, _check
-from .cuda_osd import pairs_on
+from . import _build, count_launch, launch_counter, require_cuda
+from .cuda_bp import _SMEM_LIMIT
+from .cuda_osd import _check_inputs, pairs_on
 
 __all__ = ["osd_large", "osd_large_panel", "osd_large_plan", "osd_large_smem_bytes"]
 
@@ -98,21 +97,13 @@ def osd_large(graph: TannerGraph, perm: torch.Tensor, synd: torch.Tensor, *,
     is osd0.  Same arguments and results as
     :func:`bp_osd_tpu_torch.ops.cuda_osd.osd_cs`: ``(osd0, osdw)`` uint8
     ``[B, n]`` in original coordinates, zero on skipped rows."""
-    if perm.device.type == "cpu":
-        return osd_decode_plain(graph, perm, synd, method="osd_cs",
-                                osd_order=osd_order, pairs=pairs, skip=skip)
-    if perm.device.type != "cuda":
-        raise ValueError(f"osd_large takes CPU or CUDA tensors, got {perm.device}")
     dev = perm.device
-    graph = graph.to(dev)
     B, m, n, r = perm.shape[0], graph.m, graph.n, graph.rank
     Wm = -(-m // 32)
     lam = max(0, min(int(osd_order), n - r))
-    _check(perm, "perm", torch.int32, (B, n), dev)
-    _check(synd, "synd", torch.uint8, (B, m), dev)
-    if skip is not None:
-        skip = skip.to(torch.uint8)
-        _check(skip, "skip", torch.uint8, (B,), dev)
+    skip = _check_inputs(perm, synd, skip, B, m, n, dev)
+    require_cuda("osd_large", dev)
+    graph = graph.to(dev)
     n_pairs = lam * (lam - 1) // 2
     pairs_t = pairs_on(pairs, n_pairs, dev)
     per_row = _row_words(m, n)

@@ -17,8 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..decoder.osd import _osd_decode, build_osd_consts
-from ..decoder.tanner import TannerGraph
-from ..ops import resolve_backend
+from ..decoder.tanner import TannerGraph, resolve_backend
 from .edge_shard import ShardedTannerGraph, edge_sharded_bp_fn
 from .lifted_shard import ShardedLiftedGraph, lifted_sharded_bp_fn
 from .mesh import Mesh2D
@@ -27,25 +26,16 @@ from .shard_pallas import replicate, shard_decode_fn
 __all__ = ["edge_sharded_bposd_fn", "lifted_sharded_bposd_fn"]
 
 
-def _build_osd_stage(graph: TannerGraph, consts, mesh: Mesh2D, *, osd_method, osd_order,
-                     backend: str):
+def _build_osd_stage(graph: TannerGraph, consts, mesh: Mesh2D, *, osd_method, osd_order):
     """``stage(synd [B, m], llr [B, n], converged [B]) -> osdw [B, n]`` with
-    the batch split over every device of ``mesh``.
-
-    ``backend`` is the port's name for JAX's: ``"auto"`` (the kernels on a
-    card, plain torch on the CPU), ``"cuda"`` (JAX's ``"pallas"``; raises on
-    a CPU device) or ``"torch"`` (JAX's ``"xla"``; raises on a card, where
-    tensors always go to the kernels).  Nothing falls back.  The graph and
-    the OSD tables are copied to each device here, once."""
-    devices = dict.fromkeys(mesh.devices)
-    for d in devices:
-        resolve_backend(backend, d)
-    copies = {d: (graph.to(d), replicate(consts, d)) for d in devices}
+    the batch split over every device of ``mesh``.  The graph and the OSD
+    tables are copied to each device here, once."""
+    copies = {d: (graph.to(d), replicate(consts, d)) for d in dict.fromkeys(mesh.devices)}
 
     def local(synd, llr, conv):
         graph_k, consts_k = copies[synd.device]
         return _osd_decode(graph_k, synd, llr, osd_method=osd_method, osd_order=osd_order,
-                           consts=consts_k, skip=conv, backend=backend).osdw
+                           consts=consts_k, skip=conv).osdw
 
     flat = mesh.flat()
     return shard_decode_fn(local, flat, flat.axis_name)
@@ -83,14 +73,18 @@ def edge_sharded_bposd_fn(
 
     BP is :func:`edge_sharded_bp_fn`; OSD reads the first ``m`` syndrome
     columns, split over every device of the mesh, so ``B`` must divide by
-    ``len(mesh)``.  Converged rows keep BP's decision."""
+    ``len(mesh)``.  Converged rows keep BP's decision.  ``osd_backend`` is
+    the port's name for JAX's, checked here against every device of the
+    mesh: ``"auto"``, ``"cuda"`` (JAX's ``"pallas"``; raises on a CPU device)
+    or ``"torch"`` (JAX's ``"xla"``; raises on a card)."""
+    for d in dict.fromkeys(mesh.devices):
+        resolve_backend(osd_backend, d)
     graph = TannerGraph(sgraph.H, "cpu")  # copied to each device by the OSD stage
     consts = build_osd_consts(graph, osd_method, osd_order)
     bp = edge_sharded_bp_fn(sgraph, mesh, bp_method=bp_method, max_iter=max_iter,
                             ms_scaling_factor=ms_scaling_factor, data_axis=data_axis,
                             model_axis=model_axis)
-    stage = _build_osd_stage(graph, consts, mesh, osd_method=osd_method, osd_order=osd_order,
-                             backend=osd_backend)
+    stage = _build_osd_stage(graph, consts, mesh, osd_method=osd_method, osd_order=osd_order)
     return _bposd(bp, stage, sgraph.m, len(mesh))
 
 
@@ -113,12 +107,14 @@ def lifted_sharded_bposd_fn(
     (:func:`lifted_sharded_bp_fn` over ``n_shards`` model shards), then the
     gather-to-DP OSD.  ``H`` is the binary lift of ``lgraph``, read only by
     the OSD stage.  Returns ``decode(syndromes_pad [B, n_shards * mp_chunk *
-    L], llr0 [B, n]) -> (osdw [B, n] uint8, converged [B] bool)``."""
+    L], llr0 [B, n]) -> (osdw [B, n] uint8, converged [B] bool)``; ``osd_backend``
+    as :func:`edge_sharded_bposd_fn` checks it."""
+    for d in dict.fromkeys(mesh.devices):
+        resolve_backend(osd_backend, d)
     graph = TannerGraph(H, "cpu")  # copied to each device by the OSD stage
     consts = build_osd_consts(graph, osd_method, osd_order)
     bp = lifted_sharded_bp_fn(ShardedLiftedGraph(lgraph, n_shards), mesh, bp_method=bp_method,
                               max_iter=max_iter, ms_scaling_factor=ms_scaling_factor,
                               data_axis=data_axis, model_axis=model_axis)
-    stage = _build_osd_stage(graph, consts, mesh, osd_method=osd_method, osd_order=osd_order,
-                             backend=osd_backend)
+    stage = _build_osd_stage(graph, consts, mesh, osd_method=osd_method, osd_order=osd_order)
     return _bposd(bp, stage, lgraph.m, len(mesh))

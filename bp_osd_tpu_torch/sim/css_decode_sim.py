@@ -9,10 +9,10 @@ X/Z decode with the optional Bayes channel update, and the logical outcome
 of every sample.  Fed the JAX harness's uniforms, it gives the JAX
 harness's per-sample outcomes.
 
-``backend`` takes ``auto|cuda|torch`` as :func:`~bp_osd_tpu_torch.ops.resolve_backend`
-reads them: ``auto`` runs on the card when ``torch.cuda.is_available()``
-(every decode through the CUDA kernels), else on the CPU (their plain torch
-versions).
+``backend`` takes ``auto|cuda|torch`` as
+:func:`~bp_osd_tpu_torch.decoder.tanner.resolve_backend` reads them: ``auto``
+runs on the card when ``torch.cuda.is_available()`` (every decode through the
+CUDA kernels), else on the CPU (their plain torch versions).
 
 ``use_mesh=1`` shards each batch over a device mesh
 (:mod:`bp_osd_tpu_torch.parallel`): ``mesh``, else all the cards
@@ -50,8 +50,7 @@ from ..decoder.bp import llr_from_channel
 from ..decoder.bposd import _CHUNK_CARD, _CHUNK_CPU
 from ..decoder.osd import build_osd_consts, normalize_osd_method
 from ..decoder.pipeline import BpOsdBatch, _decode_pipeline
-from ..decoder.tanner import TannerGraph, canonical_device, resolve_device
-from ..ops import BACKENDS, resolve_backend
+from ..decoder.tanner import TannerGraph, canonical_device, resolve_backend, resolve_device
 from ..parallel import Mesh, make_mesh, shard_batch_fn
 from ..parallel.distributed import (host_batch_slice, local_card, process_count,
                                     process_index, reduce_batch_counts)
@@ -335,8 +334,6 @@ class css_decode_sim:
 
     def _decoder_setup(self):
         """Place the code, the channel and one decoder per side on the device."""
-        if self.backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
         if self.channel_update not in (None, "x->z", "z->x"):
             raise ValueError(
                 f"channel_update must be None, 'x->z' or 'z->x', "
@@ -373,7 +370,7 @@ class css_decode_sim:
         self._decode_kw = dict(
             bp_method=self.bp_method, max_iter=int(self.max_iter),
             ms_scaling_factor=self.ms_scaling_factor, osd_method=osd_method,
-            osd_order=int(self.osd_order), backend=self.backend,
+            osd_order=int(self.osd_order),
         )
 
         def dense(M):

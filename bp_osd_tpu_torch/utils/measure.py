@@ -494,8 +494,12 @@ def k1_stages(graph, synd: torch.Tensor, llr0: torch.Tensor, max_iter: int,
     every row with the prior ``llr0 [B, n]`` as given, each later stage on
     the rows the one before left unconverged, resumed from its message
     state.  ``bp_kw`` are ``bp_flood``'s ``method`` and
-    ``ms_scaling_factor``."""
-    from ..ops.cuda_bp import bp_flood
+    ``ms_scaling_factor``.  Rows off the card run K1's plain version,
+    ``bp_decode_plain``, stage by stage the same way."""
+    if synd.device.type == "cuda":
+        from ..ops.cuda_bp import bp_flood as run
+    else:
+        from ..decoder.bp import bp_decode_plain as run
 
     caps = stage_caps(max_iter, stage1_iters)
     stages = []
@@ -506,7 +510,7 @@ def k1_stages(graph, synd: torch.Tensor, llr0: torch.Tensor, max_iter: int,
         emit = cap < max_iter
         kw = dict(max_iter=cap, it0=it0, emit_state=emit, v2c_init=v2c, **bp_kw)
         args = (graph, synd[rows], llr0 if i == 0 else llr0[rows])
-        out = bp_flood(*args, **kw)
+        out = run(*args, **kw)
         stages.append(Stage(args, kw, out, int((out[3] - it0).sum()), rows))
         going = ~out[2]
         if not bool(going.any()):

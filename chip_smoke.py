@@ -2139,7 +2139,7 @@ def main() -> None:
     tail0_ms = cuda_ms(lambda: osd_decode(graph, f_synd0, f_llr0, osd_method="osd0"), 5)
     l0_dec0 = dec0._llr0().expand(FRESH, n)
     bp0_ms = cuda_ms(lambda: _staged_bp(graph, fresh, l0_dec0, dec0.bp_method, n,
-                                        dec0.ms_scaling_factor, "cuda"), 3)
+                                        dec0.ms_scaling_factor), 3)
     wall0_ms = float(np.median(walls0)) * 1e3
     print(f"phase 9 K4 vs plain: {B} corpus rows, the warp kernel and the block kernel in "
           f"shared and device memory: the five outputs equal eliminate_plain, skip rows zero; "

@@ -32,8 +32,8 @@ from bp_osd_tpu_torch.decoder.osd import (
 )
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import bp_flood_smem_bytes, k1_fits
-from bp_osd_tpu_torch.ops.cuda_gf2 import eliminate, gf2_elim_smem_bytes, k4_fits
-from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, k3_fits, osd_e
+from bp_osd_tpu_torch.ops.cuda_gf2 import gf2_elim_smem_bytes, k4_fits
+from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, k3_fits
 
 torch.set_num_threads(1)
 
@@ -89,21 +89,6 @@ def test_eliminate_plain_equals_jax(code, with_skip):
             assert not got[~live].any(), name
 
 
-def test_eliminate_wrapper_takes_cpu_tensors_to_the_plain_version():
-    """On CPU tensors the K4 wrapper returns ``eliminate_plain``'s five
-    outputs exactly at every placement, and an unknown placement raises."""
-    H = np.asarray(CODES["flagship"](), np.uint8)
-    synd, perm = _inputs(H, 6, 3)
-    g = TannerGraph(H, device="cpu")
-    args = (g, torch.as_tensor(perm), torch.as_tensor(synd))
-    want = eliminate_plain(*args)
-    for placement in ("auto", "warp", "shared", "global"):
-        for a, b in zip(eliminate(*args, placement=placement), want):
-            assert torch.equal(a, b)
-    with pytest.raises(ValueError):
-        eliminate(*args, placement="l2")
-
-
 @pytest.mark.parametrize("method,order", [("osd0", 0), ("osd_e", 0), ("osd_e", 1),
                                           ("osd_e", 6)])
 @pytest.mark.parametrize("code", sorted(CODES))
@@ -140,18 +125,17 @@ def rep4_case():
 
 @pytest.mark.parametrize("order", [1, 3, 7, 14])
 def test_plain_osd_e_equals_pallas_kernel_interpreted(rep4_case, order):
-    """The plain version of K3 (and the K3 wrapper on CPU tensors) equals
-    the JAX package's ``osd_e_pallas(interpret=True)`` exactly in osd0 and
-    osdw, tie-breaks included."""
+    """The plain version of K3 equals the JAX package's
+    ``osd_e_pallas(interpret=True)`` exactly in osd0 and osdw, tie-breaks
+    included."""
     H, synd, perm = rep4_case
     e0, ew = osd_e_pallas(JTannerGraph(H), jnp.asarray(perm), jnp.asarray(synd, jnp.int32),
                           osd_order=order, interpret=True)
     g = TannerGraph(H, device="cpu")
-    args = (g, torch.as_tensor(perm), torch.as_tensor(synd))
-    plain = osd_decode_plain(*args, method="osd_e", osd_order=order)
-    for got in (plain, osd_e(*args, osd_order=order)):
-        assert np.array_equal(got[0].numpy(), np.asarray(e0).astype(np.uint8))
-        assert np.array_equal(got[1].numpy(), np.asarray(ew).astype(np.uint8))
+    plain = osd_decode_plain(g, torch.as_tensor(perm), torch.as_tensor(synd), method="osd_e",
+                             osd_order=order)
+    assert np.array_equal(plain[0].numpy(), np.asarray(e0).astype(np.uint8))
+    assert np.array_equal(plain[1].numpy(), np.asarray(ew).astype(np.uint8))
 
 
 def test_osd_route_table():

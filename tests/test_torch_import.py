@@ -1,5 +1,7 @@
-"""bp_osd_tpu_torch: import surface, backend selection, and no fallbacks."""
+"""bp_osd_tpu_torch: import surface, one-way layering, backend selection, and no
+fallbacks."""
 
+import ast
 import os
 import re
 import subprocess
@@ -12,9 +14,11 @@ import torch
 from bp_osd_tpu_torch import BpOsdDecoder
 from bp_osd_tpu_torch.codes import hamming_code, hgp, rep_code
 from bp_osd_tpu_torch.decoder.bp import as_syndromes, bp_decode, llr_from_channel
-from bp_osd_tpu_torch.decoder.osd import osd_decode
-from bp_osd_tpu_torch.decoder.tanner import TannerGraph
-from bp_osd_tpu_torch.ops import _build, resolve_backend
+from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph
+from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode
+from bp_osd_tpu_torch.decoder.tanner import TannerGraph, resolve_backend
+from bp_osd_tpu_torch.ops import _build
+from bp_osd_tpu_torch.utils.measure import wrappers
 
 torch.set_num_threads(1)
 
@@ -49,6 +53,72 @@ def test_sources_never_import_jax():
             if f.endswith(".py"):
                 with open(os.path.join(dirpath, f)) as fh:
                     assert not pat.search(fh.read()), f
+
+
+def test_ops_import_only_graph_types_from_decoder():
+    """The layering is one-way: no module under ``ops/`` imports from
+    ``decoder/`` anything but the graph types and the ``Elimination``
+    record, at module level or inside a function, and none names a plain
+    version."""
+    allowed = {"TannerGraph", "LiftedGraph", "Elimination"}
+    banned = re.compile(r"_plain$|^_bp_rows$|^normalize_bp_method$")
+    ops = os.path.join(PKG, "ops")
+    for f in sorted(os.listdir(ops)):
+        if not f.endswith(".py"):
+            continue
+        with open(os.path.join(ops, f)) as fh:
+            tree = ast.parse(fh.read(), f)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                assert not any(".decoder" in a.name for a in node.names), f
+            elif isinstance(node, ast.ImportFrom):
+                names = {a.name for a in node.names}
+                mod = node.module or ""
+                if node.level == 2 and not mod:
+                    assert "decoder" not in names, f
+                if (node.level == 2 and mod.split(".")[0] == "decoder"
+                        or mod.startswith("bp_osd_tpu_torch.decoder")):
+                    assert names <= allowed, (f, names - allowed)
+            name = (node.id if isinstance(node, ast.Name) else
+                    node.attr if isinstance(node, ast.Attribute) else None)
+            assert name is None or not banned.search(name), (f, name)
+
+
+@pytest.mark.parametrize("name", ["bp_flood", "eliminate", "osd_cs", "osd_e", "osd_large",
+                                  "bp_lifted"])
+def test_wrappers_refuse_cpu_tensors(name, monkeypatch):
+    """Each kernel wrapper takes CUDA tensors only: valid CPU inputs raise
+    ``ValueError`` naming CUDA before anything is built, launched or
+    counted (``decoder/`` runs the plain versions on them)."""
+    g = TannerGraph(hgp(rep_code(3), rep_code(3)).hz.toarray(), device="cpu")
+    lg = LiftedGraph([[(0,), (0,)], [(0,), (1,)]], 3, device="cpu")
+    B = 4
+    synd = torch.zeros(B, g.m, dtype=torch.uint8)
+    perm = torch.arange(g.n, dtype=torch.int32).repeat(B, 1)
+    pairs = build_osd_consts(g, "osd_cs", 3).pairs
+    calls = {
+        "bp_flood": lambda w: w(g, synd, torch.zeros(B, g.n), method="minimum_sum",
+                                max_iter=5, ms_scaling_factor=0.625),
+        "eliminate": lambda w: w(g, perm, synd),
+        "osd_cs": lambda w: w(g, perm, synd, osd_order=3, pairs=pairs),
+        "osd_e": lambda w: w(g, perm, synd, osd_order=3),
+        "osd_large": lambda w: w(g, perm, synd, osd_order=3, pairs=pairs),
+        "bp_lifted": lambda w: w(lg, torch.zeros(B, lg.m, dtype=torch.uint8),
+                                 torch.zeros(B, lg.n), "minimum_sum", 5, 0.625),
+    }
+
+    def no_build():
+        raise AssertionError("a wrapper built the kernels for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    wrapper = wrappers()[name]
+    before = (wrapper.launches, dict(wrapper.launches_on))
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[name](wrapper)
+    assert (wrapper.launches, dict(wrapper.launches_on)) == before
+    if name == "eliminate":
+        with pytest.raises(ValueError, match="placement"):
+            wrapper(g, perm, synd, placement="l2")
 
 
 @pytest.mark.parametrize("backend,device,want", [

@@ -2,7 +2,8 @@
 on the CPU: its routing tables against the plain version's index tables, a
 torch emulation of the first design's three-pass iteration (routed by those
 tables) against the plain version and the JAX package, the Python mirror of
-its shared memory and route, and its wrapper on CPU tensors.  The kernel's
+its shared memory and route, and its wrapper's input checks, which refuse
+CPU tensors.  The kernel's
 own two-barrier order is emulated in ``tests/test_torch_k6_fused.py``.  The
 card's side is ``tests/test_torch_kernels.py`` (marked ``gpu``) and
 ``chip_smoke.py`` phase 21."""
@@ -288,37 +289,28 @@ def test_k6_shared_memory_mirror_and_route(lift, route):
         k6._FORCE_DEVICE_ROUTE = False
 
 
-# ---- (d) the wrapper on CPU tensors ----------------------------------------
-
-@pytest.mark.parametrize("bp_method,msf", [("ms", 0.625), ("ps", 1.0)])
-def test_bp_lifted_on_cpu_is_the_plain_version(bp_method, msf):
-    hx_proto, synd, llr0 = _case(MULTI, 6, 12, 0.06, 3)
-    g = LiftedGraph(hx_proto, 6, device="cpu")
-    s_t, l_t = torch.as_tensor(synd), torch.as_tensor(llr0).expand(12, -1)
-    method = normalize_bp_method(bp_method)
-    got = k6.bp_lifted(g, s_t, l_t, bp_method, 25, msf)
-    _equal(got, _bp_rows(g, s_t, l_t, method, 25, msf))
-    # max_iter 0 means n, and the launch count stays 0 on the CPU
-    before = k6.bp_lifted.launches
-    _equal(k6.bp_lifted(g, s_t, l_t, method, 0, msf), _bp_rows(g, s_t, l_t, method, g.n, msf))
-    assert k6.bp_lifted.launches == before
-
+# ---- (d) the wrapper's input checks ----------------------------------------
 
 def test_bp_lifted_refuses_other_devices_dtypes_and_shapes():
     g = LiftedGraph(MULTI, 6, device="cpu")
     B, m, n = 4, g.m, g.n
     synd = torch.zeros(B, m, dtype=torch.uint8)
     llr0 = torch.ones(B, n)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        k6.bp_lifted(g, synd.to("meta"), llr0.to("meta"), "ms", 5, 0.625)
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="CUDA"):
+            k6.bp_lifted(g, synd.to(dev), llr0.to(dev), "minimum_sum", 5, 0.625)
     bad = [(synd.float(), llr0, "synd"), (synd.to(torch.int32), llr0, "synd"),
            (synd[:, :-1], llr0, "synd"), (synd[0], llr0, "synd"),
            (synd, llr0.double(), "llr0"), (synd, llr0[:, :-1], "llr0"),
            (synd, llr0[:-1], "llr0"), (synd, llr0.to("meta"), "llr0")]
     for s, l, what in bad:
         with pytest.raises(ValueError, match=what):
-            k6.bp_lifted(g, s, l, "ms", 5, 0.625)
+            k6.bp_lifted(g, s, l, "minimum_sum", 5, 0.625)
     with pytest.raises(ValueError, match="bp_method"):
         k6.bp_lifted(g, synd, llr0, "bogus", 5, 0.625)
+    with pytest.raises(ValueError, match="bp_method"):
+        k6.bp_lifted(g, synd, llr0, "ms", 5, 0.625)  # the decoder normalises the name
     with pytest.raises(ValueError, match="max_iter"):
-        k6.bp_lifted(g, synd, llr0, "ms", -1, 0.625)
+        k6.bp_lifted(g, synd, llr0, "minimum_sum", 0, 0.625)  # 0 means n in the decoder
+    with pytest.raises(ValueError, match="max_iter"):
+        k6.bp_lifted(g, synd, llr0, "minimum_sum", -1, 0.625)
