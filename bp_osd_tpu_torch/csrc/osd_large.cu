@@ -1,6 +1,7 @@
 // osd_large.cu -- ordered-statistics decoding (osd0 / osd_cs) for codes whose
-// matrix does not fit in a block's shared memory, one thread block per sample,
-// the matrix in device memory and a window of it in shared memory.
+// matrix does not fit in a block's shared memory, one thread block (or one
+// thread-block cluster) per sample, the matrix in device memory and a window
+// of it in shared memory.
 //
 // Replaces the TPU kernel bp_osd_tpu/ops/pallas_osd_large.py:_osd_large_kernel
 // (K5) and its pre-pass _permuted_packed_h.  The plain torch version is
@@ -33,14 +34,17 @@
 // its elimination is a chain of ~n dependent column steps on one SM.  The
 // design before this one took each pivot to the later columns at once: two
 // block barriers and two or three dependent device-memory round trips a
-// pivot, ~9,600 barriers a lift-400 row.  This design is a blocked,
-// right-looking Gauss-Jordan with a delayed trailing update:
+// pivot, ~9,600 barriers a lift-400 row.  This design is a blocked
+// Gauss-Jordan, right-looking across panels (a delayed trailing update) and
+// left-looking inside one:
 //   - the elimination walks panels of P <= 32 columns (the wrapper's
 //     osd_large_panel).  Warp 0 factorises panel k in its shared-memory
-//     buffer with no block barrier: the pivot search in registers, the pivot
-//     bit cleared in place (the column is then S_i), S_i XORed into the
-//     panel's later columns carrying row r_i, the dependent columns passed
-//     over.  It records each of the panel's q pivots: r_i, the column's
+//     buffer with no block barrier, left-looking in the panel: on reaching
+//     a column it takes the panel's pivots so far to it at once (catch_up:
+//     g from the column's bits at their rows, then the S_i g selects, in
+//     registers), then the pivot search in registers, the pivot bit cleared
+//     in place (the column is then S_i), the dependent columns passed over.
+//     It records each of the panel's q pivots: r_i, the column's
 //     place, the row L[i] of the bit table L[i][j] = S_j[r_i] (j < i) and,
 //     from it, the columns N[j] of (I + L)^-1; at the panel's end, the
 //     distinct words of the pivot rows and the words where some S_i is
@@ -71,18 +75,62 @@
 // ~281 trailing passes a row for 4,790 pivots.  Warp 0's chain takes most
 // of a lone row (~250 cycles a column step, ~1,200 a pivot with its panel
 // updates, slower while warps 1-31 issue on its scheduler); 129 rows move
-// ~2.5 TB/s of device memory.
+// ~2.5 TB/s of device memory.  The factorisation before this one took each
+// pivot to the panel's later columns at once, and panel_apply's g was a
+// chain of dependent loads (same bits).  Against it, in turns on the same
+// rows, a block a sample: a lone row and 8 rows 0-2% faster, 129 rows 1.4%
+// faster, 96 rows of the gross code's space-time matrix 0.6% slower; the
+// cluster plan's lone row ~12% faster (its chain is warp 0's alone).
+// Two plans, picked by the wrapper (ops/cuda_osd_large.py:osd_large_cluster)
+// from the launch's rows B, the card's SMs and the graph:
+//   - a block a sample, as above, wherever B x 2 exceeds the SMs (a heavy
+//     batch already fills the card);
+//   - the cluster plan below that: a thread-block cluster of C = 8, 4 or 2
+//     blocks a sample (the most whose B clusters the card holds at once,
+//     cudaOccupancyMaxActiveClusters), C x B blocks, kCluster.  Block 0,
+//     the leader, does what the lone block does but the far trailing
+//     passes: warp 0 factorises, the workers write back, load (from the
+//     L2, ld.global.cg) and take the next panel past the last two.  Blocks
+//     1..C-1, the members, make the far passes, each over its share of the
+//     columns (from the pass's first column rounded down to a multiple of
+//     four, shares of a multiple of four columns).  One split cluster
+//     barrier a panel orders the two: phase k ends when the leader has
+//     factorised panel k (and arrived after its second block barrier) and
+//     every member has passed panel k - 1 (and fenced its XORs).  Then a
+//     member copies panel k's record (up to the hit lists, which it builds)
+//     and pivot columns from the leader's shared memory (distributed shared
+//     memory) and passes panel k; the leader's workers wait for phase k
+//     before they load panel k + 2, and warp 0 for phase k + 1 before it
+//     writes panel k + 2's record over panel k's.  The record's fourth
+//     header word says the panel is the last, whose pass starts after the
+//     next panel.  The members read the scratch from the L2 too: no SM's
+//     L1 sees another's XORs.  Every block of the cluster copies in part
+//     of the matrix.  With its SM to itself, warp 0 is the chain (clock64
+//     counters: ~21,000 of ~25,000 cycles a panel at lift 400); both plans
+//     share its factorisation and panel_apply (one warp reduction for g,
+//     the S_i's loads side by side).
+//     A lone lift-400 row (H100, 700 W): 5.41 -> 4.03 ms at p = 0.005, 7.15
+//     -> 4.81 ms at p = 0.028 (8 blocks; 8 rows 10.10 -> 4.90 and 7.75 ->
+//     4.98 ms).  In turns against a block a sample on BP-failing lift-400
+//     rows and on the gross code's: 16 rows, clusters of 4, 29-48% faster;
+//     31, 48 and 66 rows, clusters of 2, 3-13% faster; 129 rows, clusters
+//     of 2 in two waves, 5-6% slower (so the rule stops at B x 2 <= SMs).  A
+//     row whose far passes are heavy still waits for the members: their
+//     copy (~7,000 cycles) and pass (~15,000) outlast the leader's panel.
 // Shared memory: the three panel buffers (column-major, odd stride: one word
 // of every panel column is read without bank conflicts), two panel records,
 // the syndromes, a chunk's hit bits and g, two chunks' hit lists, the T
 // columns and the pivot row of each column (int16, so m and n are below
 // 32768).  A skip sample writes zeros and returns.  While the profiler's
-// recorder is on, each block adds its pivots and its trailing passes to
-// `stats` (one atomic each).
+// recorder is on, each sample's (leader) block adds its pivots and its
+// trailing passes to `stats` (one atomic each).
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -94,6 +142,7 @@ constexpr int kWorkers = 32 * kWorkWarps;
 constexpr int kMaxPanel = 32;  // a panel's pivots are the bits of a 32-bit word
 constexpr int kChunk = 4096;   // columns a trailing pass takes at once
 constexpr int kScan = 4;       // 16-byte loads of pivot-row words a worker issues at once
+constexpr int kMaxCluster = 8;  // blocks a sample in the cluster plan (the portable most)
 
 __host__ __device__ inline int panel_stride(int Wm) { return Wm | 1; }
 
@@ -103,9 +152,14 @@ __host__ __device__ inline int panel_stride(int Wm) { return Wm | 1; }
 __host__ __device__ inline int scratch_stride(int n) { return (n + 4) & ~3; }
 
 // words of one panel record: N, tc, pw, pm, cnt [P], Unz, Uw [Wm], the
-// header {q, D, nU, -}, piv [P][32] bytes and Sidx [P][Wm] int16
+// header {q, D, nU, last}, piv [P][32] bytes (record_head words), then
+// Sidx [P][Wm] int16
+__host__ __device__ inline size_t record_head(int P, int Wm) {
+  return 13 * (size_t)P + 2 * (size_t)Wm + 4;
+}
+
 __host__ __device__ inline size_t record_words(int P, int Wm) {
-  return ((size_t)P * Wm + 1) / 2 + 13 * (size_t)P + 2 * (size_t)Wm + 4;
+  return ((size_t)P * Wm + 1) / 2 + record_head(P, Wm);
 }
 
 // A factorised panel of q <= P pivots, in shared memory: what a trailing
@@ -126,7 +180,7 @@ struct Panel {
   int32_t* cnt;    // [q] nonzero words of S_i (the workers' lists)
   uint32_t* Unz;   // [nU] for each word of the union of the S_i: which S_i are nonzero there
   int32_t* Uw;     // [nU] the union's words
-  int32_t* hdr;    // q, D, nU
+  int32_t* hdr;    // q, D, nU, and whether the panel is the last
   uint8_t* piv;    // [D][32] the pivot index of bit b of distinct word d
   int16_t* Sidx;   // [q][Wm] the nonzero words of S_i (the workers' lists)
 };
@@ -170,6 +224,31 @@ __device__ __forceinline__ uint32_t s_word(const Panel& R, uint32_t gm, int w) {
   return x;
 }
 
+// Warp 0 takes a panel's pivots so far (q, lane i < q holding pivot i's
+// row r, its place tc and its column Ncol of (I + L)^-1) to column col (the
+// lane's words cw) when it reaches it (left-looking in the panel): the
+// column's bits at their rows (cb) give g = (I + L)^-1 cb, the XOR of the
+// Ncol of lanes in cb; then it takes the S_i that g selects, in registers,
+// and goes back to the buffer if it changed.  A pivot then costs no pass
+// over the panel's later columns
+template <int kLW>
+__device__ __forceinline__ void catch_up(uint32_t* col, uint32_t (&cw)[kLW],
+                                         const uint32_t* buf, int Wp, int Wm, int lane, int q,
+                                         int r, int tc, uint32_t Ncol) {
+  const bool hit = lane < q && ((col[r >> 5] >> (r & 31)) & 1u);
+  const unsigned cb = __ballot_sync(kFull, hit);
+  if (cb == 0u) return;
+  for (uint32_t gm = __reduce_xor_sync(kFull, hit ? Ncol : 0u); gm; gm &= gm - 1u) {
+    const uint32_t* Si = buf + (size_t)__shfl_sync(kFull, tc, __ffs(gm) - 1) * Wp;
+#pragma unroll
+    for (int i = 0; i < kLW; ++i)
+      if (lane + 32 * i < Wm) cw[i] ^= Si[lane + 32 * i];
+  }
+#pragma unroll
+  for (int i = 0; i < kLW; ++i)
+    if (lane + 32 * i < Wm) col[lane + 32 * i] = cw[i];
+}
+
 __device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
@@ -188,6 +267,24 @@ __device__ __forceinline__ void red_xor(uint32_t* p, uint32_t v) {
   asm volatile("red.global.xor.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
+// the split cluster barrier: arrive releases this thread's writes (shared
+// and device memory) to the cluster, wait acquires the others'
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// a load of the scratch; in the cluster plan from the L2 (ld.global.cg),
+// since other SMs' XORs never reach this SM's L1
+template <bool kL2, typename T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (kL2) return __ldcg(p);
+  else return *p;
+}
+
 __device__ __forceinline__ unsigned long long warp_min(unsigned long long x) {
   for (int off = 16; off > 0; off >>= 1) {
     const unsigned long long y = __shfl_down_sync(kFull, x, off);
@@ -203,8 +300,9 @@ __device__ __forceinline__ size_t at(int c, int w, int ns) { return (size_t)w * 
 // registers for the pivot search, with the used-row mask (5: m <= 5120, the
 // [[10000,420]] code; 8: m <= 8192; 32: m < 32768, which spills).  Every
 // thread holds them, so they share the 64 registers a 1024-thread block
-// allows with the workers' loads in flight.
-template <int kLW>
+// allows with the workers' loads in flight.  kCluster: the cluster plan, a
+// cluster of blocks a sample (block 0 the leader, the others members).
+template <int kLW, bool kCluster>
 __global__ void __launch_bounds__(kThreads)
 osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__ perm,
                  const uint8_t* __restrict__ synd, const uint8_t* __restrict__ skip,
@@ -212,7 +310,14 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
                  uint8_t* __restrict__ e0, uint8_t* __restrict__ ew, int row0, int m, int n,
                  int Wm, int rank, int lam, int n_pairs, int sweep, int P,
                  unsigned long long* stats) {
-  const int b = row0 + blockIdx.x;
+  int crank = 0, nc = 1;  // this block's rank in its cluster, and the cluster's blocks
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    crank = (int)cluster.block_rank();
+    nc = (int)cluster.num_blocks();
+  }
+  const int smp = blockIdx.x / nc;  // the launch's sample of this block
+  const int b = row0 + smp;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -220,19 +325,21 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
   const int wid = 32 * ww + lane;  // a worker's index
   const unsigned lt_mask = (1u << lane) - 1u;
 
-  if (skip && skip[b]) {
-    for (int v = tid; v < n; v += kThreads) {
-      e0[(size_t)b * n + v] = 0;
-      ew[(size_t)b * n + v] = 0;
-    }
+  if (skip && skip[b]) {  // the whole cluster returns
+    if (crank == 0)
+      for (int v = tid; v < n; v += kThreads) {
+        e0[(size_t)b * n + v] = 0;
+        ew[(size_t)b * n + v] = 0;
+      }
     return;
   }
 
   const int n1 = n + 1;
   const int ns = scratch_stride(n);
   const int Wp = panel_stride(Wm);
-  uint32_t* M = scratch + (size_t)blockIdx.x * ns * Wm;
+  uint32_t* M = scratch + (size_t)smp * ns * Wm;
   const int32_t* pb = perm + (size_t)b * n;
+  auto ldm = [&](size_t i) { return load<kCluster>(M + i); };
 
   extern __shared__ unsigned long long smem64[];
   unsigned long long* s_red = smem64;                               // [kWarps]
@@ -257,39 +364,39 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
   };
 
   // ---- 1. column-permuted, row-packed matrix; syndrome as column n ----
-  // a warp writes 32 neighbouring columns, word by word
-  for (int c0 = warp * 32; c0 < n; c0 += kThreads) {
+  // a warp writes 32 neighbouring columns, word by word (the cluster's
+  // blocks share the columns)
+  for (int c0 = (crank * kWarps + warp) * 32; c0 < n; c0 += nc * kThreads) {
     const int c = c0 + lane;
     if (c < n) {
       const int32_t* src = h_cols + (size_t)pb[c] * Wm;
       for (int w = 0; w < Wm; ++w) M[at(c, w, ns)] = (uint32_t)__ldg(src + w);
     }
   }
-  for (int w = tid; w < Wm; w += kThreads) {
-    uint32_t word = 0u;
-    for (int bit = 0; bit < 32; ++bit) {
-      const int row = w * 32 + bit;
-      if (row < m) word |= (uint32_t)(synd[(size_t)b * m + row] & 1) << bit;
+  if (crank == 0)
+    for (int w = tid; w < Wm; w += kThreads) {
+      uint32_t word = 0u;
+      for (int bit = 0; bit < 32; ++bit) {
+        const int row = w * 32 + bit;
+        if (row < m) word |= (uint32_t)(synd[(size_t)b * m + row] & 1) << bit;
+      }
+      M[at(n, w, ns)] = word;
     }
-    M[at(n, w, ns)] = word;
-  }
   for (int t = tid; t < n; t += kThreads) s_prow[t] = -1;
   for (int i = tid; i < kChunk; i += kThreads) s_cb[i] = 0u;
   if (tid == 0) s_misc[1] = 0;
-  __syncthreads();
-  // Element e of a panel is column e % P, word e / P: neighbouring threads
-  // take neighbouring columns (coalesced in the word-major layout).
-  for (int i = tid; i < P * Wm; i += kThreads) {
-    const int c = i % P, w = i / P;
-    if (c < n) slot(c)[w] = M[at(c, w, ns)];
-  }
-  __syncthreads();
 
   // panel j's columns in shared memory past panel R's pivots: a warp a
-  // column (helper warp hw of nw), g from the words at the pivot rows, then
-  // the union's words
+  // column (helper warp hw of nw).  Lane i holds pivot i's column of
+  // (I + L)^-1 and S_i's place, so g is one warp reduction of the column's
+  // pivot bits, and each lane XORs the S_i that g selects at its union
+  // words, kU at a time, two pivots' loads side by side (no dependent load
+  // a pivot: this lies on warp 0's chain after each panel)
   auto panel_apply = [&](const Panel& R, int j, int hw, int nw) {
-    const int D = R.hdr[1], nU = R.hdr[2];
+    constexpr int kU = kLW < 8 ? kLW : 8;  // union words a lane at once (32 would spill)
+    const int q = R.hdr[0], D = R.hdr[1], nU = R.hdr[2];
+    const uint32_t my_n = lane < q ? R.N[lane] : 0u;
+    const int my_base = lane < q ? R.tc[lane] * R.Wp : 0;  // S_i's place
     for (int jj = hw; jj < P; jj += nw) {
       const int c = j * P + jj;
       if (c >= n) break;
@@ -298,29 +405,43 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
       if (lane < D) cb = pivot_bits(col[R.pw[lane]] & R.pm[lane], R.piv + 32 * lane);
       cb = __reduce_or_sync(kFull, cb);
       if (cb == 0u) continue;
-      const uint32_t g = g_of(cb, R.N);
-      for (int u0 = lane; u0 < nU; u0 += 128) {  // four union words a lane at once
-        uint32_t x[4], v[4];
-        int w[4];
+      const uint32_t g = __reduce_xor_sync(kFull, (cb >> lane) & 1u ? my_n : 0u);
+      for (int u0 = 0; u0 < nU; u0 += 32 * kU) {
+        int wl[kU];  // the lane's union words, -1 past the union
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int u = u0 + 32 * s;
-          const uint32_t gm = u < nU ? g & R.Unz[u] : 0u;
-          w[s] = u < nU ? R.Uw[u] : 0;
-          x[s] = gm ? s_word(R, gm, w[s]) : 0u;
-          v[s] = x[s] ? col[w[s]] : 0u;
+        for (int s = 0; s < kU; ++s) {
+          const int u = u0 + lane + 32 * s;
+          wl[s] = u < nU ? R.Uw[u] : -1;
+        }
+        uint32_t x[kU];
+#pragma unroll
+        for (int s = 0; s < kU; ++s) x[s] = 0u;
+        for (uint32_t gm = g; gm;) {  // two pivots' loads at a time
+          const int b0 = __shfl_sync(kFull, my_base, __ffs(gm) - 1);
+          gm &= gm - 1u;
+          const bool two = gm != 0u;
+          const int b1 = __shfl_sync(kFull, my_base, two ? __ffs(gm) - 1 : 0);
+          if (two) gm &= gm - 1u;
+          uint32_t v0[kU], v1[kU];
+#pragma unroll
+          for (int s = 0; s < kU; ++s) {
+            v0[s] = wl[s] >= 0 ? R.Sb[b0 + wl[s]] : 0u;
+            v1[s] = two && wl[s] >= 0 ? R.Sb[b1 + wl[s]] : 0u;
+          }
+#pragma unroll
+          for (int s = 0; s < kU; ++s) x[s] ^= v0[s] ^ v1[s];
         }
 #pragma unroll
-        for (int s = 0; s < 4; ++s)
-          if (x[s]) col[w[s]] = v[s] ^ x[s];
+        for (int s = 0; s < kU; ++s)
+          if (x[s]) col[wl[s]] ^= x[s];
       }
     }
   };
 
-  // ---- the trailing pass of panel R over columns [cstart, n] in device
+  // ---- the trailing pass of panel R over columns [cstart, cend) in device
   // memory (workers): chunks of kChunk columns, each in three steps ----
   int chunk = 0;  // chunks passed so far (the parity of the hit list)
-  auto trailing_pass = [&](const Panel& R, int cstart) {
+  auto trailing_pass = [&](const Panel& R, int cstart, int cend) {
     const int q = R.hdr[0], D = R.hdr[1], nU = R.hdr[2];
     // the nonzero words of each S_i, for the hit columns that take one S_i
     // (a warp a pivot)
@@ -335,8 +456,8 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
       }
       if (lane == 0) R.cnt[i] = cnt;
     }
-    for (int c0 = cstart & ~3; c0 <= n; c0 += kChunk, ++chunk) {
-      const int C = min(kChunk, n1 - c0);  // columns c0 + c, c < C; those before cstart stay
+    for (int c0 = cstart & ~3; c0 < cend; c0 += kChunk, ++chunk) {
+      const int C = min(kChunk, cend - c0);  // columns c0 + c, c < C; those before cstart stay
       const int G = (C + 3) >> 2;          // groups of four columns
       int32_t* count = s_misc + 1 + (chunk & 1);
       int16_t* hc = s_hc + (chunk & 1) * kChunk;
@@ -353,7 +474,8 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
 #pragma unroll
           for (int u = 0; u < kScan; ++u) {
             key[u] = d < D ? g | d << 16 : -1;
-            x[u] = d < D ? *reinterpret_cast<const uint4*>(M + at(c0 + 4 * g, R.pw[d], ns))
+            x[u] = d < D ? load<kCluster>(
+                               reinterpret_cast<const uint4*>(M + at(c0 + 4 * g, R.pw[d], ns)))
                          : make_uint4(0u, 0u, 0u, 0u);
             g += dg;
             d += dd;
@@ -415,12 +537,92 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
     }
   };
 
+  if constexpr (kCluster) {
+    __threadfence();
+    cluster_arrive();
+    cluster_wait();  // the matrix is whole in device memory
+    if (crank != 0) {
+      // ---- a member: the far trailing pass of every panel over its share
+      // of the columns.  Phase k of the cluster barrier ends once the
+      // leader has factorised panel k and every member has passed panel
+      // k - 1; then a member copies panel k's record (up to its hit lists,
+      // which it builds itself) and its pivot columns from the leader's
+      // shared memory into the same places of its own, and passes panel k
+      // to the columns after panel k + 2 (after panel k + 1 for the last
+      // panel), which the leader loads only after phase k + 1 ----
+      cg::cluster_group cluster = cg::this_cluster();
+      const uint32_t* lead_rec = cluster.map_shared_rank(s_rec, 0);
+      const uint32_t* lead_panel = cluster.map_shared_rank(s_panel, 0);
+      const size_t rw = record_words(P, Wm);
+      const size_t head = record_head(P, Wm);  // the record before Sidx
+      const size_t pw = (size_t)P * Wp;
+      const int mi = crank - 1, nm = nc - 1;
+      // words off(i), i < cnt, of the leader's shared memory from src to
+      // the same places from dst, four loads a thread in flight
+      auto pull = [&](const uint32_t* src, uint32_t* dst, int cnt, auto off) {
+        for (int i0 = tid; i0 < cnt; i0 += 4 * kThreads) {
+          uint32_t v[4];
+          size_t o[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int i = i0 + u * kThreads;
+            o[u] = i < cnt ? off(i) : 0;
+            v[u] = i < cnt ? src[o[u]] : 0u;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (i0 + u * kThreads < cnt) dst[o[u]] = v[u];
+        }
+      };
+      for (int k = 0;; ++k) {
+        cluster_arrive();
+        cluster_wait();
+        const size_t ro = (k & 1) * rw, po = (size_t)(k % 3) * pw;
+        pull(lead_rec, s_rec, (int)head, [&](int i) { return ro + i; });
+        __syncthreads();
+        const Panel R = record(k);
+        // the S_i: the panel's pivot columns
+        pull(lead_panel, s_panel, R.hdr[0] * Wm,
+             [&](int i) { return po + (size_t)R.tc[i / Wm] * Wp + i % Wm; });
+        __syncthreads();
+        const bool last = R.hdr[3] != 0;
+        if (warp != 0 && R.hdr[0] > 0) {
+          // columns [cs, n], split at multiples of four among the members
+          const int cs = min(n, (k + (last ? 2 : 3)) * P);
+          const int base = cs & ~3;
+          const int per = ((n1 - base + nm - 1) / nm + 3) & ~3;
+          const int lo = base + mi * per, hi = min(n1, lo + per);
+          if (lo < hi) trailing_pass(R, max(lo, cs), hi);
+        }
+        __threadfence();  // the XORs done in the L2 before the next phase
+        if (last) {
+          cluster_arrive();
+          cluster_wait();
+          return;
+        }
+      }
+    }
+  } else {
+    __syncthreads();
+  }
+  // Element e of a panel is column e % P, word e / P: neighbouring threads
+  // take neighbouring columns (coalesced in the word-major layout).
+  for (int i = tid; i < P * Wm; i += kThreads) {
+    const int c = i % P, w = i / P;
+    if (c < n) slot(c)[w] = ldm(at(c, w, ns));
+  }
+  __syncthreads();
+
   // ---- 2. Gauss-Jordan in reliability order, a panel of P columns at a
   // time.  Panel j lives in buffer j % 3.  While warp 0 factorises panel k,
   // the workers write panel k - 1 back, load panel k + 1, take panel k - 1
-  // to the columns after panel k + 1 in device memory and take panel k + 1
-  // past it; after the barrier every warp takes a column of panel k + 1
-  // past panel k, and after a second warp 0 goes on to it ----
+  // to the columns after panel k + 1 in device memory (the members, in the
+  // cluster plan) and take panel k + 1 past it; after the barrier every
+  // warp takes a column of panel k + 1 past panel k, and after a second
+  // warp 0 goes on to it.  In the cluster plan the leader arrives at phase k
+  // of the cluster barrier after that second barrier, and waits for phase
+  // k - 1 before it loads panel k + 1 (the workers) or writes panel k + 1's
+  // record over panel k - 1's (warp 0) ----
   int t = 0;       // warp 0's next column
   int rr = 0;      // warp 0: pivots found
   int passes = 0;  // warp 0: panels with a pivot
@@ -447,6 +649,7 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
         uint32_t cw[kLW];  // the lane's words of column t
 #pragma unroll
         for (int i = 0; i < kLW; ++i) cw[i] = lane + 32 * i < Wm ? col[lane + 32 * i] : 0u;
+        catch_up(col, cw, buf, Wp, Wm, lane, q, my_r, my_tc, my_Ncol);
         uint32_t any = 0u;
 #pragma unroll
         for (int i = 0; i < kLW; ++i) any |= cw[i] & ~used[i];
@@ -487,24 +690,20 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
           my_N = Nq;
         }
         if (lane == 0) s_prow[t] = (int16_t)pr;
-        // the panel's columns after t that carry row pr take S_q now
-        for (int c0 = t + 1; c0 < tend; c0 += 32) {
-          const int c = c0 + lane;
-          unsigned hm =
-              __ballot_sync(kFull, c < tend && (buf[(size_t)(c - k0) * Wp + pw] & pbit) != 0u);
-          while (hm) {
-            uint32_t* hit = buf + (size_t)(c0 + __ffs(hm) - 1 - k0) * Wp;
-            hm &= hm - 1u;
-#pragma unroll
-            for (int i = 0; i < kLW; ++i)
-              if (lane + 32 * i < Wm && cw[i]) hit[lane + 32 * i] ^= cw[i];
-          }
-        }
         __syncwarp();
         ++q;
         ++rr;
       }
+      for (int c = t; c < tend; ++c) {  // rank reached: the panel's other columns catch up
+        uint32_t* col = buf + (size_t)(c - k0) * Wp;
+        uint32_t cw[kLW];
+#pragma unroll
+        for (int i = 0; i < kLW; ++i) cw[i] = lane + 32 * i < Wm ? col[lane + 32 * i] : 0u;
+        catch_up(col, cw, buf, Wp, Wm, lane, q, my_r, my_tc, my_Ncol);
+      }
       __syncwarp();
+      if constexpr (kCluster)
+        if (k > 0) cluster_wait();  // the members hold panel k - 2's record no more
       // the record: the pivots, the columns of (I + L)^-1, the distinct words
       // of the pivot rows, and the words where some S_i is nonzero
       const bool has = lane < q;
@@ -539,23 +738,32 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
         nU += __popc(mk);
       }
       if (lane == 0) {
+        const int fin = t >= n || rr >= rank;  // the last panel
         R.hdr[0] = q;
         R.hdr[1] = __popc(leaders);
         R.hdr[2] = nU;
-        s_misc[0] = t >= n || rr >= rank;
+        R.hdr[3] = fin;
+        s_misc[0] = fin;
       }
       passes += q > 0;
     } else {
       // panel k - 1 back to device memory; panel k + 1 on its way into its
       // buffer (element e: column e % P, word e / P) while panel k - 1 goes
-      // to the columns after panel k + 1; then panel k + 1 past panel k - 1
+      // to the columns after panel k + 1; then panel k + 1 past panel k - 1.
+      // In the cluster plan the members pass panel k - 1, and panel k + 1
+      // comes from the L2 once they have passed panel k - 2
+      if constexpr (kCluster)
+        if (k > 0) cluster_wait();
       const uint32_t* prev = s_panel + (size_t)((k + 2) % 3) * P * Wp;
       uint32_t* next = s_panel + (size_t)((k + 1) % 3) * P * Wp;
       const int dw = kWorkers / P, dj = kWorkers - dw * P;
       for (int j = wid % P, w = wid / P; w < Wm;) {
         const int c = (k - 1) * P + j, c2 = (k + 1) * P + j;
         if (k > 0 && c < n) M[at(c, w, ns)] = prev[j * Wp + w];
-        if (c2 < n) cp_async4(next + j * Wp + w, M + at(c2, w, ns));
+        if (c2 < n) {
+          if constexpr (kCluster) next[j * Wp + w] = ldm(at(c2, w, ns));
+          else cp_async4(next + j * Wp + w, M + at(c2, w, ns));
+        }
         j += dj;
         w += dw;
         if (j >= P) {
@@ -565,8 +773,10 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
       }
       const Panel Rp = record(max(k - 1, 0));
       const bool pass = k > 0 && Rp.hdr[0] > 0;
-      if (pass) trailing_pass(Rp, min(n, (k + 2) * P));
-      cp_async_wait_all();
+      if constexpr (!kCluster) {
+        if (pass) trailing_pass(Rp, min(n, (k + 2) * P), n1);
+        cp_async_wait_all();
+      }
       if (pass) {
         workers_sync();
         panel_apply(Rp, k + 1, ww, kWorkWarps);
@@ -577,15 +787,24 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
     const int q = R.hdr[0];
     if (q > 0) panel_apply(R, k + 1, warp, kWarps);
     __syncthreads();
+    if constexpr (kCluster) cluster_arrive();  // phase k: panel k's record is final
     if (done) {
-      // panels k and k + 1 back to device memory; panel k to the columns after them
+      // panels k and k + 1 back to device memory; panel k to the columns
+      // after them (by the members in the cluster plan: phase k + 1 ends
+      // when they have)
       for (int i = tid; i < 2 * P * Wm; i += kThreads) {
         const int j = i % (2 * P), w = i / (2 * P);
         const int c = k * P + j;
         if (c < n) M[at(c, w, ns)] = slot(c)[w];
       }
-      if (warp != 0 && q > 0) trailing_pass(R, min(n, (k + 2) * P));
-      __syncthreads();
+      if constexpr (kCluster) {
+        cluster_wait();
+        cluster_arrive();
+        cluster_wait();
+      } else {
+        if (warp != 0 && q > 0) trailing_pass(R, min(n, (k + 2) * P), n1);
+        __syncthreads();
+      }
       break;
     }
   }
@@ -595,7 +814,7 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
   }
 
   // ---- T: the first lam non-pivot columns, in reliability order ----
-  for (int w = tid; w < Wm; w += kThreads) s_syn[w] = M[at(n, w, ns)];
+  for (int w = tid; w < Wm; w += kThreads) s_syn[w] = ldm(at(n, w, ns));
   if (warp == 0) {
     int cnt = 0;
     for (int base = 0; base < n && cnt < lam; base += 32) {
@@ -613,11 +832,11 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
   if (t_shared)
     for (int i = tid; i < lam * Wm; i += kThreads) {
       const int j = i / Wm, w = i - j * Wm;
-      s_panel[(size_t)j * Wp + w] = M[at(s_tcol[j], w, ns)];
+      s_panel[(size_t)j * Wp + w] = ldm(at(s_tcol[j], w, ns));
     }
   __syncthreads();
   auto tword = [&](int j, int w) {
-    return t_shared ? s_panel[(size_t)j * Wp + w] : M[at(s_tcol[j], w, ns)];
+    return t_shared ? s_panel[(size_t)j * Wp + w] : ldm(at(s_tcol[j], w, ns));
   };
 
   // ---- 4. candidate sweep ----
@@ -633,7 +852,7 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
     for (int c = tid; c < n; c += kThreads) {
       if (s_prow[c] >= 0) continue;
       int wt = 1;
-      for (int w = 0; w < Wm; ++w) wt += __popc(s_syn[w] ^ M[at(c, w, ns)]);
+      for (int w = 0; w < Wm; ++w) wt += __popc(s_syn[w] ^ ldm(at(c, w, ns)));
       const unsigned long long key = ((unsigned long long)wt << 32) | (unsigned)(1 + c);
       best = key < best ? key : best;
     }
@@ -665,8 +884,8 @@ osd_large_kernel(const int32_t* __restrict__ h_cols, const int32_t* __restrict__
   }
   for (int w = tid; w < Wm; w += kThreads) {
     uint32_t x = s_syn[w];
-    if (bt1 >= 0) x ^= M[at(bt1, w, ns)];
-    if (bt2 >= 0) x ^= M[at(bt2, w, ns)];
+    if (bt1 >= 0) x ^= ldm(at(bt1, w, ns));
+    if (bt2 >= 0) x ^= ldm(at(bt2, w, ns));
     s_best[w] = x;
   }
   __syncthreads();
@@ -691,14 +910,30 @@ using LargeKernel = void (*)(const int32_t*, const int32_t*, const uint8_t*, con
                              const int32_t*, uint32_t*, uint8_t*, uint8_t*, int, int, int, int,
                              int, int, int, int, int, unsigned long long*);
 
-LargeKernel large_kernel(int Wm) {
-  if (Wm <= 5 * 32) return osd_large_kernel<5>;
-  if (Wm <= 8 * 32) return osd_large_kernel<8>;
-  return osd_large_kernel<32>;
+LargeKernel large_kernel(int Wm, bool cluster) {
+  if (Wm <= 5 * 32) return cluster ? osd_large_kernel<5, true> : osd_large_kernel<5, false>;
+  if (Wm <= 8 * 32) return cluster ? osd_large_kernel<8, true> : osd_large_kernel<8, false>;
+  return cluster ? osd_large_kernel<32, true> : osd_large_kernel<32, false>;
+}
+
+// A launch of `grid` blocks in clusters of `cluster` on `stream`
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int grid, int cluster, size_t smem,
+                                  void* stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
-
 // Shared memory of one block: the reduction slots, three panels of P
 // columns (odd stride), two panel records, the syndromes, a chunk's hit
 // bits and g, the T columns and four flag words; two chunks' hit lists and
@@ -710,34 +945,52 @@ extern "C" size_t osd_large_smem_bytes(int n, int Wm, int lam, int P) {
          2 * (2 * (size_t)kChunk + n);
 }
 
-// Launches blocks for samples row0 .. row0 + rows - 1 on `stream`, panels of
-// P columns; block i works in scratch[i * Wm * ns ...], ns = n + 1 rounded
-// up to a multiple of four (scratch_stride).  `stats` is
-// null or two int64 the blocks add their pivots and trailing passes to.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
-// kernel does not take.
+// Launches the samples row0 .. row0 + rows - 1 on `stream`, panels of P
+// columns, `cluster` blocks a sample (1: a block a sample; 2-8: the
+// cluster plan, blocks i * cluster .. (i + 1) * cluster - 1 for the
+// launch's sample i); sample i works in scratch[i * Wm * ns ...], ns = n + 1
+// rounded up to a multiple of four (scratch_stride).  `stats` is null or two
+// int64 the blocks add their pivots and trailing passes to.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel does
+// not take.
 extern "C" int osd_large_launch(const void* h_cols, const void* perm, const void* synd,
                                 const void* skip, const void* pairs, void* scratch, void* e0,
                                 void* ew, int row0, int rows, int m, int n, int Wm, int rank,
-                                int lam, int n_pairs, int sweep, int P, void* stats,
+                                int lam, int n_pairs, int sweep, int P, int cluster, void* stats,
                                 void* stream) {
-  if (P < 1 || P > kMaxPanel || m > 32767 || n > 32767) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P > kMaxPanel || m > 32767 || n > 32767 || cluster < 1 || cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = osd_large_smem_bytes(n, Wm, lam, P);
-  auto kernel = large_kernel(Wm);
+  auto kernel = large_kernel(Wm, cluster > 1);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)h_cols, (const int32_t*)perm, (const uint8_t*)synd, (const uint8_t*)skip,
-      (const int32_t*)pairs, (uint32_t*)scratch, (uint8_t*)e0, (uint8_t*)ew, row0, m, n, Wm,
-      rank, lam, n_pairs, sweep, P, (unsigned long long*)stats);
+  const int32_t* h = (const int32_t*)h_cols;
+  const int32_t* pm = (const int32_t*)perm;
+  const uint8_t* sy = (const uint8_t*)synd;
+  const uint8_t* sk = (const uint8_t*)skip;
+  const int32_t* pr = (const int32_t*)pairs;
+  uint32_t* sc = (uint32_t*)scratch;
+  uint8_t* o0 = (uint8_t*)e0;
+  uint8_t* ow = (uint8_t*)ew;
+  unsigned long long* st = (unsigned long long*)stats;
+  if (cluster == 1) {
+    kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(
+        h, pm, sy, sk, pr, sc, o0, ow, row0, m, n, Wm, rank, lam, n_pairs, sweep, P, st);
+  } else {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(&attr, rows * cluster, cluster, smem, stream);
+    err = cudaLaunchKernelEx(&cfg, kernel, h, pm, sy, sk, pr, sc, o0, ow, row0, m, n, Wm, rank,
+                             lam, n_pairs, sweep, P, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
 // The kernel's registers a thread and resident blocks an SM at this shape:
 // out = {registers, blocks an SM}.  Returns 0 or the CUDA error.
 extern "C" int osd_large_plan(int n, int Wm, int lam, int P, int* out) {
-  auto kernel = large_kernel(Wm);
+  auto kernel = large_kernel(Wm, false);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
@@ -749,5 +1002,27 @@ extern "C" int osd_large_plan(int n, int Wm, int lam, int P, int* out) {
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = per_sm;
+  return 0;
+}
+
+// The cluster plan at this shape with `cluster` blocks a sample: out =
+// {registers a thread, clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters)}.  Returns 0 or the CUDA error.
+extern "C" int osd_large_clusters(int n, int Wm, int lam, int P, int cluster, int* out) {
+  if (cluster < 2 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  auto kernel = large_kernel(Wm, true);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = osd_large_smem_bytes(n, Wm, lam, P);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute cattr;
+  const cudaLaunchConfig_t cfg = cluster_config(&cattr, cluster, cluster, smem, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = clusters;
   return 0;
 }

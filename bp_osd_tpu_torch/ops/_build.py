@@ -158,12 +158,14 @@ def load() -> ctypes.CDLL:
     lib.gf2_elim_warp_smem_bytes.argtypes = [I, I, I]
     lib.gf2_elim_warp_smem_bytes.restype = SZ
     lib.osd_large_launch.argtypes = [P, P, P, P, P, P, P, P,
-                                     I, I, I, I, I, I, I, I, I, I, P, P]
+                                     I, I, I, I, I, I, I, I, I, I, I, P, P]
     lib.osd_large_launch.restype = I
     lib.osd_large_smem_bytes.argtypes = [I, I, I, I]
     lib.osd_large_smem_bytes.restype = SZ
     lib.osd_large_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
     lib.osd_large_plan.restype = I
+    lib.osd_large_clusters.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
+    lib.osd_large_clusters.restype = I
     lib.bp_lifted_launch.argtypes = [P, P, LL, P, P, P, P, P, P, P, P,
                                      I, I, I, I, I, I, I, I, I, I, I, F, P]
     lib.bp_lifted_launch.restype = I

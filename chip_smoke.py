@@ -199,6 +199,24 @@ Phases, one line each (any failed check exits non-zero):
    throughput team forced through ``_TEAM_WARPS``, each held to
    ``bp_decode_plain`` in all five outputs and timed beside its bound, the
    two in turns (8 rounds of a median of 3, the order swapped each round).
+23. K5 where its launches under-fill the card (``phase23(tag)`` runs alone
+   too): on the [[10000,420]] lifted product (lift 400, osd_cs 15), 16
+   syndromes that lifted BP leaves at p = 0.005 and 16 at p = 0.028 (errors
+   drawn on the card): K5 at 1, 2, 8 and 16 rows in the rule's plan
+   (``osd_large_cluster``) and with 1, 2, 4 and 8 blocks a sample, each
+   bit-identical to
+   ``osd_decode_plain``; a lone row and 8 rows timed in the rule's plan and
+   with a block a sample in turns (8 rounds of a median of 3, the order
+   swapped each round), and a lone row by blocks a sample; 16, 31, 48 and
+   66 BP-failing rows (the rule's middle bands) in every plan of C x rows
+   <= SMs, in turns, each equal to a block a sample; 129 rows at
+   p = 0.028 (a heavy batch's failures) in the rule's plan (a block a
+   sample) and with clusters of 2, equal and timed; the recorder's
+   ``osd_large.rows`` and ``osd_large.cluster_rows`` over a cluster launch
+   and a heavy one; the rule at 1-132 rows against
+   ``cudaOccupancyMaxActiveClusters``; the gross code's space-time matrix
+   (936 x 2736, osd_cs 7), 8 rows bit-identical in every plan, a lone
+   row timed in each, and 16-66 rows in every plan as at lift 400.
 
 The helpers for timing, bounds and gates are those of
 ``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
@@ -257,6 +275,7 @@ STAGE_SCHEDULES = (None, 32, (8, 32, 128), 400)  # phase 19's stage1_iters
 # phase 22: the benchmark cell gross144.ph12.p025.b4096's space-time decode
 GROSS_ROUNDS, GROSS_P, GROSS_B, GROSS_ITERS = 12, 0.025, 4096, 10000
 PAIR_ROUNDS = 8  # phase 22b: rounds of the plan's choice against the throughput team
+BAND_ROWS = (16, 31, 48, 66)  # phase 23: K5 launches in the cluster rule's middle bands
 BIG_RUNS = 6 * 16384  # phase 15d's harness at batch 16384
 RANK_TIMEOUT = 300  # seconds the phase-15c ranks may take, start-up included
 
@@ -1565,6 +1584,193 @@ def phase22(tag) -> dict:
             "gross144_latency_rows": latency_rows, "under_filled": cases}
 
 
+def phase23(tag) -> dict:
+    """K5 where its launches under-fill the card: the cluster plan (see the
+    module docstring).  Returns the kernels line's numbers for it."""
+    from bp_osd_tpu_torch.codes import gross_code, lifted_hgp, phenomenological
+    from bp_osd_tpu_torch.decoder.bp import llr_from_channel
+    from bp_osd_tpu_torch.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
+    from bp_osd_tpu_torch.decoder.osd import build_osd_consts, osd_decode_plain
+    from bp_osd_tpu_torch.decoder.tanner import TannerGraph
+    from bp_osd_tpu_torch.ops.cuda_osd_large import (_osd_large, osd_large, osd_large_cluster,
+                                                     osd_large_clusters)
+    from bp_osd_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+
+    def k5(graph, perm, synd, pairs, cluster=None):
+        return _osd_large(graph, perm, synd, LIFT_ORDER, pairs, None, cluster)
+
+    def held(graph, perm, synd, pairs, want, clusters, what):
+        """K5 in each plan of ``clusters`` (None: the rule's) equal to ``want``."""
+        for c in clusters:
+            got = k5(graph, perm, synd, pairs, c)
+            check(same(got[0], want[0]) and same(got[1], want[1]),
+                  f"phase 23 {what}: K5 with {c or 'the rule'}'s clusters differs from "
+                  f"osd_decode_plain")
+
+    def in_turns(fns: dict) -> dict:
+        """Each ``fn`` timed PAIR_ROUNDS times (median of 3), in turns, the
+        order reversed each round; the medians."""
+        ms = {k: [] for k in fns}
+        for r in range(PAIR_ROUNDS):
+            for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                ms[k].append(cuda_ms(fns[k], 3))
+        return {k: float(np.median(v)) for k, v in ms.items()}
+
+    def bands(graph, perm, synd, pairs, order, what) -> dict:
+        """Launches of 16 to 66 rows, the rule's middle bands: every plan
+        with C x rows <= SMs, in turns, each equal to a block a sample;
+        rows -> {blocks a sample: ms}, the rule's plan under "rule"."""
+        out = {}
+        for rows in BAND_ROWS:
+            args = (graph, perm[:rows], synd[:rows], order, pairs, None)
+            rule = osd_large_cluster(rows, sms, lambda c: osd_large_clusters(graph, order, c)
+                                     ["clusters"])
+            plans = [1] + [c for c in (2, 4, 8) if rows * c <= sms]
+            one = _osd_large(*args, 1)
+            for c in plans[1:]:
+                got = _osd_large(*args, c)
+                check(same(got[0], one[0]) and same(got[1], one[1]),
+                      f"phase 23 {what}, {rows} rows: {c} blocks a sample differ from one")
+            ms = in_turns({c: (lambda c=c: _osd_large(*args, c)) for c in plans})
+            out[rows] = {"rule": rule, **ms}
+        return out
+
+    def band_text(b: dict) -> str:
+        return "; ".join(f"{rows} rows (rule {v['rule']}) "
+                         + ", ".join(f"{c}: {ms:.3f}" for c, ms in v.items() if c != "rule")
+                         for rows, v in b.items())
+
+    # (a) the lifted product [[10000,420]] at lift 400: rows that failed BP
+    qcode = lifted_hgp(PROTO, lift=LIFT)
+    H = np.asarray(qcode.hx.toarray(), np.uint8)
+    graph, lgraph = TannerGraph(H, dev), LiftedGraph(qcode.hx_proto, LIFT, dev)
+    H_f = torch.as_tensor(H, dtype=torch.float32, device=dev)
+    pairs = build_osd_consts(graph, "osd_cs", LIFT_ORDER).pairs
+    sizes = {c: osd_large_clusters(graph, LIFT_ORDER, c) for c in (2, 4, 8)}
+    resident = {c: v["clusters"] for c, v in sizes.items()}
+
+    def failing(p, rows):
+        """``rows`` syndromes of errors at rate ``p`` that lifted BP (min-sum
+        0.625, 100 iterations) leaves, with their reliability order."""
+        l0 = llr_from_channel(np.full(graph.n, p)).to(dev)
+        synd, llr = [], []
+        for _ in range(64):
+            err = (torch.rand((4096, graph.n), generator=gen, device=dev) < p).float()
+            s = torch.remainder(err @ H_f.T, 2).to(torch.uint8)
+            bp = bp_decode_lifted(lgraph, s, l0, bp_method="ms", max_iter=100,
+                                  ms_scaling_factor=0.625)
+            fail = torch.nonzero(~bp.converged).flatten()
+            synd.append(s[fail])
+            llr.append(bp.llr[fail])
+            if sum(x.shape[0] for x in synd) >= rows:
+                break
+        synd, llr = torch.cat(synd)[:rows], torch.cat(llr)[:rows]
+        check(synd.shape[0] == rows, f"phase 23: fewer than {rows} rows failed BP at p = {p}")
+        return synd, torch.argsort(llr, dim=1, stable=True).to(torch.int32)
+
+    lines, timed, middle = [], {}, {}
+    for p in (LIFT_P, LIFT_HEAVY_P):
+        synd, perm = failing(p, max(BAND_ROWS))
+        want = osd_decode_plain(graph, perm[:16], synd[:16], method="osd_cs",
+                                osd_order=LIFT_ORDER, pairs=pairs)
+        check(satisfies(want[1], H_f, synd[:16]), f"phase 23 p = {p}: a plain osdw violates its "
+              "syndrome")
+        for rows in (1, 2, 8, 16):
+            held(graph, perm[:rows], synd[:rows], pairs, (want[0][:rows], want[1][:rows]),
+                 (None, 1, 2, 4, 8),
+                 f"lift {LIFT}, p = {p}, {rows} rows")
+        for rows in (1, 8):
+            rule = osd_large_cluster(rows, sms, resident.get)
+            ms = in_turns({c: (lambda c=c: k5(graph, perm[:rows], synd[:rows], pairs, c))
+                           for c in (rule, 1)})
+            timed[(p, rows)] = {"cluster": rule, "ms": ms[rule], "one_block_ms": ms[1]}
+        sweep = in_turns({c: (lambda c=c: k5(graph, perm[:1], synd[:1], pairs, c))
+                          for c in (1, 2, 4, 8)})
+        middle[str(p)] = bands(graph, perm, synd, pairs, LIFT_ORDER, f"lift {LIFT}, p = {p}")
+        lines.append(f"p = {p}: 16 BP-failing rows, K5 bit-identical to osd_decode_plain at 1, "
+                     f"2, 8 and 16 rows in the rule's plan and with 1, 2, 4, 8 blocks a "
+                     f"sample; in turns ({PAIR_ROUNDS} rounds of a median of 3) 1 row "
+                     f"{timed[(p, 1)]['ms']:.3f} ms ({timed[(p, 1)]['cluster']} blocks) vs "
+                     f"{timed[(p, 1)]['one_block_ms']:.3f} (a block), 8 rows "
+                     f"{timed[(p, 8)]['ms']:.3f} ms ({timed[(p, 8)]['cluster']}) vs "
+                     f"{timed[(p, 8)]['one_block_ms']:.3f}; a lone row by blocks a sample "
+                     + ", ".join(f"{c}: {v:.3f}" for c, v in sweep.items()) + " ms; by blocks "
+                     "a sample (ms) " + band_text(middle[str(p)]))
+
+    # the heavy point: a batch's ~129 failing rows at p = 0.028, in the
+    # rule's plan (a block a sample) and with clusters of 2 (two waves)
+    heavy_s, heavy_p = failing(LIFT_HEAVY_P, 129)
+    rule = osd_large_cluster(129, sms, resident.get)
+    check(rule == 1, f"phase 23: the rule gave {rule} blocks a sample to 129 rows")
+    one = k5(graph, heavy_p, heavy_s, pairs, 1)
+    held(graph, heavy_p, heavy_s, pairs, one, (None, 2), "129 rows against a block a sample")
+    heavy = in_turns({c: (lambda c=c: k5(graph, heavy_p, heavy_s, pairs, c)) for c in (1, 2)})
+
+    # the counters: a launch's rows, and those of the cluster plan
+    profiling.collect()
+    profiling.enable()
+    try:
+        osd_large(graph, heavy_p[:16], heavy_s[:16], osd_order=LIFT_ORDER, pairs=pairs)
+        osd_large(graph, heavy_p, heavy_s, osd_order=LIFT_ORDER, pairs=pairs)
+    finally:
+        profiling.disable()
+    counters = profiling.collect().counters
+    check(counters.get("osd_large.rows") == 16 + 129
+          and counters.get("osd_large.cluster_rows") == 16,
+          f"phase 23 counters {counters.get('osd_large.rows')} rows, "
+          f"{counters.get('osd_large.cluster_rows')} cluster rows; want 145 and 16")
+
+    # (b) the rule against cudaOccupancyMaxActiveClusters
+    rules = {}
+    for B in (1, 2, 8, 16, 17, 32, 33, 44, 66, 67, 129, 132):
+        got = osd_large_cluster(B, sms, resident.get)
+        fits = [c for c in (8, 4, 2) if B * c <= sms and resident[c] >= B]
+        check(got == (fits[0] if fits else 1), f"phase 23 the rule at {B} rows: {got}")
+        rules[B] = got
+
+    # (c) the gross code's space-time matrix, rows forced into each plan
+    H_st = phenomenological(gross_code().hx, GROSS_ROUNDS).H.toarray().astype(np.uint8)
+    g_st = TannerGraph(H_st, dev)
+    pairs_st = build_osd_consts(g_st, "osd_cs", 7).pairs
+    n_st = max(BAND_ROWS)
+    err = (torch.rand((n_st, g_st.n), generator=gen, device=dev) < GROSS_P).float()
+    s_st = torch.remainder(err @ torch.as_tensor(H_st, dtype=torch.float32, device=dev).T,
+                           2).to(torch.uint8)
+    p_st = torch.argsort(torch.randn((n_st, g_st.n), generator=gen, device=dev), dim=1,
+                         stable=True).to(torch.int32)
+    want = osd_decode_plain(g_st, p_st[:8], s_st[:8], method="osd_cs", osd_order=7,
+                            pairs=pairs_st)
+    for c in (None, 1, 2, 4, 8):
+        got = _osd_large(g_st, p_st[:8], s_st[:8], 7, pairs_st, None, c)
+        check(same(got[0], want[0]) and same(got[1], want[1]),
+              f"phase 23 gross144: K5 with {c or 'the rule'}'s clusters differs from "
+              "osd_decode_plain")
+    gross = in_turns({c: (lambda c=c: _osd_large(g_st, p_st[:1], s_st[:1], 7, pairs_st, None,
+                                                  c)) for c in (1, 2, 4, 8)})
+    gross_bands = bands(g_st, p_st, s_st, pairs_st, 7, "gross144")
+    print(f"phase 23 K5's cluster plan, lift {LIFT} ({graph.m} x {graph.n}, rank "
+          f"{graph.rank}, osd_cs {LIFT_ORDER}; {sms} SMs; clusters resident at once "
+          + ", ".join(f"{c} blocks: {v['clusters']} ({v['registers']} registers)"
+                      for c, v in sizes.items()) + "): " + "; ".join(lines)
+          + f"; 129 rows at p = {LIFT_HEAVY_P}: a block a sample {heavy[1]:.3f} ms, clusters "
+          f"of 2 {heavy[2]:.3f} ms (equal bits); counters osd_large.rows 145, cluster_rows 16; "
+          f"the rule by rows " + ", ".join(f"{B}: {c}" for B, c in rules.items())
+          + f"; gross144 ({g_st.m} x {g_st.n}) 8 rows bit-identical in every plan, a lone row "
+          + ", ".join(f"{c} blocks {v:.3f}" for c, v in gross.items()) + " ms; by blocks a "
+          f"sample (ms) {band_text(gross_bands)} {tag}")
+    return {"sms": sms, "resident_clusters": resident,
+            "lone_row": {str(p): timed[(p, 1)] for p in (LIFT_P, LIFT_HEAVY_P)},
+            "rows8": {str(p): timed[(p, 8)] for p in (LIFT_P, LIFT_HEAVY_P)},
+            "heavy_129": {"one_block_ms": heavy[1], "cluster2_ms": heavy[2]},
+            "rule": rules, "gross144_lone_row": gross,
+            "bands": {"lift400": middle, "gross144": gross_bands}}
+
+
 def rank_split(ranks: list[dict]) -> str:
     """Each rank's ms a batch, beside one reduction's and one slice's decode."""
     return ("each rank's first batch of one (a fresh process, before the timed run) "
@@ -2292,6 +2498,7 @@ def main() -> None:
     phase20(tag, H, fresh)
     k6_line = phase21(tag, qcode, fresh_l, heavy_l)
     k1_latency = phase22(tag)
+    k5_cluster = phase23(tag)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)
@@ -2327,9 +2534,11 @@ def main() -> None:
         row("osd_large", "osd_large.cu", "bp_osd_tpu/ops/pallas_osd_large.py:62", launches_l["osd_large"],
             k5_per_decode, k5_err, k5_ms, k5_plain_ms, k5_b, lone_row_ms=k5_one_ms,
             lone_row_bound_ms=k5_one_b[0].ms, heavy_ms=k5_all_ms, heavy_rows=n_fail_h,
+            cluster_plan=k5_cluster,
             design="word-major scratch, a window of two panels in shared memory owned "
                    "by warp 0 (search, window XOR, dependent columns without a barrier), "
-                   "warps 1-31 test and XOR the later columns"),
+                   "warps 1-31 test and XOR the later columns; below SMs / 2 rows a "
+                   "cluster of 2-8 blocks a sample, blocks 1.. making the far passes"),
         row("bp_lifted", "bp_lifted.cu", "bp_osd_tpu/decoder/lifted_bp.py:173",
             launches_l["bp_lifted"], k6_per_decode, k6_line["err"], k6_line["ms"],
             k6_line["plain_ms"], k6_line["bound"], p0005_ms=k6_line["p0005_ms"],

@@ -1,7 +1,9 @@
 """Kernel K5's design (``csrc/osd_large.cu``) on the CPU: its blocked
 elimination in the word-major layout and its sweep, emulated in numpy step
-for step, against the port's plain versions and the JAX package; the Python
-mirror of its shared memory; the elimination counts ``utils/measure.py``
+for step, against the port's plain versions and the JAX package, with the
+far trailing passes made by one block or split among a cluster's members;
+the rule that picks the cluster plan; the Python mirror of its shared
+memory; the elimination counts ``utils/measure.py``
 counts the OSD kernels' bounds from; K3's fit and the unchanged OSD
 routing.
 
@@ -38,8 +40,8 @@ from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import _SMEM_LIMIT
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, k3_fits, osd_cs_warp_smem_bytes
-from bp_osd_tpu_torch.ops.cuda_osd_large import (_MAX_PANEL, osd_large_panel,
-                                                 osd_large_smem_bytes)
+from bp_osd_tpu_torch.ops.cuda_osd_large import (_MAX_PANEL, osd_large_cluster,
+                                                 osd_large_panel, osd_large_smem_bytes)
 from bp_osd_tpu_torch.utils.measure import elim_work
 
 torch.set_num_threads(1)
@@ -106,15 +108,17 @@ def _bits(x: int):
 
 def _factorise(k, P, n, rank, slot, buf, used, prow, t, rr):
     """Warp 0 on panel k, columns [k P, min(n, (k + 1) P)) in their buffer
-    ``buf``: the pivot search, the pivot bit cleared in place (so the
-    column is S), each pivot's S XORed into the panel's later columns
-    carrying its row, the dependent columns passed over, until the panel's
-    end or rank pivots.  Row i of (I + L)^-1 is e_i XOR the rows j < i that
-    L[i] names (lane i's register in the kernel), its columns the record's
-    N.  Returns the record and the next (t, rr)."""
+    ``buf``, left-looking in the panel: each column it reaches first takes
+    the panel's pivots so far (:func:`_catch_up`), then the pivot search,
+    the pivot bit cleared in place (so the column is S), the dependent
+    columns passed over, until the panel's end or rank pivots; the panel's
+    columns after rank pivots catch up too.  Row i of (I + L)^-1 is e_i XOR
+    the rows j < i that L[i] names (lane i's register in the kernel), its
+    columns the record's N.  Returns the record and the next (t, rr)."""
     tend = min(n, (k + 1) * P)
     r, tc, L, Nrow = [], [], [], []
     while t < tend and rr < rank:
+        _catch_up(slot(t), buf, r, tc, Nrow)
         x = slot(t) & ~used
         nz = np.flatnonzero(x)
         if not nz.size:  # a dependent column: on to the next
@@ -135,11 +139,10 @@ def _factorise(k, P, n, rank, slot, buf, used, prow, t, rr):
         Nrow.append(row)
         r.append(pr)
         tc.append(t - k * P)
-        for c in range(t + 1, tend):
-            if slot(c)[pw] & pbit:
-                slot(c)[:] ^= s
         t += 1
         rr += 1
+    for c in range(t, tend):  # rank reached
+        _catch_up(slot(c), buf, r, tc, Nrow)
     Wm = len(used)
     pw, pm, piv = [], [], {}
     for i, ri in enumerate(r):
@@ -154,6 +157,19 @@ def _factorise(k, P, n, rank, slot, buf, used, prow, t, rr):
     nzw = [sum(1 << i for i in range(len(tc)) if Smat[i, w]) for w in range(Wm)]
     Uw = [w for w in range(Wm) if nzw[w]]
     return PanelRecord(r, buf, tc, L, N, pw, pm, piv, Uw, [nzw[w] for w in Uw]), t, rr
+
+
+def _catch_up(col, buf, r, tc, Nrow):
+    """``col`` (a view of its buffer) past the panel's pivots so far, as
+    warp 0's ``catch_up`` takes it when it reaches the column: cb_i =
+    col[r_i], g = (I + L)^-1 cb (the XOR of its columns at cb's bits, the
+    rows ``Nrow`` read by column), then col ^= the S_i that g selects."""
+    cb = sum(((int(col[ri >> 5]) >> (ri & 31)) & 1) << i for i, ri in enumerate(r))
+    g = 0
+    for j in _bits(cb):
+        g ^= sum(((Nrow[i] >> j) & 1) << i for i in range(len(r)))
+    for i in _bits(g):
+        col ^= buf[tc[i]]
 
 
 def _pass_g(rec, cols):
@@ -204,12 +220,30 @@ def _trailing_pass(rec, cols):
     _union_xor(rec, cols, np.where(one_pivot, np.uint64(0), g))
 
 
-def k5_eliminate(h_cols, perm, synd, rank, P, records=None):
+def member_ranges(cs: int, n: int, members: int) -> list:
+    """The columns of a far trailing pass from ``cs`` (the syndrome column n
+    included) that each of a cluster's ``members`` passes, as
+    ``csrc/osd_large.cu``'s members split them: from ``cs`` rounded down to
+    a multiple of four, shares of a multiple of four columns, each member's
+    ``[lo, hi)``; a member whose share starts past n passes nothing."""
+    base = cs & ~3
+    per = ((n + 1 - base + members - 1) // members + 3) & ~3
+    out = []
+    for mi in range(members):
+        lo, hi = base + mi * per, min(n + 1, base + (mi + 1) * per)
+        if lo < hi:
+            out.append((max(lo, cs), hi))
+    return out
+
+
+def k5_eliminate(h_cols, perm, synd, rank, P, records=None, members=0):
     """K5's elimination of one sample: ``h_cols [n, Wm]`` uint32 (the
     column-packed H), ``perm [n]``, ``synd [m]``.  Returns the device
     matrix ``M [Wm, n + 1]`` after the final write-back (word-major: column
     c is ``M[:, c]``, the syndrome column n) and ``prow [n]``; appends each
-    panel's record to ``records`` when given.
+    panel's record to ``records`` when given.  With ``members`` the far
+    trailing passes are the cluster plan's: each member passes its share of
+    the columns (:func:`member_ranges`).
 
     Panel j lives in buffer j % 3, and its record's S_i are read from
     there, so the buffer must outlive the record.  While warp 0 factorises panel k, the
@@ -233,6 +267,10 @@ def k5_eliminate(h_cols, perm, synd, rank, P, records=None):
         for c in range(j * P, min(n, (j + 1) * P)):
             M[:, c] = slot(c)
 
+    def far_pass(rec, cs):  # a block's workers, or each member on its share
+        for lo, hi in member_ranges(cs, n, members) if members else [(cs, n + 1)]:
+            _trailing_pass(rec, M[:, lo:hi])
+
     for c in range(min(P, n)):
         slot(c)[:] = M[:, c]
     used = np.zeros(Wm, np.uint32)
@@ -247,7 +285,7 @@ def k5_eliminate(h_cols, perm, synd, rank, P, records=None):
             slot(c)[:] = M[:, c]
         if prev is not None and prev.q:
             _panel_apply(prev, buffer_of(k + 1))
-            _trailing_pass(prev, M[:, min(n, (k + 2) * P):])
+            far_pass(prev, min(n, (k + 2) * P))
         rec, t, rr = _factorise(k, P, n, rank, slot, panels[k % 3], used, prow, t, rr)
         if records is not None:
             records.append(rec)
@@ -258,7 +296,7 @@ def k5_eliminate(h_cols, perm, synd, rank, P, records=None):
             write_back(k)
             write_back(k + 1)
             if rec.q:
-                _trailing_pass(rec, M[:, min(n, (k + 2) * P):])
+                far_pass(rec, min(n, (k + 2) * P))
             break
         prev = rec
         k += 1
@@ -270,8 +308,14 @@ def k5_decode(h_cols, perm, synd, rank, P, lam, pairs):
     weight 1 on every non-pivot column, weight 2 on ``pairs`` of the first
     lam T columns; first minimum of ``weight << 32 | candidate rank``) and
     the read-off.  Returns (osd0, osdw) in original coordinates."""
-    n = h_cols.shape[0]
     M, prow = k5_eliminate(h_cols, perm, synd, rank, P)
+    return _decode_from(M, prow, perm, lam, pairs)
+
+
+def _decode_from(M, prow, perm, lam, pairs):
+    """The sweep and the read-off of :func:`k5_decode` on K5's reduced
+    matrix ``M`` and pivot rows ``prow``."""
+    n = len(perm)
     syn = M[:, n]
     tall = np.flatnonzero(prow < 0)
     bt1 = bt2 = -1
@@ -382,6 +426,107 @@ def test_k5_panel_emulation_equals_plain_and_jax(code, P):
             assert np.array_equal(got, np.asarray(j_out[b]).astype(got.dtype)), (name, b)
         e0, ew = k5_decode(h_cols, perm[b], synd[b], r, P, lam, pairs)
         assert np.array_equal(e0, want0[b].numpy()) and np.array_equal(ew, wantw[b].numpy())
+
+
+@pytest.mark.parametrize("members", [1, 3, 7, 15])
+@pytest.mark.parametrize("code", ["lift60", "rank_deficient"])
+def test_k5_cluster_emulation_equals_plain(code, members):
+    """With the far trailing passes split among a cluster's 1, 3 or 7
+    members (clusters of 2, 4 and 8 blocks; 15, beyond what the kernel
+    launches, for the split alone), panels of 7 and of 32 columns,
+    the emulated K5 still gives ``eliminate_plain``'s five outputs and
+    ``osd_decode_plain``'s osd0/osdw: a column passed twice or missed by the
+    split would change them."""
+    H, synd, perm, order = _case(code)
+    g = TannerGraph(H, device="cpu")
+    m, r = g.m, g.rank
+    lam = min(order, g.n - r)
+    pairs = build_osd_consts(g, "osd_cs", order).pairs
+    h_cols = g.H_cols.numpy().view(np.uint32)
+    perm_t, synd_t = torch.as_tensor(perm), torch.as_tensor(synd)
+    plain = eliminate_plain(g, perm_t, synd_t)
+    want0, wantw = osd_decode_plain(g, perm_t, synd_t, method="osd_cs", osd_order=order,
+                                    pairs=pairs)
+    for P in (7, 32):
+        for b in range(synd.shape[0]):
+            M, prow = k5_eliminate(h_cols, perm[b], synd[b], r, P, members=members)
+            mine = k5_elimination_outputs(M, prow, perm[b], m, r)
+            for name, got, p_out in zip(plain._fields, mine, plain):
+                p_np = p_out[b].numpy()
+                assert np.array_equal(got, p_np.view(np.uint32) if name == "h_work" else p_np)
+            e0, ew = _decode_from(M, prow, perm[b], lam, pairs)
+            assert np.array_equal(e0, want0[b].numpy()) and np.array_equal(ew, wantw[b].numpy())
+
+
+@pytest.mark.parametrize("n,members", [(59, 7), (1500, 3), (10000, 7), (10000, 15), (2736, 1)])
+def test_k5_member_ranges_split_the_far_columns(n, members):
+    """Every far pass's columns [cs, n] fall to exactly one member, in
+    ascending shares that start at a multiple of four (the 16-byte loads of
+    four neighbouring columns) after the first."""
+    for cs in sorted({0, 1, 3, 4, 5, 32, 96, n // 3, n - 5, n - 1, n} - {-1}):
+        if not 0 <= cs <= n:
+            continue
+        ranges = member_ranges(cs, n, members)
+        assert len(ranges) <= members
+        cols = np.concatenate([np.arange(lo, hi) for lo, hi in ranges])
+        assert np.array_equal(cols, np.arange(cs, n + 1)), (cs, ranges)
+        assert all(lo % 4 == 0 for lo, _ in ranges[1:])
+
+
+_H100 = {2: 66, 4: 30, 8: 15}  # clusters resident at once at lift 400 (H100, 132 SMs)
+
+
+@pytest.mark.parametrize("B,want", [(1, 8), (2, 8), (15, 8), (16, 4), (17, 4), (30, 4), (31, 2),
+                                    (66, 2), (67, 1), (129, 1), (132, 1)])
+def test_k5_cluster_rule(B, want):
+    """The most blocks a sample, of 8, 4 and 2, whose B clusters fit the
+    card at once (B x C <= 132 SMs and B <= the clusters of C blocks it
+    holds together: 15 of 8 on an H100, so 16 rows take clusters of 4);
+    else a block a sample, as a heavy batch's 129 rows do."""
+    assert osd_large_cluster(B, 132, _H100.get) == want
+
+
+def test_k5_cluster_rule_without_room():
+    """A card that holds no cluster (or too few) gives a block a sample or
+    the next smaller cluster; the SMs bound C x B on their own."""
+    assert [osd_large_cluster(B, 132, lambda c: 0) for B in (1, 8, 66)] == [1, 1, 1]
+    assert osd_large_cluster(16, 132, {2: 66, 4: 30, 8: 16}.get) == 8
+    assert osd_large_cluster(4, 132, {2: 66, 4: 3, 8: 3}.get) == 2
+    assert [osd_large_cluster(B, 8, {2: 4, 4: 2, 8: 1}.get) for B in (1, 2, 4, 5)] == [8, 4, 2, 1]
+    asked = []
+    assert osd_large_cluster(70, 132, lambda c: asked.append(c) or 99) == 1 and asked == []
+
+
+def test_k5_cluster_residency_asked_once(monkeypatch):
+    """The wrapper asks the CUDA runtime for a shape's resident clusters once a
+    card and shape (the answer depends on nothing else), not at every
+    launch; another card, shape or cluster size asks again."""
+    import types
+
+    import bp_osd_tpu_torch.ops.cuda_osd_large as k5
+
+    asked = []
+
+    def ask(n, Wm, lam, panel, cluster, out):
+        asked.append((n, Wm, lam, panel, cluster))
+        out[0], out[1] = 64, _H100[cluster]
+        return 0
+
+    monkeypatch.setattr(k5, "_build", types.SimpleNamespace(
+        load=lambda: types.SimpleNamespace(osd_large_clusters=ask)))
+    k5._clusters.cache_clear()
+    try:
+        got = [k5._clusters(0, 10000, 150, 15, 32, c) for c in (8, 4, 8, 8, 2, 4)]
+        assert got == [(64, 15), (64, 30), (64, 15), (64, 15), (64, 66), (64, 30)]
+        assert asked == [(10000, 150, 15, 32, 8), (10000, 150, 15, 32, 4),
+                         (10000, 150, 15, 32, 2)]
+        k5._clusters(1, 10000, 150, 15, 32, 8)
+        k5._clusters(0, 2736, 30, 7, 32, 8)
+        assert len(asked) == 5
+        assert [osd_large_cluster(B, 132, lambda c: k5._clusters(0, 10000, 150, 15, 32, c)[1])
+                for B in (1, 16, 31, 66, 67)] == [8, 4, 2, 2, 1] and len(asked) == 5
+    finally:
+        k5._clusters.cache_clear()
 
 
 def _schedule_case(case):

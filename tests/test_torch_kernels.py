@@ -654,6 +654,48 @@ def test_osd_large_counts_pivots_and_passes(dev, lift):
     assert counters["osd_large.pivots"] / passes > P / 2
 
 
+@pytest.mark.parametrize("lift,rows,panel", [(60, 1, 0), (60, 5, 0), (100, 16, 0), (100, 40, 0),
+                                             (400, 2, 0), (500, 3, 0), (700, 3, 0), (100, 6, 1),
+                                             (100, 6, 7), (100, 6, 31), (400, 2, 5)])
+def test_osd_large_cluster_plans_bit_identical(dev, lift, rows, panel, monkeypatch):
+    """A block a sample, clusters of 2, 4 and 8 blocks and the rule's
+    choice give the plain version's bits, with and without skip rows,
+    where warp 0 keeps 5 words a lane (lift 400 and below), 8 (lift 500)
+    or 32 (lift 700), and at panels of 1 to 31 columns (``_PANEL``; 0: the
+    default width); the rule takes the cluster plan below SMs / 2 rows
+    where the card holds the clusters, and the recorder counts the
+    launch's rows in ``osd_large.rows`` and, in the cluster plan, in
+    ``osd_large.cluster_rows``."""
+    import bp_osd_tpu_torch.ops.cuda_osd_large as k5
+    from bp_osd_tpu_torch.utils import profiling
+
+    H, g = _lifted(lift, dev)
+    synd, perm = _osd_inputs(H, rows, 3 * lift + rows + panel, dev, p=0.04)
+    pairs = build_osd_consts(g, "osd_cs", 15).pairs
+    monkeypatch.setattr(k5, "_PANEL", panel)
+    skip = torch.zeros(rows, dtype=torch.bool, device=dev)
+    skip[1::3] = True
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    held = {c: k5.osd_large_clusters(g, 15, c)["clusters"] for c in (2, 4, 8)}
+    rule = k5.osd_large_cluster(rows, sms, held.get)
+    assert rule > 1 and rows * rule <= sms and held[rule] >= rows
+    for sk in (None, skip):
+        want = osd_decode_plain(g, perm, synd, method="osd_cs", osd_order=15, pairs=pairs,
+                                skip=sk)
+        for c in (None, 1, 2, 4, 8):
+            _equal(k5._osd_large(g, perm, synd, 15, pairs, sk, c), want)
+    profiling.collect()
+    profiling.enable()
+    try:
+        osd_large(g, perm, synd, osd_order=15, pairs=pairs)
+        k5._osd_large(g, perm, synd, 15, pairs, None, 1)
+    finally:
+        profiling.disable()
+    counters = profiling.collect().counters
+    assert counters["osd_large.rows"] == 2 * rows
+    assert counters["osd_large.cluster_rows"] == rows
+
+
 def test_osd_large_counters_absent_with_the_recorder_off(dev):
     """With the recorder off the kernel gets no counter and adds nothing:
     the next collection has no ``osd_large`` counter."""
