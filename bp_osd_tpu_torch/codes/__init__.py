@@ -1,6 +1,6 @@
 """Quantum and classical code constructions (host-side numpy, construction-time)."""
 
-from .bivariate_bicycle import bivariate_bicycle, gross_code
+from .bivariate_bicycle import bivariate_bicycle, gross_code, two_gross_code
 from .classical import (
     hamming_code,
     mkmn_16_4_6,
@@ -41,6 +41,7 @@ __all__ = [
     "protograph_to_binary",
     "bivariate_bicycle",
     "gross_code",
+    "two_gross_code",
     "Spacetime",
     "phenomenological",
     "detection_events",

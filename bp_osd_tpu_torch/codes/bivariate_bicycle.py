@@ -20,7 +20,7 @@ import scipy.sparse as sp
 from .css import css_code
 from .lifted_product import circulant
 
-__all__ = ["bivariate_bicycle", "gross_code"]
+__all__ = ["bivariate_bicycle", "gross_code", "two_gross_code"]
 
 
 def _polynomial(terms, l: int, m: int) -> sp.csr_matrix:
@@ -53,3 +53,11 @@ def gross_code() -> bivariate_bicycle:
     A = x^3 + y + y^2, B = y^3 + x + x^2; its distance 12 is the paper's."""
     return bivariate_bicycle(12, 6, [(3, 0), (0, 1), (0, 2)], [(0, 3), (1, 0), (2, 0)],
                              code_distance=12, name="gross code")
+
+
+def two_gross_code() -> bivariate_bicycle:
+    """The [[288,12,18]] "two-gross" code of arXiv:2308.07915: l = m = 12,
+    A = x^3 + y^2 + y^7, B = y^3 + x + x^2; its distance 18 is the
+    paper's."""
+    return bivariate_bicycle(12, 12, [(3, 0), (0, 2), (0, 7)], [(0, 3), (1, 0), (2, 0)],
+                             code_distance=18, name="two-gross code")

@@ -128,7 +128,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(so_path)
     P, I, LL, F, SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float, ctypes.c_size_t)
-    lib.bp_flood_launch.argtypes = [P, P, LL, P, P, P, P, P, P, P, P, P, P, P, P, P,
+    lib.bp_flood_launch.argtypes = [P, P, LL, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
                                     I, I, I, I, I, I, I, I, F, I, P, ctypes.POINTER(I)]
     lib.bp_flood_launch.restype = I
     lib.bp_flood_smem_bytes.argtypes = [I, I, I, I]

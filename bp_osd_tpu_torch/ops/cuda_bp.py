@@ -20,7 +20,13 @@ the card's SM count and the graph alone (:func:`bp_flood_plan`):
   ``bp_flood.latency_rows``.
 
 A larger graph keeps each sample's state in a device-memory scratch slice,
-one block per sample, launched in row chunks of at most ``_SCRATCH_BYTES``.
+one block per sample, launched in row chunks of at most ``_SCRATCH_BYTES``,
+but for min-sum launches of at most two rows an SM that the wide plan takes
+(:func:`wide_plan`): a block of 1024 threads a row, its tables with 16-bit
+entries and the row's totals, priors and compressed check messages in
+shared memory, a few checks and up to 8 variables a thread.  Each launch in
+it adds its rows to the recorder's counter ``bp_flood.wide_rows`` and its
+rows' iterations to the device counter ``bp_flood.wide_row_iters``.
 The plan queries and launches run with the tensors' card current.
 ``bp_flood.launches`` counts kernel launches (``bp_flood.launches_on`` by
 card).  Given ``row_iters``, a one-slot int64 counter on the card (a slot of
@@ -31,6 +37,7 @@ adds each row's iterations past ``it0`` to it as the row finishes.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,15 +46,19 @@ from ..utils import profiling
 from . import _build, count_launch, launch_counter, require_cuda
 
 __all__ = ["bp_flood", "bp_flood_plan", "bp_flood_smem_bytes", "bp_flood_table_bytes",
-           "bp_flood_team_bytes", "k1_fits", "latency_smem_bytes", "latency_team", "team_shape"]
+           "bp_flood_team_bytes", "k1_fits", "latency_smem_bytes", "latency_team", "team_shape",
+           "wide_plan", "wide_smem_bytes"]
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _SCRATCH_BYTES = 1 << 30  # device-memory placement: scratch per launch
 _MAX_ROW_WEIGHT = 27  # the team kernel keeps a check's sign bits in one word
 _MAX_CHECKS_PER_THREAD = 8
+_WIDE_THREADS = 1024  # the wide kernel's block
+_WIDE_MAX_ROWS_PER_SM = 2
 # Warps of a sample team in the team kernel; 0 takes the choice of
 # ``csrc/bp_flood.cu:bp_flood_plan`` for the graph and batch (either plan),
-# another count forces the throughput plan with teams of that size.  Tests
+# another count forces the throughput plan with teams of that size (for a
+# graph the team kernel does not take, the device-memory placement).  Tests
 # and measurements set it to run other team sizes; the result does not
 # depend on it.
 _TEAM_WARPS = 0
@@ -122,6 +133,39 @@ def latency_smem_bytes(threads: int, rows: int, wr: int) -> int:
     return 16 * threads * 3 + rows * region
 
 
+def wide_smem_bytes(m: int, n: int, wc: int) -> int:
+    """Shared memory of a wide-kernel block: the check rows ``[m][8]`` and
+    the variable columns ``[wc][n]`` of 16-bit entries, the totals ``[n +
+    1]``, the priors ``[n]`` and an int4 message a check ``[m + 1]``, every
+    part a multiple of 16 bytes, as ``csrc/bp_flood.cu:wide_smem`` computes
+    it."""
+    def r16(x):
+        return -(-x // 16) * 16
+
+    return 16 * m + r16(2 * wc * n) + r16(4 * (n + 1)) + r16(4 * n) + 16 * (m + 1)
+
+
+def wide_plan(graph, B: int, sms: int, product_sum: bool = False) -> bool:
+    """Whether K1's wide plan takes a launch of ``B`` rows on a card of
+    ``sms`` SMs, as ``csrc/bp_flood.cu:bp_flood_plan`` decides it before
+    its occupancy query: a min-sum graph that the team kernel does not take
+    (:func:`k1_fits`, so neither the throughput nor the latency plan), rows
+    of <= 8 slots, columns of <= 4, at most 4 checks and 8 variables a
+    thread of 1024, 16-bit table entries, :func:`wide_smem_bytes` within a
+    block, and ``B`` at most two rows an SM."""
+    m, n, wr, wc = graph.m, graph.n, graph.wr, graph.wc
+    return (not product_sum and not k1_fits(graph) and wr <= 8 and wc <= 4
+            and m <= 4 * _WIDE_THREADS and n <= 8 * _WIDE_THREADS
+            and n + 1 <= 65536 and 8 * (m + 1) <= 65536
+            and wide_smem_bytes(m, n, wc) <= _SMEM_LIMIT
+            and 0 < B <= _WIDE_MAX_ROWS_PER_SM * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def k1_fits(graph, product_sum: bool = False) -> bool:
     """Whether K1 decodes ``graph`` in shared memory (the team kernel): one
     sample's whole state in the first design's layout fits a block, the row
@@ -140,18 +184,18 @@ def bp_flood_plan(graph, B: int, *, product_sum: bool = False) -> dict:
     """K1's launch for ``B`` rows on the current card, from
     ``csrc/bp_flood.cu:bp_flood_plan``: team threads, teams a block, blocks
     an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), grid, dynamic
-    shared memory, registers a thread, whether it is the latency plan (one
-    row a block of the latency kernel, ``grid`` = ``B``), and the samples
-    resident on an SM."""
+    shared memory, registers a thread, whether it is the latency plan or
+    the wide plan (both a block of rows), and the samples resident on an
+    SM."""
     plan = (ctypes.c_int * 7)()
     err = _build.load().bp_flood_plan(int(B), graph.m, graph.n, graph.wr, graph.wc,
                                       int(product_sum), int(_TEAM_WARPS), plan)
     if err != 0:
         raise RuntimeError(f"bp_flood_plan failed: CUDA error {err}")
     keys = ("team_threads", "teams_per_block", "blocks_per_sm", "grid", "smem_bytes",
-            "registers", "latency")
+            "registers")
     out = dict(zip(keys, plan))
-    out["latency"] = bool(out["latency"])
+    out["latency"], out["wide"] = plan[6] == 1, plan[6] == 2
     out["resident_per_sm"] = out["teams_per_block"] * out["blocks_per_sm"]
     return out
 
@@ -207,9 +251,17 @@ def bp_flood(
     if B:
         # the plan reads the current card, and the launch runs in its context
         with torch.cuda.device(dev):
-            if k1_fits(graph, method == "product_sum"):
+            ps = method == "product_sum"
+            fits = k1_fits(graph, ps)
+            # the wide plan where the rule takes the launch and the library's
+            # plan agrees (it plans the team kernel for any graph that fits)
+            wide = (not fits and not _TEAM_WARPS and wide_plan(graph, B, _sms(dev.index), ps)
+                    and bp_flood_plan(graph, B)["wide"])
+            wide_iters = (profiling.device_counter(("bp_flood.wide_row_iters",), dev)
+                          if wide else None)
+            if fits or wide:
                 rows, scratch = B, None
-                counter = torch.zeros(1, dtype=torch.int32, device=dev)
+                counter = None if wide else torch.zeros(1, dtype=torch.int32, device=dev)
             else:
                 per_row = lib.bp_flood_scratch_words(m, n, wr)
                 rows = max(1, min(B, _SCRATCH_BYTES // (4 * per_row)))
@@ -231,14 +283,16 @@ def bp_flood(
                     chk_var.data_ptr(), var_edge.data_ptr(), graph.chk_deg.data_ptr(),
                     ptr(hard, row0), ptr(llr, row0), ptr(conv, row0), ptr(iters, row0),
                     ptr(v2c, row0), ptr(scratch, 0), ptr(counter, 0), ptr(row_iters, 0),
-                    min(rows, B - row0), m, n, wr, wc, int(max_iter), int(it0),
-                    int(method == "product_sum"), alpha, int(_TEAM_WARPS), stream, plan,
+                    ptr(wide_iters, 0), min(rows, B - row0), m, n, wr, wc, int(max_iter),
+                    int(it0), int(ps), alpha, int(_TEAM_WARPS), stream, plan,
                 )
                 if err != 0:
                     raise RuntimeError(f"bp_flood launch failed: CUDA error {err}")
                 count_launch(bp_flood, dev)
-                if plan[6]:  # the latency plan took the launch's rows
+                if plan[6] == 1:  # the latency plan took the launch's rows
                     profiling.count("bp_flood.latency_rows", min(rows, B - row0))
+                elif plan[6] == 2:
+                    profiling.count("bp_flood.wide_rows", B)
     return hard, llr, conv.to(torch.bool), iters, v2c
 
 

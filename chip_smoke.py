@@ -217,6 +217,17 @@ Phases, one line each (any failed check exits non-zero):
    ``cudaOccupancyMaxActiveClusters``; the gross code's space-time matrix
    (936 x 2736, osd_cs 7), 8 rows bit-identical in every plan, a lone
    row timed in each, and 16-66 rows in every plan as at lift 400.
+24. K1's wide plan (``phase24(tag)`` runs alone too): the two-gross code
+   [[288,12,18]] over 18 noisy rounds (the benchmark cell
+   ``twogross288.ph18.p015.b4096``'s 2736 x 8064 space-time matrix, 4096
+   syndromes at p = 0.015, adaptive min-sum to 10^4 iterations, osd_cs 7)
+   through ``BpOsdDecoder``: three K1 launches a decode, the recorder's
+   stage rows equal K1's stages, ``bp_flood.wide_rows`` the rows of the
+   stages on the wide plan and ``bp_flood.wide_row_iters`` their
+   iterations, every osdw satisfied; each staged K1 launch held to
+   ``bp_decode_plain`` in all five outputs and timed beside its bound with
+   its plan (wide or device memory), the resumed stages also with the
+   device-memory placement forced (``_TEAM_WARPS``), in turns.
 
 The helpers for timing, bounds and gates are those of
 ``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
@@ -276,6 +287,9 @@ STAGE_SCHEDULES = (None, 32, (8, 32, 128), 400)  # phase 19's stage1_iters
 GROSS_ROUNDS, GROSS_P, GROSS_B, GROSS_ITERS = 12, 0.025, 4096, 10000
 PAIR_ROUNDS = 8  # phase 22b: rounds of the plan's choice against the throughput team
 BAND_ROWS = (16, 31, 48, 66)  # phase 23: K5 launches in the cluster rule's middle bands
+# phase 24: the benchmark cell twogross288.ph18.p015.b4096's space-time decode
+TWO_GROSS_ROUNDS, TWO_GROSS_P, TWO_GROSS_B = 18, 0.015, 4096
+WIDE_ROUNDS = 4  # phase 24: rounds of the wide plan against the device-memory placement
 BIG_RUNS = 6 * 16384  # phase 15d's harness at batch 16384
 RANK_TIMEOUT = 300  # seconds the phase-15c ranks may take, start-up included
 
@@ -1771,6 +1785,97 @@ def phase23(tag) -> dict:
             "bands": {"lift400": middle, "gross144": gross_bands}}
 
 
+def phase24(tag) -> dict:
+    """K1's wide plan on the two-gross code's space-time matrix (see the
+    module docstring).  Returns the kernels line's numbers for it."""
+    from bp_osd_tpu_torch import BpOsdDecoder
+    from bp_osd_tpu_torch.codes import phenomenological, two_gross_code
+    from bp_osd_tpu_torch.decoder.bp import bp_decode_plain, llr_from_channel
+    from bp_osd_tpu_torch.decoder.tanner import TannerGraph
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_plan, wide_plan
+    from bp_osd_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(SEED + 24)
+    H = phenomenological(two_gross_code().hx, TWO_GROSS_ROUNDS).H.toarray().astype(np.uint8)
+    graph = TannerGraph(H, dev)
+    H_f = torch.as_tensor(H, dtype=torch.float32, device=dev)
+    e = torch.as_tensor((rng.random((TWO_GROSS_B, graph.n)) < TWO_GROSS_P).astype(np.float32),
+                        device=dev)
+    synd = torch.remainder(e @ H_f.T, 2).to(torch.uint8)
+    l0 = llr_from_channel(np.full(graph.n, TWO_GROSS_P)).to(dev).expand(TWO_GROSS_B, graph.n)
+    bp_kw = dict(method="minimum_sum", ms_scaling_factor=0.0)
+
+    dec = BpOsdDecoder(H, error_rate=TWO_GROSS_P, max_iter=GROSS_ITERS, bp_method="ms",
+                       ms_scaling_factor=0, osd_method="osd_cs", osd_order=7)
+    dec.decode_batch(synd, outputs="device")  # warm-up: the kernels' first use
+    reset_launches()
+    profiling.collect()
+    profiling.enable()
+    try:
+        out = dec.decode_batch(synd, outputs="device")
+    finally:
+        profiling.disable()
+    counters = profiling.collect().counters
+    got = {k: v for k, v in launch_counts().items() if v}
+    stages = k1_stages(graph, synd, l0, GROSS_ITERS, **bp_kw)
+    stage_rows = [counters.get(f"bp.stage_rows.{i + 1}", 0) for i in range(len(stages))]
+    check(stage_rows == [st.args[1].shape[0] for st in stages],
+          f"phase 24 the decode's stage rows {stage_rows} differ from K1's stages")
+    check(got.get("bp_flood") == len(stages) == 3, f"phase 24 one decode's launches {got}")
+    wide = [wide_plan(graph, r, sms) for r in stage_rows]
+    check(wide == [False, True, True], f"phase 24 the stages' plans {wide}: stage 1 in device "
+          "memory, the resumed stages in the wide plan")
+    wide_rows = sum(r for r, w in zip(stage_rows, wide) if w)
+    wide_iters = sum(st.sample_its for st, w in zip(stages, wide) if w)
+    check(counters.get("bp_flood.wide_rows", 0) == wide_rows > 0,
+          f"phase 24 bp_flood.wide_rows {counters.get('bp_flood.wide_rows')} != {wide_rows}, "
+          "the rows of the stages on the wide plan")
+    check(counters.get("bp_flood.wide_row_iters", 0) == wide_iters,
+          f"phase 24 bp_flood.wide_row_iters {counters.get('bp_flood.wide_row_iters')} != "
+          f"{wide_iters}, the iterations of the stages on the wide plan")
+    check(satisfies(out, H_f, synd), "phase 24 a two-gross osdw violates its syndrome")
+
+    results = []
+    for i, (st, w) in enumerate(zip(stages, wide)):
+        k1_equal(bp_flood(*st.args, **st.kw), bp_decode_plain(*st.args, **st.kw),
+                 f"phase 24 stage {i + 1} ({st.args[1].shape[0]} rows)")
+        ms = {0: [], 1: []}  # the plan's choice, the device-memory placement forced
+        for r in range(WIDE_ROUNDS if w else 1):
+            for warps in ((0, 1) if r % 2 == 0 else (1, 0)) if w else (0,):
+                ms[warps].append(_with_team(warps, lambda: cuda_ms(
+                    lambda: bp_flood(*st.args, **st.kw), 1)))
+        rows, its = st.args[1].shape[0], st.kw["max_iter"] - st.kw["it0"]
+        b = k1_bound(graph, rows, st.sample_its,
+                     prior_rows=1 if st.args[2].stride(0) == 0 else rows,
+                     v2c_in=st.kw["v2c_init"] is not None, emit=st.kw["emit_state"])
+        r = {"stage": i + 1, "rows": rows, "it0": st.kw["it0"], "max_iter": st.kw["max_iter"],
+             "plan": "wide" if w else "device memory", "ms": float(np.median(ms[0])),
+             "us_per_iteration": 1000 * float(np.median(ms[0])) / its, "bound_ms": b.ms,
+             "bound_by": b.by}
+        if w:
+            plan = bp_flood_plan(graph, rows)
+            r.update(device_memory_ms=float(np.median(ms[1])), threads=plan["team_threads"],
+                     grid=plan["grid"], registers=plan["registers"],
+                     smem_bytes=plan["smem_bytes"])
+        results.append(r)
+    print(f"phase 24 two-gross code [[288,12,18]] over {TWO_GROSS_ROUNDS} rounds ({graph.m} x "
+          f"{graph.n}), {TWO_GROSS_B} syndromes at p = {TWO_GROSS_P}, adaptive min-sum to "
+          f"{GROSS_ITERS}: one decode's launches {got}, bp_flood.wide_rows {wide_rows}, "
+          f"bp_flood.wide_row_iters {wide_iters}; K1 at its stages, five outputs bit-identical "
+          "to bp_decode_plain: "
+          + "; ".join(f"stage {r['stage']} {r['rows']} rows {r['plan']}: {r['ms']:.3f} ms"
+                      + (f" (device memory forced {r['device_memory_ms']:.3f} ms, in turns; "
+                         f"{r['threads']} threads, grid {r['grid']}, {r['registers']} "
+                         f"registers, {r['smem_bytes']} B shared)" if "grid" in r else "")
+                      + f", {r['us_per_iteration']:.3f} us an iteration, bound "
+                        f"{r['bound_ms']:.4f} ms ({r['bound_by']})" for r in results)
+          + f" {tag}")
+    return {"two_gross_stages": results, "two_gross_launches": got["bp_flood"],
+            "two_gross_wide_rows": wide_rows, "two_gross_wide_row_iters": wide_iters}
+
+
 def rank_split(ranks: list[dict]) -> str:
     """Each rank's ms a batch, beside one reduction's and one slice's decode."""
     return ("each rank's first batch of one (a fresh process, before the timed run) "
@@ -2499,6 +2604,7 @@ def main() -> None:
     k6_line = phase21(tag, qcode, fresh_l, heavy_l)
     k1_latency = phase22(tag)
     k5_cluster = phase23(tag)
+    k1_wide = phase24(tag)
 
     def row(name, source, replaces, launches, per_decode, err, ms, plain, b, **extra):
         if not isinstance(b, Bound):  # an OSD kernel's two bounds (osd_bound)
@@ -2517,7 +2623,7 @@ def main() -> None:
             per_decode["bp_flood"], bp_err, bp_ms, bp_plain_ms, bp_bound,
             stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
             stage_bound_ms=[b.ms for b in stage_bound], stage_schedules=schedules,
-            latency_plan=k1_latency),
+            latency_plan=k1_latency, wide_plan=k1_wide),
         row("osd_cs", "osd_cs.cu", "bp_osd_tpu/ops/pallas_osd.py:135", launches["osd_cs"],
             per_decode["osd_cs"], osd_err, osd_ms, osd_plain_ms, osd_b),
         row("osd_e", "osd_cs.cu", "bp_osd_tpu/ops/pallas_osd.py:565", launches_e["osd_e"], k3_per_decode,

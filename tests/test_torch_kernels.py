@@ -16,7 +16,7 @@ from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd
                                           osd_decode_plain)
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import (bp_flood, bp_flood_plan, k1_fits, latency_smem_bytes,
-                                          latency_team)
+                                          latency_team, wide_plan, wide_smem_bytes)
 from bp_osd_tpu_torch.ops.cuda_gf2 import (eliminate, gf2_elim_plan, k4_fits, k4_placement,
                                            k4_warp_fits)
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_plan, osd_e
@@ -528,6 +528,104 @@ def test_bp_flood_spacetime_chain_and_row_iteration_counts(dev, monkeypatch):
     stage_rows = [counters.get(f"bp.stage_rows.{i}", 0) for i in (1, 2, 3)]
     latency = sum(r for r in stage_rows if r and bp_flood_plan(g, r)["latency"])
     assert latency > 0 and counters.get("bp_flood.latency_rows", 0) == latency
+
+
+def _two_gross():
+    """The two-gross code's space-time matrix over 18 noisy rounds (2736 x
+    8064), above the team kernel's shared memory."""
+    from bp_osd_tpu_torch.codes import phenomenological, two_gross_code
+
+    return phenomenological(two_gross_code().hx, 18).H.toarray()
+
+
+CODES["two_gross"] = _two_gross
+_WIDE_ROWS = {"1": lambda sms: 1, "sms": lambda sms: sms, "sms+1": lambda sms: sms + 1,
+              "stage2": lambda sms: 180, "2sms": lambda sms: 2 * sms,
+              "2sms+1": lambda sms: 2 * sms + 1}
+
+
+@pytest.mark.parametrize("rows", list(_WIDE_ROWS))
+@pytest.mark.parametrize("msf", [0.0, 0.625])
+def test_bp_flood_wide_plan_bit_identical(dev, rows, msf):
+    """The wide plan (a block of 1024 threads a row, its tables and the
+    row's totals and messages in shared memory) at 1 row, a row on every
+    SM, one past it, a stage-2-sized launch and two rows an SM, fresh (the
+    channel prior broadcast) and resumed (skip rows, a prior a row, a random
+    message state at it0 = 9), adaptive and fixed min-sum: the plain
+    version's five outputs bit for bit, the state emitted, and a
+    row-iteration counter that reads the rows' iterations past ``it0``.  It
+    engages where its rule says, with the shared memory of the Python mirror
+    ``wide_smem_bytes``; one row past two an SM goes to device memory."""
+    H = CODES["two_gross"]()
+    g = TannerGraph(H, dev)
+    B = _WIDE_ROWS[rows](_sms(dev))
+    assert not k1_fits(g)
+    engaged = wide_plan(g, B, _sms(dev))
+    assert engaged == (rows != "2sms+1")
+    if engaged:
+        plan = bp_flood_plan(g, B)
+        assert plan["wide"] and not plan["latency"] and plan["grid"] == B
+        assert plan["team_threads"] == 1024 and plan["teams_per_block"] == 1
+        assert plan["smem_bytes"] == wide_smem_bytes(g.m, g.n, g.wc)
+    synd, llr0 = _batch(H, B, 0.015, 40 + B, dev)
+    rng = np.random.default_rng(41 + B)
+    prior = torch.as_tensor(rng.uniform(1.0, 4.0, (B, g.n)).astype(np.float32), device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[1::4] = True
+    v2c = torch.as_tensor(rng.normal(1.0, 2.0, (B, g.m * g.wr)).astype(np.float32), device=dev)
+    for l0, extra in ((llr0, {}), (prior, {"skip": skip, "v2c_init": v2c, "it0": 9})):
+        kw = dict(method="minimum_sum", ms_scaling_factor=msf, max_iter=60, emit_state=True,
+                  **extra)
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = bp_flood(g, synd, l0, row_iters=count, **kw)
+        _equal(out, bp_decode_plain(g, synd, l0, **kw))
+        assert int(count) == int((out[3].long() - kw.get("it0", 0)).sum())
+
+
+def test_bp_flood_two_gross_chain_and_wide_counters(dev):
+    """The two-gross space-time matrix: the chain 624 -> 2496 -> 10000 of
+    adaptive min-sum (stage 1 in device memory, the resumed stages in the
+    wide plan) equals the plain version's launch by launch, and the staged
+    pipeline with the recorder on gives the same bits, with
+    ``bp_flood.wide_rows`` the rows of its resumed stages and
+    ``bp_flood.wide_row_iters`` the iterations they ran there."""
+    from bp_osd_tpu_torch.decoder.pipeline import decode_pipeline
+    from bp_osd_tpu_torch.utils import profiling
+
+    H = CODES["two_gross"]()
+    g = TannerGraph(H, dev)
+    B = 1024
+    synd, llr0 = _batch(H, B, 0.015, 29, dev)
+    caps = (624, 2496, 10000)
+    sel, v2c, it0 = torch.arange(B, device=dev), None, 0
+    for cap in caps:
+        assert sel.numel() > 0, f"no row left for the launch to {cap}"
+        args = (g, synd[sel], llr0[sel])
+        kw = dict(max_iter=cap, it0=it0, v2c_init=v2c, emit_state=cap < caps[-1], **_MS)
+        assert wide_plan(g, sel.numel(), _sms(dev)) == (cap > caps[0])
+        out = bp_flood(*args, **kw)
+        _equal(out, bp_decode_plain(*args, **kw))
+        keep = ~out[2]
+        sel, v2c, it0 = sel[keep], out[4][keep] if out[4] is not None else None, cap
+
+    kw = dict(bp_method="ms", max_iter=10000, ms_scaling_factor=0.0, osd_method="osd_cs",
+              osd_order=7)
+    plain = decode_pipeline(g, synd, llr0[0], **kw)
+    profiling.collect()
+    profiling.enable()
+    try:
+        traced = decode_pipeline(g, synd, llr0[0], **kw)
+    finally:
+        profiling.disable()
+    counters = profiling.collect().counters
+    _equal(traced, plain)
+    t = traced.iterations.long()
+    want = [int((t - a).clamp(0, b - a).sum()) for a, b in zip((0,) + caps[:-1], caps)]
+    assert [counters.get(f"bp.row_iters.{i}", 0) for i in (1, 2, 3)] == want
+    stage_rows = [counters.get(f"bp.stage_rows.{i}", 0) for i in (1, 2, 3)]
+    assert stage_rows[0] == B and stage_rows[1] > 0
+    assert counters.get("bp_flood.wide_rows", 0) == stage_rows[1] + stage_rows[2]
+    assert counters.get("bp_flood.wide_row_iters", 0) == want[1] + want[2]
 
 
 @pytest.mark.parametrize("code,team_warps", [("surface", 0), ("flagship", 0), ("flagship", 2),

@@ -11,7 +11,10 @@ K2 (the warp kernel of ``csrc/osd_cs.cu``), on the CPU.
   the port's ``bp_decode_plain``;
 - the latency plan's team rule and its kernel's register tables (16-bit
   byte offsets into the totals and into a slot-major c2v), emulated in
-  numpy against the team kernel's gathers.
+  numpy against the team kernel's gathers;
+- the wide plan's rule and its kernel's shared tables (16-bit total
+  indices a check slot, 16-bit check-and-slot entries a variable edge, a
+  compressed message a check), emulated in numpy the same way.
 """
 
 from types import SimpleNamespace
@@ -39,6 +42,8 @@ from bp_osd_tpu_torch.ops.cuda_bp import (
     latency_smem_bytes,
     latency_team,
     team_shape,
+    wide_plan,
+    wide_smem_bytes,
 )
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs_warp_smem_bytes
 
@@ -405,3 +410,120 @@ def test_the_latency_kernels_running_scale_is_alpha_at():
         assert np.float32(np.float32(1.0) - two_t) == want and two_t == np.ldexp(1.0, -t) or (
             t > 149 and two_t == 0.0 and want == np.float32(1.0))
         two_t = np.float32(two_t * np.float32(0.5))
+
+
+# ---- the wide plan: its rule and its kernel's shared tables ----
+
+TWO_GROSS = (2736, 8064, 8, 3)  # the two-gross code's space-time matrix over 18 rounds
+
+
+def _two_gross(rounds):
+    from bp_osd_tpu_torch.codes import phenomenological, two_gross_code
+
+    return TannerGraph(np.asarray(phenomenological(two_gross_code().hx, rounds).H.toarray(),
+                                  np.uint8), device="cpu")
+
+
+@pytest.mark.parametrize("shape,B,sms,ps,want", [
+    (TWO_GROSS, 1, 132, False, True),  # a lone row
+    (TWO_GROSS, 132, 132, False, True),  # a row an SM
+    (TWO_GROSS, 180, 132, False, True),  # a stage-2-sized launch: two waves at most
+    (TWO_GROSS, 264, 132, False, True),
+    (TWO_GROSS, 265, 132, False, False),  # more than two rows an SM: device memory
+    (TWO_GROSS, 4096, 132, False, False),  # stage 1 fills the card
+    (TWO_GROSS, 228, 114, False, True),  # a card of 114 SMs
+    (TWO_GROSS, 229, 114, False, False),
+    (TWO_GROSS, 1, 132, True, False),  # product-sum
+    ((936, 2736, 8, 3), 1, 132, False, False),  # the gross space-time matrix: the latency plan
+    ((936, 2736, 8, 3), 4096, 132, False, False),  # ... and the throughput plan
+    ((192, 400, 7, 4), 1, 132, False, False),  # the flagship
+    ((4800, 10000, 7, 4), 1, 132, False, False),  # lift 400: 4800 checks, 10000 variables
+    ((2736, 8064, 9, 3), 1, 132, False, False),  # rows of more than 8 slots
+    ((2736, 8064, 8, 5), 1, 132, False, False),  # columns of more than 4
+    ((4097, 8000, 4, 2), 1, 132, False, False),  # more than four checks a thread
+    ((4096, 8192, 4, 2), 1, 132, False, True),  # four checks and eight variables a thread
+])
+def test_wide_plan_rule(shape, B, sms, ps, want):
+    """K1's wide plan takes min-sum launches of at most two rows an SM on
+    graphs the team kernel does not take, within its kernel's bounds
+    (``csrc/bp_flood.cu:wide_shape``), and no graph the throughput or
+    latency plans take."""
+    g = SimpleNamespace(m=shape[0], n=shape[1], wr=shape[2], wc=shape[3])
+    assert wide_plan(g, B, sms, ps) == want
+    if want:
+        assert not k1_fits(g) and latency_team(*shape, 1) is None
+
+
+def test_wide_plan_takes_no_team_graph():
+    """Every graph of the team kernel, the flagship and the gross code's
+    space-time matrix among them, stays off the wide plan at any batch."""
+    for code in ("surface", "flagship", "625", "weight1", "spacetime"):
+        g = _graph(code) if code != "spacetime" else TannerGraph(
+            np.asarray(_spacetime(), np.uint8), device="cpu")
+        assert k1_fits(g) and not any(wide_plan(g, B, 132) for B in (1, 132, 264, 4096))
+    g = _two_gross(18)
+    assert (g.m, g.n, g.wr, g.wc) == TWO_GROSS and not k1_fits(g)
+    assert bp_flood_smem_bytes(*TWO_GROSS) == 434_880 > _SMEM_LIMIT
+    assert wide_smem_bytes(2736, 8064, 3) == 200_480 <= _SMEM_LIMIT
+
+
+def _wide_tables(graph):
+    """The wide kernel's shared tables: a check's 8 slots as the indices of
+    their totals (pad n, whose total is +inf), and a variable's edges, in
+    column-major ``[wc][n]``, as ``check * 8 + slot`` (pad ``m * 8``: the
+    pad check m, whose message is +0.0); all within 16 bits."""
+    m, n, wr = graph.m, graph.n, graph.wr
+    chk = graph.chk_var.numpy().astype(np.int64)
+    cv = np.full((m, 8), n, np.int64)
+    cv[:, :wr] = np.where(chk < n, chk, n)
+    e = graph.var_edge.numpy().astype(np.int64)
+    c, sl = e // wr, e % wr
+    ve = np.where(e < m * wr, c * 8 + sl, m * 8).T
+    assert cv.max() < 1 << 16 and ve.max() < 1 << 16
+    return cv, ve
+
+
+@pytest.mark.parametrize("code", ["surface", "flagship", "weight1", "two_gross"])
+def test_wide_tables_gather_like_the_team_kernel(code):
+    """Through the wide kernel's tables, a check gathers the totals its
+    ``chk_var`` row names (+inf on pads), and a variable rebuilds each c2v
+    it sums from its check's compressed message (``ms_value``: the scaled
+    minima, the first-minimum slot in bits 27..31, the sign bits) and adds
+    it in lane ``(c * wr + s) % 4``, equal to ``_totals`` of the messages'
+    c2v bit for bit."""
+    g = _two_gross(18) if code == "two_gross" else _graph(code)
+    m, n, wr = g.m, g.n, g.wr
+    cv, ve = _wide_tables(g)
+    rng = np.random.default_rng(5)
+    tot = rng.normal(0, 3, n).astype(np.float32)
+    tot_n = np.concatenate([tot, [np.float32(np.inf)]])
+    assert np.array_equal(tot_n[cv[:, :wr]], tot_n[np.minimum(g.chk_var.numpy(), n)])
+    assert np.all(tot_n[cv[:, wr:]] == np.inf)
+    # a message a check, and the pad check's zeros
+    deg = g.chk_deg.numpy()
+    m1a = np.abs(rng.normal(0, 2, m + 1)).astype(np.float32)
+    m2a = (m1a + np.abs(rng.normal(0, 2, m + 1))).astype(np.float32)
+    i1 = (rng.random(m + 1) * np.maximum(deg.tolist() + [1], 1)).astype(np.int64)
+    sg = (rng.integers(0, 1 << 8, m + 1) | (i1 << 27)).astype(np.uint32)
+    m1a[m] = m2a[m] = 0.0
+    sg[m] = 0
+
+    def ms_value(c, s):
+        mag = np.where((sg[c] >> 27).astype(np.int64) == s, m2a[c], m1a[c])
+        return np.where((sg[c] >> s.astype(np.uint32)) & 1, -mag, mag).astype(np.float32)
+
+    slots = np.arange(wr)[None, :]
+    checks = np.arange(m)[:, None]
+    c2v = np.where(slots < deg[:, None], ms_value(checks, slots + 0 * checks), 0)
+    c2v = c2v.astype(np.float32)[None]
+    p = np.zeros((4, n), np.float32)
+    for q in range(g.wc):
+        c, s = ve[q] >> 3, ve[q] & 7
+        x = ms_value(c, s)
+        lane = (c * wr + s) & 3
+        for k in range(4):
+            sel = lane == k
+            p[k][sel] = p[k][sel] + x[sel]
+    l0 = rng.normal(2, 1, n).astype(np.float32)
+    assert np.array_equal((l0 + ((p[0] + p[1]) + (p[2] + p[3]))).astype(np.float32),
+                          _totals(c2v, l0, g)[0])

@@ -9,6 +9,7 @@ loaded by path.
 """
 
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 
 from bp_osd_tpu_torch import BpOsdDecoder, gf2
 from bp_osd_tpu_torch.codes import (bivariate_bicycle, detection_events, gross_code,
-                                    net_data_error, phenomenological)
+                                    net_data_error, phenomenological, two_gross_code)
 from bp_osd_tpu_torch.decoder.bp import llr_from_channel
 from bp_osd_tpu_torch.decoder.pipeline import decode_pipeline, stage_caps
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
@@ -73,6 +74,16 @@ def test_gross_code_parameters():
     assert set(np.asarray(q.hx.sum(0)).ravel()) == {3}
 
 
+def test_two_gross_code_parameters():
+    q = two_gross_code()
+    assert (q.N, q.K, q.D) == (288, 12, 18)
+    assert q.hx.shape == q.hz.shape == (144, 288)
+    assert gf2.rank(q.hx) == gf2.rank(q.hz) == 138
+    assert not ((q.hx @ q.hz.T).toarray() % 2).any()
+    assert set(np.asarray(q.hx.sum(1)).ravel()) == {6}
+    assert set(np.asarray(q.hx.sum(0)).ravel()) == {3}
+
+
 def test_bb72_parameters(bb72):
     assert (bb72.N, bb72.K) == (72, 12)
     assert not ((bb72.hx @ bb72.hz.T).toarray() % 2).any()
@@ -106,6 +117,24 @@ def test_phenomenological_gross_12_rounds():
     assert gf2.rank(st.H) == 930
     assert set(np.asarray(st.H.sum(1)).ravel()) == {7, 8}
     assert set(np.asarray(st.H.sum(0)).ravel()) == {2, 3}
+
+
+def test_phenomenological_two_gross_18_rounds():
+    """The ``twogross288.ph18`` configuration's matrix: the port's
+    construction equals the benchmark's family file, at the parameters the
+    configuration states."""
+    with open(os.path.join(BENCH, "configs", "twogross288.ph18.json")) as f:
+        conf = json.load(f)
+    par = conf["parameters"]
+    st = phenomenological(two_gross_code().hx, par["rounds"])
+    assert isinstance(st.H, sp.csr_matrix) and st.H.shape == (par["m"], par["n"]) == (2736, 8064)
+    assert st.H.nnz == int(st.H.sum()) == par["edges"] == 21600
+    assert gf2.rank(st.H) == par["rank"] == 2730
+    assert set(np.asarray(st.H.sum(1)).ravel()) == {7, par["row_weight"]}
+    assert set(np.asarray(st.H.sum(0)).ravel()) == {2, par["column_weight"]}
+    fam = _load(os.path.join(BENCH, "families", "bb_phenomenological.py"))
+    H, _, _ = fam.build(conf["code"])
+    assert H.tobytes() == st.H.toarray().tobytes()
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -161,6 +190,38 @@ def test_spacetime_decode_equals_the_reference(bb72):
     want = r.hard.clone()
     want[fail] = o.osdw
     assert torch.equal(dec.osdw_decoding_batch, want)
+    assert torch.equal(ref.syndromes_of(g, dec.osdw_decoding_batch), synd)
+
+
+def test_two_gross_decode_equals_the_reference():
+    """[[288,12,18]] over 2 rounds (432 x 1152), seeded, through
+    ``BpOsdDecoder`` on the CPU (adaptive min-sum to 64 iterations in stages
+    8 / 16 / 64, osd_cs 7) against ``benchmark/reference.py``: the same BP
+    hard decision, convergence and iterations, osd0 and osdw on every
+    row."""
+    ref = _load(os.path.join(BENCH, "reference.py"))
+    H = phenomenological(two_gross_code().hx, 2).H.toarray()
+    p = 0.02
+    rng = np.random.default_rng(29)
+    e = (rng.random((48, H.shape[1])) < p).astype(np.uint8)
+    synd = torch.from_numpy(e @ H.T % 2).to(torch.uint8)
+    kw = dict(DECODER, max_iter=64)
+    dec = BpOsdDecoder(H, error_rate=p, device="cpu", backend="torch", **kw)
+    dec.decode_batch(synd, outputs="device")
+    assert int((dec.iter_batch > 16).sum()) > 0 and int((~dec.converge_batch).sum()) > 0
+
+    decoder = dict(kw, bp_method="minimum_sum")
+    g = ref.FloodGraph(H, "cpu")
+    r = ref.flood_bp(g, synd, ref.prior(p, g.n), decoder)
+    assert torch.equal(dec.bp_decoding_batch, r.hard)
+    assert torch.equal(dec.converge_batch, r.converged)
+    assert torch.equal(dec.iter_batch.to(torch.int32), r.iterations)
+    fail = ~r.converged
+    o = ref.osd_cs(g, synd[fail], r.llr[fail], decoder)
+    for got, part in ((dec.osd0_decoding_batch, o.osd0), (dec.osdw_decoding_batch, o.osdw)):
+        want = r.hard.clone()
+        want[fail] = part
+        assert torch.equal(got, want)
     assert torch.equal(ref.syndromes_of(g, dec.osdw_decoding_batch), synd)
 
 
