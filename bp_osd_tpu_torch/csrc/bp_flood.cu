@@ -97,15 +97,17 @@
 // tables read from device memory through the read-only cache and the state
 // in this block's slice of a scratch buffer, bp_flood_scratch_words per
 // sample, which stays in L2 for the few hundred samples a launch takes.  The arithmetic is the same, so both are
-// bit-identical to the plain version.  A min-sum launch of at most two rows
-// an SM on such a graph takes the wide plan instead (wide_shape: rows <= 8
-// slots, columns <= 4, m <= 4096, n <= 8192): bp_flood_wide_kernel, a block
-// of 1024 threads a row, the latency kernel's iteration with a few checks
-// and up to 8 variables a thread, its tables with 16-bit entries and the
+// bit-identical to the plain version.  A min-sum launch of any size on such a
+// graph takes the wide plan instead (wide_shape: rows <= 8 slots, columns <=
+// 4, m <= 4096, n <= 8192): bp_flood_wide_kernel, min(B, SMs) persistent
+// blocks of 1024 threads, one row at a time each, the next from a counter,
+// the latency kernel's iteration with a few checks and up to 8 variables a
+// thread, its tables with 16-bit entries (loaded once a block) and the
 // row's totals, priors and compressed check messages (16 bytes a check,
 // where c2v takes 4 a slot) in shared memory: 200,480 bytes on the two-gross
 // code's 2736 x 8064 space-time matrix, whose first-design state needs
-// 434,880.
+// 434,880.  The device-memory kernel keeps product-sum and the graphs
+// outside that shape.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -917,7 +919,6 @@ constexpr int kWideThreads = 1024;  // threads of a wide-kernel block
 constexpr int kWideMaxCPT = 4;      // checks a thread
 constexpr int kWideMaxVPT = 8;      // variables a thread
 constexpr int kWideSlots = 8;       // slots of a check's table row
-constexpr int kWideMaxRowsPerSM = 2;  // launches of up to this many rows an SM
 
 // Shared memory of a wide-kernel block, in bytes, every part a multiple of
 // 16: the check rows cv [m][8] uint16 (each slot the index of its total,
@@ -941,21 +942,27 @@ __host__ __device__ inline int wide_smem(int m, int n, int wc) {
   return wide_msg0(m, n, wc) + 16 * (m + 1);
 }
 
-// One row a block of kWideThreads threads, row b in block b.  Thread t owns
-// checks t + k * T (k < kC) and variables t, t + T, ...  It keeps in
-// registers its checks' degrees, syndrome bits and compressed messages;
-// shared memory (wide_smem) holds the tables with 16-bit entries and the
-// row's totals, priors and messages, so a variable rebuilds each c2v it
-// sums from its check's message (ms_value): a message is 16 bytes a check
-// where c2v would be 4 a slot.  A check's new message goes to shared
-// memory as it is made, and comes back into the thread's registers after
-// the barrier if the row goes on, so the old one stays for the emit and
-// only one is held a check.  The iteration is the latency kernel's, with
-// block barriers; the lane of an edge is its flat index (c * wr + s) % 4,
-// each lane summed in ascending edge order.  A check pad slot reads the
-// +inf total, as in the latency kernel; a variable pad entry names check
-// m's message, +0.0, which leaves any lane sum alone (a sum from +0.0 is
-// never -0.0).
+// Persistent blocks of kWideThreads threads, min(B, SMs) of them: block b
+// decodes row b first, then the rows a global counter hands out (gridDim.x
+// + atomicAdd) as it finishes one, until they run out, so a block that
+// meets a short row takes the next at once and a launch of at most SMs rows
+// (counter null) is one row a block.  The tables with 16-bit entries are loaded into shared
+// memory once a block, and so are the priors when they are broadcast
+// (llr0_stride 0); a row sets up only its syndrome bits, its priors if it
+// has its own, its totals and its messages.  Thread t owns checks t + k * T
+// (k < kC) and variables t, t + T, ...  It keeps in registers its checks'
+// degrees, syndrome bits and compressed messages; shared memory (wide_smem)
+// holds the tables and the row's totals, priors and messages, so a
+// variable rebuilds each c2v it sums from its check's message (ms_value): a
+// message is 16 bytes a check where c2v would be 4 a slot.  A check's new
+// message goes to shared memory as it is made, and comes back into the
+// thread's registers after the barrier if the row goes on, so the old one
+// stays for the emit and only one is held a check.  The iteration is the
+// latency kernel's, with block barriers; the lane of an edge is its flat
+// index (c * wr + s) % 4, each lane summed in ascending edge order.  A
+// check pad slot reads the +inf total, as in the latency kernel; a variable
+// pad entry names check m's message, +0.0, which leaves any lane sum alone
+// (a sum from +0.0 is never -0.0).
 template <int kC>
 __global__ void __launch_bounds__(kWideThreads, 1) bp_flood_wide_kernel(
     const uint8_t* __restrict__ synd, const float* __restrict__ llr0, long long llr0_stride,
@@ -963,9 +970,11 @@ __global__ void __launch_bounds__(kWideThreads, 1) bp_flood_wide_kernel(
     const int32_t* __restrict__ chk_var, const int32_t* __restrict__ var_edge,
     const int32_t* __restrict__ deg, uint8_t* __restrict__ hard, float* __restrict__ llr,
     uint8_t* __restrict__ conv, int32_t* __restrict__ iters, float* __restrict__ v2c_out,
-    unsigned long long* __restrict__ row_iters, unsigned long long* __restrict__ wide_iters,
-    int m, int n, int wr, int wc, int max_iter, int it0, float alpha_fixed) {
+    int32_t* __restrict__ counter, unsigned long long* __restrict__ row_iters,
+    unsigned long long* __restrict__ wide_iters, int B, int m, int n, int wr, int wc,
+    int max_iter, int it0, float alpha_fixed) {
   extern __shared__ int4 smem_wide[];
+  __shared__ int s_next[2];  // the block's next row, by fetch parity
   char* base = reinterpret_cast<char*>(smem_wide);
   uint16_t* s_cv = reinterpret_cast<uint16_t*>(base);                      // [m][8]
   uint16_t* s_ve = reinterpret_cast<uint16_t*>(base + wide_ve0(m));        // [wc][n]
@@ -974,26 +983,8 @@ __global__ void __launch_bounds__(kWideThreads, 1) bp_flood_wide_kernel(
   int4* s_msg = reinterpret_cast<int4*>(base + wide_msg0(m, n, wc));       // [m + 1]
   const int T = blockDim.x, tid = threadIdx.x;
   const int E = m * wr;
-  const size_t row = blockIdx.x;
-  const float* l0 = llr0 + row * llr0_stride;
 
-  if (skip && skip[row]) {  // born converged: hard 0, llr the prior
-    for (int v = tid; v < n; v += T) {
-      hard[row * n + v] = 0;
-      llr[row * n + v] = __ldg(l0 + v);
-    }
-    if (v2c_out)
-      for (int e = tid; e < E; e += T) {
-        const int v = chk_var[e];
-        v2c_out[row * E + e] = v < n ? (v2c_in ? v2c_in[row * E + e] : __ldg(l0 + v)) : 0.0f;
-      }
-    if (tid == 0) {
-      conv[row] = 1;
-      iters[row] = it0;
-    }
-    return;
-  }
-
+  // ---- once a block: the tables, the pads, the degrees, a broadcast prior ----
   for (int i = tid; i < m * kWideSlots; i += T) {
     const int c = i / kWideSlots, s = i - c * kWideSlots;
     const int v = s < wr ? chk_var[c * wr + s] : n;
@@ -1005,18 +996,17 @@ __global__ void __launch_bounds__(kWideThreads, 1) bp_flood_wide_kernel(
     const int c = e / wr;
     s_ve[i] = (uint16_t)(e < E ? c * kWideSlots + e - c * wr : m * kWideSlots);
   }
-  for (int v = tid; v < n; v += T) s_l0[v] = __ldg(l0 + v);
+  if (llr0_stride == 0)
+    for (int v = tid; v < n; v += T) s_l0[v] = __ldg(llr0 + v);
   if (tid == 0) {
     s_tot[n] = __int_as_float(0x7f800000);  // +inf
     s_msg[m] = make_int4(0, 0, 0, 0);
   }
   int dc[kC];
-  unsigned syn = 0u;  // bit k: the syndrome of check tid + k * T
 #pragma unroll
   for (int k = 0; k < kC; ++k) {
     const int c = tid + k * T;
     dc[k] = c < m ? deg[c] : 0;
-    if (c < m) syn |= (unsigned)(synd[row * m + c] & 1) << k;
   }
 
   auto store = [&](int c, const MinSumMsg& q) {
@@ -1041,99 +1031,145 @@ __global__ void __launch_bounds__(kWideThreads, 1) bp_flood_wide_kernel(
     }
   };
 
-  // ---- iteration it0 + 1: c2v from the starting v2c, then the totals ----
-  MinSumMsg msg[kC];
-  {
-    const float alpha = alpha_at(it0 + 1, alpha_fixed);
+  // One row, from its syndrome to its emit; every thread of the block runs it.
+  auto decode_row = [&](size_t row) {
+    const float* l0 = llr0 + row * llr0_stride;
+    if (skip && skip[row]) {  // born converged: hard 0, llr the prior
+      for (int v = tid; v < n; v += T) {
+        hard[row * n + v] = 0;
+        llr[row * n + v] = __ldg(l0 + v);
+      }
+      if (v2c_out)
+        for (int e = tid; e < E; e += T) {
+          const int v = chk_var[e];
+          v2c_out[row * E + e] = v < n ? (v2c_in ? v2c_in[row * E + e] : __ldg(l0 + v)) : 0.0f;
+        }
+      if (tid == 0) {
+        conv[row] = 1;
+        iters[row] = it0;
+      }
+      return;
+    }
+    if (llr0_stride != 0)
+      for (int v = tid; v < n; v += T) s_l0[v] = __ldg(l0 + v);
+    unsigned syn = 0u;  // bit k: the syndrome of check tid + k * T
 #pragma unroll
     for (int k = 0; k < kC; ++k) {
       const int c = tid + k * T;
-      if (c >= m) continue;
-      MinSumAcc acc;
-      acc.init();
-      for (int s = 0; s < dc[k]; ++s) {
-        const int v = chk_var[c * wr + s];
-        acc.add(v2c_in ? v2c_in[row * E + c * wr + s] : __ldg(l0 + v), s);
-      }
-      msg[k] = acc.finish(alpha, dc[k], syn >> k & 1);
-      store(c, msg[k]);
+      if (c < m) syn |= (unsigned)(synd[row * m + c] & 1) << k;
     }
-  }
-  __syncthreads();
-  variable_sums();
-  __syncthreads();
 
-  int stop, fail_at_stop;
-  // alpha_at(t) = 1 - 2^-t by halving 2^-t each iteration, as the latency kernel
-  float two_t = ldexpf(1.0f, -(it0 + 2));
-  for (int it = it0 + 1;; ++it) {
-    // ---- check update of it + 1 from tot_it, with the parity of it ----
-    const bool more = it < max_iter;
-    const float alpha = alpha_fixed == 0.0f ? __fsub_rn(1.0f, two_t) : alpha_fixed;
-    two_t = __fmul_rn(two_t, 0.5f);
-    int fail = 0;
+    // ---- iteration it0 + 1: c2v from the starting v2c, then the totals ----
+    MinSumMsg msg[kC];
+    {
+      const float alpha = alpha_at(it0 + 1, alpha_fixed);
 #pragma unroll
-    for (int k = 0; k < kC; ++k) {
-      const int c = tid + k * T;
-      if (c >= m) continue;
-      const int4 row4 = reinterpret_cast<const int4*>(s_cv)[c];
-      const uint32_t w[4] = {(uint32_t)row4.x, (uint32_t)row4.y, (uint32_t)row4.z,
-                             (uint32_t)row4.w};
-      float tt[kWideSlots];
-#pragma unroll
-      for (int s = 0; s < kWideSlots; ++s) tt[s] = s_tot[(w[s >> 1] >> (16 * (s & 1))) & 0xffffu];
-      int hp = syn >> k & 1;
-      MinSumAcc acc;
-      acc.init();
-#pragma unroll
-      for (int s = 0; s < kWideSlots; ++s) {
-        hp ^= tt[s] <= 0.0f;
-        acc.add(__fsub_rn(tt[s], ms_value(msg[k], s)), s);  // a pad: +inf
+      for (int k = 0; k < kC; ++k) {
+        const int c = tid + k * T;
+        if (c >= m) continue;
+        MinSumAcc acc;
+        acc.init();
+        for (int s = 0; s < dc[k]; ++s) {
+          const int v = chk_var[c * wr + s];
+          acc.add(v2c_in ? v2c_in[row * E + c * wr + s] : __ldg(l0 + v), s);
+        }
+        msg[k] = acc.finish(alpha, dc[k], syn >> k & 1);
+        store(c, msg[k]);
       }
-      fail |= hp;
-      if (more) store(c, acc.finish(alpha, dc[k], syn >> k & 1));  // the one of it + 1
     }
-    const int any_fail = __syncthreads_or(fail);
-    if (!any_fail || !more) {  // stop at it: tot_it and msg stay
-      stop = it;
-      fail_at_stop = any_fail;
-      break;
-    }
-#pragma unroll
-    for (int k = 0; k < kC; ++k)
-      if (tid + k * T < m) msg[k] = load(tid + k * T);
+    __syncthreads();
     variable_sums();
     __syncthreads();
-  }
 
-  // ---- emit tot and v2c at the stop (c2v from the message) ----
-  for (int v = tid; v < n; v += T) {
-    const float t = s_tot[v];
-    hard[row * n + v] = (t <= 0.0f);
-    llr[row * n + v] = t;
-  }
-  if (v2c_out) {
+    int stop, fail_at_stop;
+    // alpha_at(t) = 1 - 2^-t by halving 2^-t each iteration, as the latency kernel
+    float two_t = ldexpf(1.0f, -(it0 + 2));
+    for (int it = it0 + 1;; ++it) {
+      // ---- check update of it + 1 from tot_it, with the parity of it ----
+      const bool more = it < max_iter;
+      const float alpha = alpha_fixed == 0.0f ? __fsub_rn(1.0f, two_t) : alpha_fixed;
+      two_t = __fmul_rn(two_t, 0.5f);
+      int fail = 0;
 #pragma unroll
-    for (int k = 0; k < kC; ++k) {
-      const int c = tid + k * T;
-      if (c >= m) continue;
-      for (int s = 0; s < wr; ++s)
-        v2c_out[row * E + c * wr + s] =
-            s < dc[k] ? __fsub_rn(s_tot[s_cv[c * kWideSlots + s]], ms_value(msg[k], s)) : 0.0f;
+      for (int k = 0; k < kC; ++k) {
+        const int c = tid + k * T;
+        if (c >= m) continue;
+        const int4 row4 = reinterpret_cast<const int4*>(s_cv)[c];
+        const uint32_t w[4] = {(uint32_t)row4.x, (uint32_t)row4.y, (uint32_t)row4.z,
+                               (uint32_t)row4.w};
+        float tt[kWideSlots];
+#pragma unroll
+        for (int s = 0; s < kWideSlots; ++s)
+          tt[s] = s_tot[(w[s >> 1] >> (16 * (s & 1))) & 0xffffu];
+        int hp = syn >> k & 1;
+        MinSumAcc acc;
+        acc.init();
+#pragma unroll
+        for (int s = 0; s < kWideSlots; ++s) {
+          hp ^= tt[s] <= 0.0f;
+          acc.add(__fsub_rn(tt[s], ms_value(msg[k], s)), s);  // a pad: +inf
+        }
+        fail |= hp;
+        if (more) store(c, acc.finish(alpha, dc[k], syn >> k & 1));  // the one of it + 1
+      }
+      const int any_fail = __syncthreads_or(fail);
+      if (!any_fail || !more) {  // stop at it: tot_it and msg stay
+        stop = it;
+        fail_at_stop = any_fail;
+        break;
+      }
+#pragma unroll
+      for (int k = 0; k < kC; ++k)
+        if (tid + k * T < m) msg[k] = load(tid + k * T);
+      variable_sums();
+      __syncthreads();
     }
-  }
-  if (tid == 0) {
-    conv[row] = !fail_at_stop;
-    iters[row] = stop;
-    if (row_iters) atomicAdd(row_iters, (unsigned long long)(stop - it0));
-    if (wide_iters) atomicAdd(wide_iters, (unsigned long long)(stop - it0));
+
+    // ---- emit tot and v2c at the stop (c2v from the message) ----
+    for (int v = tid; v < n; v += T) {
+      const float t = s_tot[v];
+      hard[row * n + v] = (t <= 0.0f);
+      llr[row * n + v] = t;
+    }
+    if (v2c_out) {
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        const int c = tid + k * T;
+        if (c >= m) continue;
+        for (int s = 0; s < wr; ++s)
+          v2c_out[row * E + c * wr + s] =
+              s < dc[k] ? __fsub_rn(s_tot[s_cv[c * kWideSlots + s]], ms_value(msg[k], s))
+                        : 0.0f;
+      }
+    }
+    if (tid == 0) {
+      conv[row] = !fail_at_stop;
+      iters[row] = stop;
+      if (row_iters) atomicAdd(row_iters, (unsigned long long)(stop - it0));
+      if (wide_iters) atomicAdd(wide_iters, (unsigned long long)(stop - it0));
+    }
+  };
+
+  // The next row is fetched once a row has ended, so it goes to the block
+  // that is free first (a fetch as the row starts would tie it to a block
+  // still busy with a long row), and read after a barrier, which also keeps
+  // the row's emit off the next row's totals.  It is kept in the slot of
+  // its fetch's parity, so the fetch after row k + 1 cannot overwrite the
+  // slot a thread has yet to read after row k.
+  int row = blockIdx.x;
+  for (int fetch = 0; row < B; ++fetch) {
+    decode_row((size_t)row);
+    if (tid == 0) s_next[fetch & 1] = counter ? (int)gridDim.x + atomicAdd(counter, 1) : B;
+    __syncthreads();
+    row = s_next[fetch & 1];
   }
 }
 
 using WideKernel = void (*)(const uint8_t*, const float*, long long, const uint8_t*,
                             const float*, const int32_t*, const int32_t*, const int32_t*,
-                            uint8_t*, float*, uint8_t*, int32_t*, float*, unsigned long long*,
-                            unsigned long long*, int, int, int, int, int, int, float);
+                            uint8_t*, float*, uint8_t*, int32_t*, float*, int32_t*,
+                            unsigned long long*, unsigned long long*, int, int, int, int, int,
+                            int, int, float);
 
 WideKernel wide_kernel(int cpt) {
   static const WideKernel kernels[kWideMaxCPT] = {
@@ -1339,19 +1375,17 @@ bool team_graph(int m, int n, int wr, int wc, int product_sum) {
          tables + team <= (size_t)kSmemLimit;
 }
 
-// The wide plan for B rows on a card of `sms` SMs: out = {block threads,
-// blocks an SM, dynamic shared memory, registers}.  The kernel takes rows of
-// <= 8 slots, columns of <= 4, m <= 4 * 1024 and n <= 8 * 1024 (its checks
-// and variables a thread), 16-bit table entries (n + 1 and 8 * (m + 1) at
-// most 65536), and wide_smem within a block; the plan takes launches of at
-// most kWideMaxRowsPerSM * sms rows, a block a row (two waves at most).
-// cudaErrorNotSupported where any of it fails.  The caller holds plan_mu and
-// has `dev` current.
-cudaError_t wide_shape(int dev, long long B, int sms, int m, int n, int wr, int wc, int* out) {
+// The wide plan: out = {block threads, blocks an SM, dynamic shared memory,
+// registers}.  The kernel takes rows of <= 8 slots, columns of <= 4, m <= 4
+// * 1024 and n <= 8 * 1024 (its checks and variables a thread), 16-bit table
+// entries (n + 1 and 8 * (m + 1) at most 65536), and wide_smem within a
+// block, at any batch (its blocks are persistent).  cudaErrorNotSupported
+// where any of it fails.  The caller holds plan_mu and has `dev` current.
+cudaError_t wide_shape(int dev, int m, int n, int wr, int wc, int* out) {
   const int T = kWideThreads;
   const int cpt = (m + T - 1) / T;
   if (wr > kWideSlots || wc > 4 || cpt > kWideMaxCPT || n > kWideMaxVPT * T ||
-      n + 1 > 65536 || 8 * (m + 1) > 65536 || B > (long long)kWideMaxRowsPerSM * sms)
+      n + 1 > 65536 || 8 * (m + 1) > 65536)
     return cudaErrorNotSupported;
   WideKernel kernel = wide_kernel(cpt);
   struct Entry {
@@ -1402,7 +1436,9 @@ cudaError_t wide_shape(int dev, long long B, int sms, int m, int n, int wr, int 
 //     min(B, SMs) blocks of k rows at most (out[1]), rows b and b + SMs in
 //     block b, so B - SMs blocks hold two rows and the rest one.
 // For min-sum graphs the team kernel does not take, the wide plan (out[6] =
-// 2) where wide_shape takes the launch: the wide kernel, B blocks of one row.
+// 2) where wide_shape takes the graph: the wide kernel, min(B, SMs)
+// persistent blocks of one row at a time (out[3]), rows past the grid handed
+// out by a counter.
 // team_warps > 0 forces the throughput plan with teams of that many warps.
 // Returns 0, or cudaErrorInvalidValue for a graph the team kernel does not
 // take (row weight above 27, more than 1024 threads a team, or a team that
@@ -1421,13 +1457,13 @@ extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_su
   const bool forced = team_warps > 0;
   if (!forced && !product_sum && !team_graph(m, n, wr, wc, product_sum)) {
     int wide[4];
-    err = wide_shape(dev, B, sms, m, n, wr, wc, wide);
+    err = wide_shape(dev, m, n, wr, wc, wide);
     if (err == cudaErrorNotSupported) return (int)cudaErrorInvalidValue;
     if (err != cudaSuccess) return (int)err;
     out[0] = wide[0];
     out[1] = 1;
     out[2] = wide[1];
-    out[3] = B;
+    out[3] = B < sms ? B : sms;
     out[4] = wide[2];
     out[5] = wide[3];
     out[6] = 2;
@@ -1474,8 +1510,8 @@ extern "C" int bp_flood_plan(int B, int m, int n, int wr, int wc, int product_su
 // Launches K1 on `stream`.  With `scratch` (B * bp_flood_scratch_words
 // int32) the first design runs one block per sample with the state there;
 // else bp_flood_plan's plan, the team kernel (with `counter`, one int32 set
-// to 0 by the caller), the latency kernel or the wide kernel, with `deg`
-// [m] int32.  A non-null `row_iters` (one uint64) gets each row's
+// to 0 by the caller), the latency kernel or the wide kernel (with
+// `counter` where its grid is below B), with `deg` [m] int32.  A non-null `row_iters` (one uint64) gets each row's
 // iterations past it0 added, one atomic a row as it finishes; null costs
 // nothing; `wide_iters` the same, in the wide plan only.  A non-null
 // `plan_out` (7 int32) gets the plan (all 0 for the device-memory
@@ -1504,12 +1540,14 @@ extern "C" int bp_flood_launch(const void* synd, const void* llr0, long long llr
   if (plan_out) std::copy(plan, plan + 7, plan_out);
   const int T = plan[0];
   if (plan[6] == 2) {
-    wide_kernel((m + T - 1) / T)<<<B, T, plan[4], (cudaStream_t)stream>>>(
+    if (plan[3] < B && !counter) return (int)cudaErrorInvalidValue;
+    wide_kernel((m + T - 1) / T)<<<plan[3], T, plan[4], (cudaStream_t)stream>>>(
         (const uint8_t*)synd, (const float*)llr0, llr0_stride, (const uint8_t*)skip,
         (const float*)v2c_in, (const int32_t*)chk_var, (const int32_t*)var_edge,
         (const int32_t*)deg, (uint8_t*)hard, (float*)llr, (uint8_t*)conv, (int32_t*)iters,
-        (float*)v2c_out, (unsigned long long*)row_iters, (unsigned long long*)wide_iters, m, n,
-        wr, wc, max_iter, it0, alpha_fixed);
+        (float*)v2c_out, plan[3] < B ? (int32_t*)counter : nullptr,
+        (unsigned long long*)row_iters, (unsigned long long*)wide_iters, B, m, n, wr, wc,
+        max_iter, it0, alpha_fixed);
     return (int)cudaGetLastError();
   }
   if (plan[6]) {

@@ -21,12 +21,14 @@ the card's SM count and the graph alone (:func:`bp_flood_plan`):
 
 A larger graph keeps each sample's state in a device-memory scratch slice,
 one block per sample, launched in row chunks of at most ``_SCRATCH_BYTES``,
-but for min-sum launches of at most two rows an SM that the wide plan takes
-(:func:`wide_plan`): a block of 1024 threads a row, its tables with 16-bit
-entries and the row's totals, priors and compressed check messages in
-shared memory, a few checks and up to 8 variables a thread.  Each launch in
-it adds its rows to the recorder's counter ``bp_flood.wide_rows`` and its
-rows' iterations to the device counter ``bp_flood.wide_row_iters``.
+but for the min-sum graphs the wide plan takes (:func:`wide_plan`), at any
+batch: :func:`wide_grid` persistent blocks of 1024 threads, one an SM, each
+decoding a row at a time (the next from a counter), its tables with 16-bit
+entries loaded once and the row's totals, priors and compressed check
+messages in shared memory, a few checks and up to 8 variables a thread.
+Each launch in it adds its rows to the recorder's counter
+``bp_flood.wide_rows`` and its rows' iterations to the device counter
+``bp_flood.wide_row_iters``.
 The plan queries and launches run with the tensors' card current.
 ``bp_flood.launches`` counts kernel launches (``bp_flood.launches_on`` by
 card).  Given ``row_iters``, a one-slot int64 counter on the card (a slot of
@@ -47,14 +49,13 @@ from . import _build, count_launch, launch_counter, require_cuda
 
 __all__ = ["bp_flood", "bp_flood_plan", "bp_flood_smem_bytes", "bp_flood_table_bytes",
            "bp_flood_team_bytes", "k1_fits", "latency_smem_bytes", "latency_team", "team_shape",
-           "wide_plan", "wide_smem_bytes"]
+           "wide_grid", "wide_plan", "wide_smem_bytes"]
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _SCRATCH_BYTES = 1 << 30  # device-memory placement: scratch per launch
 _MAX_ROW_WEIGHT = 27  # the team kernel keeps a check's sign bits in one word
 _MAX_CHECKS_PER_THREAD = 8
 _WIDE_THREADS = 1024  # the wide kernel's block
-_WIDE_MAX_ROWS_PER_SM = 2
 # Warps of a sample team in the team kernel; 0 takes the choice of
 # ``csrc/bp_flood.cu:bp_flood_plan`` for the graph and batch (either plan),
 # another count forces the throughput plan with teams of that size (for a
@@ -145,20 +146,27 @@ def wide_smem_bytes(m: int, n: int, wc: int) -> int:
     return 16 * m + r16(2 * wc * n) + r16(4 * (n + 1)) + r16(4 * n) + 16 * (m + 1)
 
 
-def wide_plan(graph, B: int, sms: int, product_sum: bool = False) -> bool:
-    """Whether K1's wide plan takes a launch of ``B`` rows on a card of
-    ``sms`` SMs, as ``csrc/bp_flood.cu:bp_flood_plan`` decides it before
-    its occupancy query: a min-sum graph that the team kernel does not take
+def wide_plan(graph, B: int, product_sum: bool = False) -> bool:
+    """Whether K1's wide plan takes a launch of ``B`` rows, as
+    ``csrc/bp_flood.cu:bp_flood_plan`` decides it before its occupancy
+    query: a min-sum graph that the team kernel does not take
     (:func:`k1_fits`, so neither the throughput nor the latency plan), rows
     of <= 8 slots, columns of <= 4, at most 4 checks and 8 variables a
     thread of 1024, 16-bit table entries, :func:`wide_smem_bytes` within a
-    block, and ``B`` at most two rows an SM."""
+    block, and at least one row: its blocks are persistent, so any batch."""
     m, n, wr, wc = graph.m, graph.n, graph.wr, graph.wc
     return (not product_sum and not k1_fits(graph) and wr <= 8 and wc <= 4
             and m <= 4 * _WIDE_THREADS and n <= 8 * _WIDE_THREADS
             and n + 1 <= 65536 and 8 * (m + 1) <= 65536
-            and wide_smem_bytes(m, n, wc) <= _SMEM_LIMIT
-            and 0 < B <= _WIDE_MAX_ROWS_PER_SM * sms)
+            and wide_smem_bytes(m, n, wc) <= _SMEM_LIMIT and B > 0)
+
+
+def wide_grid(B: int, sms: int) -> int:
+    """Blocks of a wide-plan launch of ``B`` rows on a card of ``sms`` SMs,
+    as ``bp_flood_plan`` sizes it: one an SM (its shared memory and 1024
+    threads allow no second), and no more than the rows.  Rows past the grid
+    are handed out by a counter."""
+    return min(B, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -255,13 +263,15 @@ def bp_flood(
             fits = k1_fits(graph, ps)
             # the wide plan where the rule takes the launch and the library's
             # plan agrees (it plans the team kernel for any graph that fits)
-            wide = (not fits and not _TEAM_WARPS and wide_plan(graph, B, _sms(dev.index), ps)
+            wide = (not fits and not _TEAM_WARPS and wide_plan(graph, B, ps)
                     and bp_flood_plan(graph, B)["wide"])
             wide_iters = (profiling.device_counter(("bp_flood.wide_row_iters",), dev)
                           if wide else None)
             if fits or wide:
                 rows, scratch = B, None
-                counter = None if wide else torch.zeros(1, dtype=torch.int32, device=dev)
+                # the team kernel's rows, and the wide kernel's past its grid
+                counter = (None if wide and wide_grid(B, _sms(dev.index)) == B
+                           else torch.zeros(1, dtype=torch.int32, device=dev))
             else:
                 per_row = lib.bp_flood_scratch_words(m, n, wr)
                 rows = max(1, min(B, _SCRATCH_BYTES // (4 * per_row)))

@@ -225,9 +225,11 @@ Phases, one line each (any failed check exits non-zero):
    stage rows equal K1's stages, ``bp_flood.wide_rows`` the rows of the
    stages on the wide plan and ``bp_flood.wide_row_iters`` their
    iterations, every osdw satisfied; each staged K1 launch held to
-   ``bp_decode_plain`` in all five outputs and timed beside its bound with
-   its plan (wide or device memory), the resumed stages also with the
-   device-memory placement forced (``_TEAM_WARPS``), in turns.
+   ``bp_decode_plain`` in all five outputs and timed beside its bound in
+   the wide plan (every stage, stage 1's 4096 rows on persistent blocks)
+   and with the device-memory placement forced (``_TEAM_WARPS``), in
+   turns, with its row-iterations (``bp.row_iters.<i>``) and the ns a
+   row-iteration of each.
 
 The helpers for timing, bounds and gates are those of
 ``bp_osd_tpu_torch/utils/measure.py``, which ``bench_torch.py`` shares.  It
@@ -1792,7 +1794,7 @@ def phase24(tag) -> dict:
     from bp_osd_tpu_torch.codes import phenomenological, two_gross_code
     from bp_osd_tpu_torch.decoder.bp import bp_decode_plain, llr_from_channel
     from bp_osd_tpu_torch.decoder.tanner import TannerGraph
-    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_plan, wide_plan
+    from bp_osd_tpu_torch.ops.cuda_bp import bp_flood, bp_flood_plan, wide_grid, wide_plan
     from bp_osd_tpu_torch.utils import profiling
 
     dev = torch.device("cuda")
@@ -1824,56 +1826,62 @@ def phase24(tag) -> dict:
     check(stage_rows == [st.args[1].shape[0] for st in stages],
           f"phase 24 the decode's stage rows {stage_rows} differ from K1's stages")
     check(got.get("bp_flood") == len(stages) == 3, f"phase 24 one decode's launches {got}")
-    wide = [wide_plan(graph, r, sms) for r in stage_rows]
-    check(wide == [False, True, True], f"phase 24 the stages' plans {wide}: stage 1 in device "
-          "memory, the resumed stages in the wide plan")
-    wide_rows = sum(r for r, w in zip(stage_rows, wide) if w)
-    wide_iters = sum(st.sample_its for st, w in zip(stages, wide) if w)
+    wide = [wide_plan(graph, r) for r in stage_rows]
+    check(all(wide), f"phase 24 the stages' plans {wide}: every stage in the wide plan")
+    row_iters = [counters.get(f"bp.row_iters.{i + 1}", 0) for i in range(len(stages))]
+    check(row_iters == [st.sample_its for st in stages],
+          f"phase 24 bp.row_iters {row_iters} differ from K1's stages")
+    wide_rows, wide_iters = sum(stage_rows), sum(row_iters)
     check(counters.get("bp_flood.wide_rows", 0) == wide_rows > 0,
           f"phase 24 bp_flood.wide_rows {counters.get('bp_flood.wide_rows')} != {wide_rows}, "
-          "the rows of the stages on the wide plan")
+          "every staged row")
     check(counters.get("bp_flood.wide_row_iters", 0) == wide_iters,
           f"phase 24 bp_flood.wide_row_iters {counters.get('bp_flood.wide_row_iters')} != "
-          f"{wide_iters}, the iterations of the stages on the wide plan")
+          f"{wide_iters}, the iterations of every stage")
     check(satisfies(out, H_f, synd), "phase 24 a two-gross osdw violates its syndrome")
 
     results = []
-    for i, (st, w) in enumerate(zip(stages, wide)):
+    for i, st in enumerate(stages):
         k1_equal(bp_flood(*st.args, **st.kw), bp_decode_plain(*st.args, **st.kw),
                  f"phase 24 stage {i + 1} ({st.args[1].shape[0]} rows)")
-        ms = {0: [], 1: []}  # the plan's choice, the device-memory placement forced
-        for r in range(WIDE_ROUNDS if w else 1):
-            for warps in ((0, 1) if r % 2 == 0 else (1, 0)) if w else (0,):
+        ms = {0: [], 1: []}  # the wide plan, the device-memory placement forced
+        for r in range(WIDE_ROUNDS):
+            for warps in (0, 1) if r % 2 == 0 else (1, 0):
                 ms[warps].append(_with_team(warps, lambda: cuda_ms(
                     lambda: bp_flood(*st.args, **st.kw), 1)))
         rows, its = st.args[1].shape[0], st.kw["max_iter"] - st.kw["it0"]
         b = k1_bound(graph, rows, st.sample_its,
                      prior_rows=1 if st.args[2].stride(0) == 0 else rows,
                      v2c_in=st.kw["v2c_init"] is not None, emit=st.kw["emit_state"])
-        r = {"stage": i + 1, "rows": rows, "it0": st.kw["it0"], "max_iter": st.kw["max_iter"],
-             "plan": "wide" if w else "device memory", "ms": float(np.median(ms[0])),
-             "us_per_iteration": 1000 * float(np.median(ms[0])) / its, "bound_ms": b.ms,
-             "bound_by": b.by}
-        if w:
-            plan = bp_flood_plan(graph, rows)
-            r.update(device_memory_ms=float(np.median(ms[1])), threads=plan["team_threads"],
-                     grid=plan["grid"], registers=plan["registers"],
-                     smem_bytes=plan["smem_bytes"])
-        results.append(r)
+        plan = bp_flood_plan(graph, rows)
+        check(plan["grid"] == wide_grid(rows, sms),
+              f"phase 24 stage {i + 1} grid {plan['grid']} != wide_grid {wide_grid(rows, sms)}")
+        wide_ms, dm_ms = float(np.median(ms[0])), float(np.median(ms[1]))
+        results.append({
+            "stage": i + 1, "rows": rows, "it0": st.kw["it0"], "max_iter": st.kw["max_iter"],
+            "ms": wide_ms, "us_per_iteration": 1000 * wide_ms / its, "bound_ms": b.ms,
+            "bound_by": b.by, "row_iters": st.sample_its,
+            "ns_per_row_iteration": 1e6 * wide_ms / st.sample_its, "device_memory_ms": dm_ms,
+            "device_memory_ns_per_row_iteration": 1e6 * dm_ms / st.sample_its,
+            "threads": plan["team_threads"], "grid": plan["grid"],
+            "registers": plan["registers"], "smem_bytes": plan["smem_bytes"]})
     print(f"phase 24 two-gross code [[288,12,18]] over {TWO_GROSS_ROUNDS} rounds ({graph.m} x "
           f"{graph.n}), {TWO_GROSS_B} syndromes at p = {TWO_GROSS_P}, adaptive min-sum to "
           f"{GROSS_ITERS}: one decode's launches {got}, bp_flood.wide_rows {wide_rows}, "
-          f"bp_flood.wide_row_iters {wide_iters}; K1 at its stages, five outputs bit-identical "
-          "to bp_decode_plain: "
-          + "; ".join(f"stage {r['stage']} {r['rows']} rows {r['plan']}: {r['ms']:.3f} ms"
-                      + (f" (device memory forced {r['device_memory_ms']:.3f} ms, in turns; "
-                         f"{r['threads']} threads, grid {r['grid']}, {r['registers']} "
-                         f"registers, {r['smem_bytes']} B shared)" if "grid" in r else "")
-                      + f", {r['us_per_iteration']:.3f} us an iteration, bound "
-                        f"{r['bound_ms']:.4f} ms ({r['bound_by']})" for r in results)
+          f"bp_flood.wide_row_iters {wide_iters}, bp.row_iters {row_iters}; K1 at its stages, "
+          "five outputs bit-identical to bp_decode_plain: "
+          + "; ".join(f"stage {r['stage']} {r['rows']} rows wide: {r['ms']:.3f} ms (device "
+                      f"memory forced {r['device_memory_ms']:.3f} ms, in turns; "
+                      f"{r['threads']} threads, grid {r['grid']}, {r['registers']} "
+                      f"registers, {r['smem_bytes']} B shared)"
+                      f", {r['us_per_iteration']:.3f} us an iteration, "
+                      f"{r['ns_per_row_iteration']:.1f} ns a row-iteration "
+                      f"({r['row_iters']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                      for r in results)
           + f" {tag}")
     return {"two_gross_stages": results, "two_gross_launches": got["bp_flood"],
-            "two_gross_wide_rows": wide_rows, "two_gross_wide_row_iters": wide_iters}
+            "two_gross_wide_rows": wide_rows, "two_gross_wide_row_iters": wide_iters,
+            "two_gross_row_iters": row_iters}
 
 
 def rank_split(ranks: list[dict]) -> str:

@@ -16,7 +16,7 @@ from bp_osd_tpu_torch.decoder.osd import (build_osd_consts, eliminate_plain, osd
                                           osd_decode_plain)
 from bp_osd_tpu_torch.decoder.tanner import TannerGraph
 from bp_osd_tpu_torch.ops.cuda_bp import (bp_flood, bp_flood_plan, k1_fits, latency_smem_bytes,
-                                          latency_team, wide_plan, wide_smem_bytes)
+                                          latency_team, wide_grid, wide_plan, wide_smem_bytes)
 from bp_osd_tpu_torch.ops.cuda_gf2 import (eliminate, gf2_elim_plan, k4_fits, k4_placement,
                                            k4_warp_fits)
 from bp_osd_tpu_torch.ops.cuda_osd import k2_fits, osd_cs, osd_cs_plan, osd_e
@@ -42,8 +42,9 @@ def dev():
 
 def _batch(H, B, p, seed, dev):
     rng = np.random.default_rng(seed)
-    err = (rng.random((B, H.shape[1])) < p).astype(np.uint8)
-    synd = torch.as_tensor(err @ H.T % 2, dtype=torch.uint8, device=dev)
+    err = torch.as_tensor((rng.random((B, H.shape[1])) < p).astype(np.float32), device=dev)
+    H_f = torch.as_tensor(np.asarray(H), dtype=torch.float32, device=dev)
+    synd = torch.remainder(err @ H_f.T, 2).to(torch.uint8)  # exact: sums of 0/1 below 2^24
     llr0 = llr_from_channel(np.full(H.shape[1], p)).to(dev).expand(B, H.shape[1])
     return synd, llr0
 
@@ -541,32 +542,33 @@ def _two_gross():
 CODES["two_gross"] = _two_gross
 _WIDE_ROWS = {"1": lambda sms: 1, "sms": lambda sms: sms, "sms+1": lambda sms: sms + 1,
               "stage2": lambda sms: 180, "2sms": lambda sms: 2 * sms,
-              "2sms+1": lambda sms: 2 * sms + 1}
+              "2sms+1": lambda sms: 2 * sms + 1, "3sms+7": lambda sms: 3 * sms + 7,
+              "4096": lambda sms: 4096}
 
 
 @pytest.mark.parametrize("rows", list(_WIDE_ROWS))
 @pytest.mark.parametrize("msf", [0.0, 0.625])
 def test_bp_flood_wide_plan_bit_identical(dev, rows, msf):
-    """The wide plan (a block of 1024 threads a row, its tables and the
-    row's totals and messages in shared memory) at 1 row, a row on every
-    SM, one past it, a stage-2-sized launch and two rows an SM, fresh (the
-    channel prior broadcast) and resumed (skip rows, a prior a row, a random
-    message state at it0 = 9), adaptive and fixed min-sum: the plain
-    version's five outputs bit for bit, the state emitted, and a
-    row-iteration counter that reads the rows' iterations past ``it0``.  It
-    engages where its rule says, with the shared memory of the Python mirror
-    ``wide_smem_bytes``; one row past two an SM goes to device memory."""
+    """The wide plan (persistent blocks of 1024 threads, one an SM, a row
+    at a time, its tables and the row's totals and messages in shared
+    memory) at 1 row, a row on every SM, one past it, a stage-2-sized
+    launch, two rows an SM and one past, three and more rows an SM and a
+    whole stage 1 of 4096 rows, fresh (the channel prior broadcast) and
+    resumed (skip rows, a prior a row, a random message state at it0 = 9),
+    adaptive and fixed min-sum: the plain version's five outputs bit for
+    bit, the state emitted, and a row-iteration counter that reads the
+    rows' iterations past ``it0``.  It engages at every batch, on the grid
+    of the Python mirror ``wide_grid`` and with the shared memory of
+    ``wide_smem_bytes``."""
     H = CODES["two_gross"]()
     g = TannerGraph(H, dev)
     B = _WIDE_ROWS[rows](_sms(dev))
-    assert not k1_fits(g)
-    engaged = wide_plan(g, B, _sms(dev))
-    assert engaged == (rows != "2sms+1")
-    if engaged:
-        plan = bp_flood_plan(g, B)
-        assert plan["wide"] and not plan["latency"] and plan["grid"] == B
-        assert plan["team_threads"] == 1024 and plan["teams_per_block"] == 1
-        assert plan["smem_bytes"] == wide_smem_bytes(g.m, g.n, g.wc)
+    assert not k1_fits(g) and wide_plan(g, B)
+    plan = bp_flood_plan(g, B)
+    assert plan["wide"] and not plan["latency"] and plan["grid"] == wide_grid(B, _sms(dev))
+    assert plan["team_threads"] == 1024 and plan["teams_per_block"] == 1
+    assert plan["blocks_per_sm"] == 1
+    assert plan["smem_bytes"] == wide_smem_bytes(g.m, g.n, g.wc)
     synd, llr0 = _batch(H, B, 0.015, 40 + B, dev)
     rng = np.random.default_rng(41 + B)
     prior = torch.as_tensor(rng.uniform(1.0, 4.0, (B, g.n)).astype(np.float32), device=dev)
@@ -584,11 +586,10 @@ def test_bp_flood_wide_plan_bit_identical(dev, rows, msf):
 
 def test_bp_flood_two_gross_chain_and_wide_counters(dev):
     """The two-gross space-time matrix: the chain 624 -> 2496 -> 10000 of
-    adaptive min-sum (stage 1 in device memory, the resumed stages in the
-    wide plan) equals the plain version's launch by launch, and the staged
-    pipeline with the recorder on gives the same bits, with
-    ``bp_flood.wide_rows`` the rows of its resumed stages and
-    ``bp_flood.wide_row_iters`` the iterations they ran there."""
+    adaptive min-sum (every stage in the wide plan) equals the plain
+    version's launch by launch, and the staged pipeline with the recorder on
+    gives the same bits, with ``bp_flood.wide_rows`` every staged row and
+    ``bp_flood.wide_row_iters`` the iterations of every stage."""
     from bp_osd_tpu_torch.decoder.pipeline import decode_pipeline
     from bp_osd_tpu_torch.utils import profiling
 
@@ -602,7 +603,7 @@ def test_bp_flood_two_gross_chain_and_wide_counters(dev):
         assert sel.numel() > 0, f"no row left for the launch to {cap}"
         args = (g, synd[sel], llr0[sel])
         kw = dict(max_iter=cap, it0=it0, v2c_init=v2c, emit_state=cap < caps[-1], **_MS)
-        assert wide_plan(g, sel.numel(), _sms(dev)) == (cap > caps[0])
+        assert wide_plan(g, sel.numel())
         out = bp_flood(*args, **kw)
         _equal(out, bp_decode_plain(*args, **kw))
         keep = ~out[2]
@@ -624,8 +625,44 @@ def test_bp_flood_two_gross_chain_and_wide_counters(dev):
     assert [counters.get(f"bp.row_iters.{i}", 0) for i in (1, 2, 3)] == want
     stage_rows = [counters.get(f"bp.stage_rows.{i}", 0) for i in (1, 2, 3)]
     assert stage_rows[0] == B and stage_rows[1] > 0
-    assert counters.get("bp_flood.wide_rows", 0) == stage_rows[1] + stage_rows[2]
-    assert counters.get("bp_flood.wide_row_iters", 0) == want[1] + want[2]
+    assert counters.get("bp_flood.wide_rows", 0) == sum(stage_rows)
+    assert counters.get("bp_flood.wide_row_iters", 0) == sum(want)
+
+
+@pytest.mark.parametrize("method,team_warps", [("product_sum", 0), ("minimum_sum", 1)])
+def test_bp_flood_two_gross_off_the_wide_plan(dev, method, team_warps, monkeypatch):
+    """On the two-gross space-time matrix, product-sum and a forced team
+    size (``_TEAM_WARPS``) stay on the device-memory kernel at a batch of
+    more rows than SMs: no wide row is counted, and the outputs are the
+    plain version's (min-sum bit for bit; product-sum within the first
+    design's tolerance, as in the teams)."""
+    import bp_osd_tpu_torch.ops.cuda_bp as k1
+    from bp_osd_tpu_torch.utils import profiling
+
+    H = CODES["two_gross"]()
+    g = TannerGraph(H, dev)
+    B = 2 * _sms(dev) + 3
+    synd, llr0 = _batch(H, B, 0.015, 23, dev)
+    kw = dict(method=method, max_iter=20, ms_scaling_factor=1.0 if method == "product_sum"
+              else 0.0, emit_state=True)
+    assert wide_plan(g, B, method == "product_sum") == (method == "minimum_sum")
+    monkeypatch.setattr(k1, "_TEAM_WARPS", team_warps)
+    profiling.collect()
+    profiling.enable()
+    try:
+        k = bp_flood(g, synd, llr0, **kw)
+    finally:
+        profiling.disable()
+    counters = profiling.collect().counters
+    assert counters.get("bp_flood.wide_rows", 0) == 0
+    assert counters.get("bp_flood.wide_row_iters", 0) == 0
+    p = bp_decode_plain(g, synd, llr0, **kw)
+    if method == "minimum_sum":
+        _equal(k, p)
+    else:
+        for i in (0, 2, 3):
+            assert torch.equal(k[i], p[i])
+        assert torch.allclose(k[1], p[1], atol=1e-4)
 
 
 @pytest.mark.parametrize("code,team_warps", [("surface", 0), ("flagship", 0), ("flagship", 2),

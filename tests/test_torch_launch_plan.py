@@ -42,6 +42,7 @@ from bp_osd_tpu_torch.ops.cuda_bp import (
     latency_smem_bytes,
     latency_team,
     team_shape,
+    wide_grid,
     wide_plan,
     wide_smem_bytes,
 )
@@ -427,31 +428,50 @@ def _two_gross(rounds):
 @pytest.mark.parametrize("shape,B,sms,ps,want", [
     (TWO_GROSS, 1, 132, False, True),  # a lone row
     (TWO_GROSS, 132, 132, False, True),  # a row an SM
-    (TWO_GROSS, 180, 132, False, True),  # a stage-2-sized launch: two waves at most
+    (TWO_GROSS, 180, 132, False, True),  # a stage-2-sized launch
     (TWO_GROSS, 264, 132, False, True),
-    (TWO_GROSS, 265, 132, False, False),  # more than two rows an SM: device memory
-    (TWO_GROSS, 4096, 132, False, False),  # stage 1 fills the card
+    (TWO_GROSS, 265, 132, False, True),  # more than two rows an SM: persistent blocks
+    (TWO_GROSS, 4096, 132, False, True),  # stage 1 fills the card
+    (TWO_GROSS, 100_000, 132, False, True),
     (TWO_GROSS, 228, 114, False, True),  # a card of 114 SMs
-    (TWO_GROSS, 229, 114, False, False),
+    (TWO_GROSS, 229, 114, False, True),
+    (TWO_GROSS, 4096, 114, False, True),
     (TWO_GROSS, 1, 132, True, False),  # product-sum
+    (TWO_GROSS, 4096, 132, True, False),
     ((936, 2736, 8, 3), 1, 132, False, False),  # the gross space-time matrix: the latency plan
     ((936, 2736, 8, 3), 4096, 132, False, False),  # ... and the throughput plan
     ((192, 400, 7, 4), 1, 132, False, False),  # the flagship
     ((4800, 10000, 7, 4), 1, 132, False, False),  # lift 400: 4800 checks, 10000 variables
     ((2736, 8064, 9, 3), 1, 132, False, False),  # rows of more than 8 slots
+    ((2736, 8064, 9, 3), 4096, 132, False, False),
     ((2736, 8064, 8, 5), 1, 132, False, False),  # columns of more than 4
     ((4097, 8000, 4, 2), 1, 132, False, False),  # more than four checks a thread
     ((4096, 8192, 4, 2), 1, 132, False, True),  # four checks and eight variables a thread
 ])
 def test_wide_plan_rule(shape, B, sms, ps, want):
-    """K1's wide plan takes min-sum launches of at most two rows an SM on
-    graphs the team kernel does not take, within its kernel's bounds
+    """K1's wide plan takes min-sum launches of any size on graphs the team
+    kernel does not take, within its kernel's bounds
     (``csrc/bp_flood.cu:wide_shape``), and no graph the throughput or
-    latency plans take."""
+    latency plans take; its grid is a block an SM, or a block a row below
+    that."""
     g = SimpleNamespace(m=shape[0], n=shape[1], wr=shape[2], wc=shape[3])
-    assert wide_plan(g, B, sms, ps) == want
+    assert wide_plan(g, B, ps) == want
     if want:
         assert not k1_fits(g) and latency_team(*shape, 1) is None
+        assert wide_grid(B, sms) == min(B, sms)
+
+
+@pytest.mark.parametrize("B,sms,grid", [
+    (1, 132, 1),  # a lone row: one block
+    (132, 132, 132),  # a row an SM
+    (133, 132, 132),  # one row past: a block takes two, from the counter
+    (4096, 132, 132),  # stage 1: persistent blocks, one an SM
+    (4096, 114, 114),
+])
+def test_wide_grid(B, sms, grid):
+    """The wide plan's grid, as ``csrc/bp_flood.cu:bp_flood_plan`` sizes
+    it (``bp_flood_plan(...)["grid"]`` on the card): min(B, SMs)."""
+    assert wide_grid(B, sms) == grid
 
 
 def test_wide_plan_takes_no_team_graph():
@@ -460,7 +480,7 @@ def test_wide_plan_takes_no_team_graph():
     for code in ("surface", "flagship", "625", "weight1", "spacetime"):
         g = _graph(code) if code != "spacetime" else TannerGraph(
             np.asarray(_spacetime(), np.uint8), device="cpu")
-        assert k1_fits(g) and not any(wide_plan(g, B, 132) for B in (1, 132, 264, 4096))
+        assert k1_fits(g) and not any(wide_plan(g, B) for B in (1, 132, 264, 4096))
     g = _two_gross(18)
     assert (g.m, g.n, g.wr, g.wc) == TWO_GROSS and not k1_fits(g)
     assert bp_flood_smem_bytes(*TWO_GROSS) == 434_880 > _SMEM_LIMIT
